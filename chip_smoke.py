@@ -5,9 +5,10 @@ Run from the repository root on a machine with an H100:
 
     python3 chip_smoke.py
 
-It drives the port's main path, the paper's stream-ECM loop
-(``repro_torch.benchmarks.gpu_stream_ecm.run``), and holds every CUDA
-kernel against its plain PyTorch version.  Phases:
+It drives the port's two paths, the paper's stream-ECM loop
+(``repro_torch.benchmarks.gpu_stream_ecm.run``) and the Jacobi stencil
+loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``), and holds every
+CUDA kernel against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -19,9 +20,17 @@ kernel against its plain PyTorch version.  Phases:
    across depths, the pipeline bit-identical to the grid kernels, the
    fused chain equal to the unfused one; a 64-row depth-3 ring that does
    not fit shared memory raises;
-4. the main path at 2^26 and 2^20 f32 elements per stream, with every
-   kernel's launch count set to 0 just before and read just after;
-5. one JSON line with the four kernels, then the ``ok`` line.
+4. the stencils at small sizes: the reference's test shapes and one 2D
+   shape of three trailing-dim strips, whole-array and at depths 1/2/3,
+   f32 and bf16, two or three coefficient pairs, bit for bit against the
+   plain version on the card and on the CPU; every depth equal to the
+   whole-array path; the boundary copied; a constant field a fixed
+   point; an unpadded input and a ring over shared memory raise;
+5. the stream loop at 2^26 and 2^20 f32 elements per stream, then the
+   stencil loop at its three full-size points, each path with every
+   kernel's launch count set to 0 just before and read just after; every
+   kernel's share of the HBM bound at most 1.0;
+6. one JSON line with the seven kernels, then the ``ok`` line.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
@@ -39,15 +48,29 @@ import torch
 SRC = Path(__file__).resolve().parent / "src"
 SMALL_ROWS = (512, 64, 33, 7)
 SEED = 0
+#: the reference's stencil test shapes (tests/test_stencil.py), and a 2D
+#: shape of three 1024-column strips, the last one ragged
+STENCIL_SHAPES = ((24, 33), (40, 128), (23, 17), (24, 2100),
+                  (12, 10, 17), (7, 9, 11))
+#: coefficient pairs per dimension: the default, and c0 != 0
+STENCIL_COEFFS = {2: ((0.0, 0.25), (0.3, 0.175)),
+                  3: ((0.0, 1.0 / 6.0), (0.3, 0.175), (0.3, 0.1))}
 
-#: the op and path whose time stands for each kernel in the kernels line,
-#: and the ops and paths it serves
+#: the op (stream loop) or point (stencil loop) and path whose time stands
+#: for each kernel in the kernels line, the family, and the paths it serves
 KERNEL_VIEW = {
     "map_pipeline": ("striad", "2", "map", ("1", "2", "3")),
     "reduce_pipeline": ("ddot", "2", "reduce", ("1", "2", "3")),
     "grid_map": ("striad", "grid", "map", ("grid",)),
     "grid_reduce": ("ddot", "grid", "reduce", ("grid",)),
+    "halo_pipeline": ("2d", "2", "stencil", ("1", "2", "3")),
+    "jacobi2d_grid": ("2d", "grid", "stencil", ("grid",)),
+    "jacobi3d_grid": ("3d", "grid", "stencil", ("grid",)),
 }
+#: which points of the stencil loop each stencil kernel serves
+STENCIL_POINTS = {"halo_pipeline": ("2d", "3d", "3d_lc_broken"),
+                  "jacobi2d_grid": ("2d",),
+                  "jacobi3d_grid": ("3d", "3d_lc_broken")}
 
 
 def _fail(msg: str) -> None:
@@ -118,6 +141,92 @@ def _shared_memory_refusal() -> str:
     return ""
 
 
+def _stencil_small_checks() -> list[str]:
+    """Phase 4; returns what failed."""
+    from repro_torch import convert
+    from repro_torch.kernels.check import compare
+    from repro_torch.kernels.stencil import ops, ref
+
+    failures = []
+    rng = np.random.default_rng(SEED)
+    for shape in STENCIL_SHAPES:
+        dim = len(shape)
+        op, plain = ((ops.jacobi2d, ref.jacobi2d) if dim == 2
+                     else (ops.jacobi3d, ref.jacobi3d))
+        x = rng.standard_normal(shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            a_cpu, a = (convert.streams_from_numpy([x], device=d, dtype=dtype)[0]
+                        for d in ("cpu", "cuda"))
+            for c0, c1 in STENCIL_COEFFS[dim]:
+                where = f"jacobi{dim}d {shape} {dtype} c=({c0}, {c1})"
+                want = plain(a, c0, c1)
+                if not compare(want.cpu(), plain(a_cpu, c0, c1))[0]:
+                    failures.append(f"{where}: plain version on the card "
+                                    f"differs from the CPU's")
+                outs = {}
+                for ns in (None, 1, 2, 3):
+                    outs[ns] = op(a, c0=c0, c1=c1, num_stages=ns)
+                    ok, err, _ = compare(outs[ns], want)
+                    if not ok:
+                        failures.append(f"{where} depth {ns}: err {err}")
+                    if not torch.equal(outs[ns], outs[None]):
+                        failures.append(f"{where}: depth {ns} differs from "
+                                        f"the whole-array path")
+                edge = ref.edge_mask(shape, a.device)
+                if not torch.equal(outs[2][edge], a[edge]):
+                    failures.append(f"{where}: boundary is not the input")
+    for dim, (op, c0, c1) in {2: (ops.jacobi2d, 0.0, 0.25),
+                              3: (ops.jacobi3d, 0.25, 0.125)}.items():
+        a = torch.full((24, 40) if dim == 2 else (12, 10, 17), 3.25,
+                       device="cuda")
+        for ns in (None, 1, 3):
+            if not torch.equal(op(a, c0=c0, c1=c1, num_stages=ns), a):
+                failures.append(f"jacobi{dim}d depth {ns}: a constant field "
+                                f"is not a fixed point")
+    torch.cuda.synchronize()
+    return failures
+
+
+def _stencil_refusals() -> dict:
+    """An unpadded input and a ring over shared memory raise."""
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels.stencil import ops
+
+    out = {}
+    x = torch.zeros((8, 4), device="cuda")
+    try:
+        P.halo_pipeline(x, out_shape=(8, 4), c0=0.0, c1=0.25, num_stages=2,
+                        block_rows=8)
+        _fail("an unpadded input to the halo pipeline did not raise")
+    except ValueError as e:
+        out["unpadded_raises"] = str(e)
+    x = torch.zeros((64, 64, 64), device="cuda")
+    try:
+        ops.jacobi3d(x, num_stages=3, block_rows=16)
+        _fail("a 16-layer depth-3 3D ring did not raise")
+    except ValueError as e:
+        out["ring_16_layers_depth_3_raises"] = str(e)
+    return out
+
+
+def _check_stencil_report(report: dict) -> list[str]:
+    where = f"{report['stencil']} {report['shape']}"
+    out = report["output"]
+    failures = []
+    if list(out.shape) != report["shape"] or not bool(torch.isfinite(out).all()):
+        failures.append(f"{where}: output shape {tuple(out.shape)} or not finite")
+    for path, (ok, err, tol) in report["checks"].items():
+        if not ok:
+            failures.append(f"{where} path {path}: err {err} tol {tol}")
+    shares = report["timings"]["bound_share"]
+    if shares is None:
+        failures.append(f"{where}: no HBM bound at a full-size point")
+    else:
+        failures += [f"{where} path {p}: {v} of the HBM bound, above 1.0"
+                     for p, v in shares.items() if not v <= 1.0]
+    return failures
+
+
 def _check_report(report: dict, bounded: bool) -> list[str]:
     failures = []
     n = report["n"]
@@ -149,6 +258,7 @@ def main() -> int:
         _fail(f"{SRC / 'repro_torch'} not found: run from the repository")
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_stencil_ecm as GS
     from repro_torch.benchmarks import gpu_stream_ecm as G
     from repro_torch.kernels import _build
 
@@ -172,7 +282,17 @@ def main() -> int:
     if failures:
         _fail(f"{len(failures)} small-size checks failed")
 
-    # 4. the main path
+    # 4. the stencils at small sizes
+    failures = _stencil_small_checks()
+    print(json.dumps({"phase": "stencil_small",
+                      "shapes": [list(s) for s in STENCIL_SHAPES],
+                      "failures": failures}))
+    print(json.dumps(_stencil_refusals()))
+    if failures:
+        _fail(f"{len(failures)} small-size stencil checks failed")
+
+    # 5. the two paths, each with its launches counted from 0
+    t_path = time.perf_counter()
     kernels.reset_launches()
     full = G.run(rows=G.N_FULL_ROWS)
     failures += _check_report(full, bounded=True)
@@ -185,26 +305,53 @@ def main() -> int:
                           "block_rows": report["block_rows"]}))
         for rec in G.summary(report):
             print(json.dumps(rec))
-    failures += [f"{k} was not launched on the main path"
+    stream_s = time.perf_counter() - t_path
+
+    t_path = time.perf_counter()
+    kernels.reset_launches()
+    stencil = {}
+    for point, shape in GS.POINTS.items():
+        report = GS.run(shape=shape)
+        failures += _check_stencil_report(report)
+        report.pop("output")
+        stencil[point] = report
+        torch.cuda.empty_cache()
+    launches |= {k.name: k.launches for k in kernels.KERNELS
+                 if k.name in STENCIL_POINTS}
+    for report in stencil.values():
+        print(json.dumps({"device": report["device"]}))
+        for rec in GS.summary(report):
+            print(json.dumps(rec))
+    print(json.dumps({"path_s": {"stream": stream_s,
+                                 "stencil": time.perf_counter() - t_path}}))
+    failures += [f"{k} was not launched on its path"
                  for k, v in launches.items() if v == 0]
 
-    # 5. the kernels line
+    # 6. the kernels line
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
               "reduce": [o for o in G.OPS if o in kernels.pipeline.REDUCE_OPS]}
     rows = []
     for k in kernels.KERNELS:
         op, path, family, served = KERNEL_VIEW[k.name]
-        checks = [full["checks"][o][p] for o in ops_of[family] for p in served]
+        if family == "stencil":
+            checks = [stencil[pt]["checks"][p] for pt in STENCIL_POINTS[k.name]
+                      for p in served]
+            rec = stencil[op]["timings"]
+            where = {"op": stencil[op]["stencil"], "path": path,
+                     "shape": stencil[op]["shape"]}
+        else:
+            checks = [full["checks"][o][p] for o in ops_of[family]
+                      for p in served]
+            rec = full["timings"]["ops"][op]
+            where = {"op": op, "path": path, "n": full["n"]}
         worst = max(checks, key=lambda c: c[1])
-        rec = full["timings"]["ops"][op]
         rows.append({
             "name": k.name, "route": k.route, "source": k.source_path,
             "replaces": k.replaces, "launches": launches[k.name],
             "max_abs_err": worst[1], "tolerance": worst[2],
             "ms": rec["ms"][path], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "op": op, "path": path,
-            "n": full["n"],
+            "library_ms": rec["library_ms"], **where,
         })
     print(json.dumps({"kernels": rows}))
     if failures:

@@ -20,8 +20,6 @@ a machine with the card; it prints one JSON object per line.
 from __future__ import annotations
 
 import json
-import statistics
-import time
 
 import torch
 
@@ -33,6 +31,7 @@ from ..kernels import pipeline as P
 from ..kernels.check import compare
 from ..kernels.stream import kernel as K
 from ..kernels.stream import ops, ref
+from .timing import time_call
 
 LANES = P.LANES
 #: 2^26 f32 elements per stream: 256 MiB per array, more than 4x the
@@ -41,9 +40,6 @@ N_FULL_ROWS = (1 << 26) // LANES
 #: 2^20 elements per stream: 4 MiB per array, resident in L2.
 N_L2_ROWS = (1 << 20) // LANES
 SEED = 0
-INNER = 20            # launches per timed repeat
-REPEATS = 5           # timed repeats; the median is reported
-SPIN_CYCLES = 20_000_000   # ~10 ms busy-wait queued ahead of each repeat
 S, T = 1.7, -0.3
 DEPTHS = (1, 2, 3)
 OPS = ("load", "ddot", "store", "update", "copy", "striad", "schoenauer",
@@ -152,31 +148,6 @@ def validate(streams, machine: GPUMachineModel) -> dict:
     return out
 
 
-def _time(fn) -> tuple[float, float]:
-    """``(device ms, host us)`` per call: the median over REPEATS of INNER
-    back-to-back calls between two CUDA events.  Each repeat is queued
-    behind a busy-wait on the card, so the host has enqueued every call
-    before the card reaches the first event and the events read device
-    time alone; the host's enqueue time is returned beside it."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    dev, host = [], []
-    for _ in range(REPEATS):
-        torch.cuda._sleep(SPIN_CYCLES)
-        h0 = time.perf_counter()
-        start.record()
-        for _ in range(INNER):
-            fn()
-        end.record()
-        h1 = time.perf_counter()
-        torch.cuda.synchronize()
-        dev.append(start.elapsed_time(end) / INNER)
-        host.append((h1 - h0) / INNER * 1e6)
-    return statistics.median(dev), statistics.median(host)
-
-
 def _library_calls(streams) -> dict:
     """One PyTorch call per op computing the same function into a
     preallocated output: a yardstick only, never called by the port."""
@@ -218,7 +189,7 @@ def pipeline_timings(streams, machine: GPUMachineModel) -> dict:
     for name, (kernel, plain, _) in cases(streams).items():
         ms, host = {}, {}
         for path, ns, br in route:
-            ms[path], host[path] = _time(lambda ns=ns, br=br: kernel(ns, br))
+            ms[path], host[path] = time_call(lambda ns=ns, br=br: kernel(ns, br))
         nbytes = _stream_count(name) * n * a.element_size()
         bound = _bound(name, n, nbytes, machine) if bounded else None
         out["ops"][name] = {
@@ -228,13 +199,13 @@ def pipeline_timings(streams, machine: GPUMachineModel) -> dict:
             "bound_ms": bound[0] if bound else None,
             "bound_by": bound[1] if bound else None,
             "bound_share": {p: bound[0] / t for p, t in ms.items()} if bound else None,
-            "plain_ms": _time(plain)[0],
-            "library_ms": _time(lib[name])[0] if name in lib else None,
+            "plain_ms": time_call(plain)[0],
+            "library_ms": time_call(lib[name])[0] if name in lib else None,
         }
 
     pb = pipeline_block(machine)
     b2, c2 = b.view(rows, LANES), c.view(rows, LANES)
-    one_sm = {d: _time(lambda d=d: P.map_pipeline(
+    one_sm = {d: time_call(lambda d=d: P.map_pipeline(
         "striad", (S,), (b2, c2), rows=rows, dtype=b.dtype, device=b.device,
         num_stages=d, block_rows=pb, ctas=1))[0] for d in (1, 2)}
     card = out["ops"]["striad"]["ms"]
@@ -247,7 +218,7 @@ def pipeline_timings(streams, machine: GPUMachineModel) -> dict:
     }
 
     t_fused = out["ops"]["triad_update"]["ms"]["2"]
-    t_unfused = _time(lambda: ops.triad_update_unfused(
+    t_unfused = time_call(lambda: ops.triad_update_unfused(
         S, T, b, c, num_stages=2, block_rows=pb))[0]
     unfused_streams, fused_streams = TRIAD_UPDATE_STREAMS
     out["fused_triad_update"] = {
@@ -258,7 +229,7 @@ def pipeline_timings(streams, machine: GPUMachineModel) -> dict:
 
     e = gpu_stream_ecm("striad", machine)
     t_rmw_hbm = (_stream_count("striad") + 1) * LANES * 4 / machine.hbm_bytes_per_cycle()
-    t_rmw = _time(lambda: ops.striad_rmw(S, a, b, c))[0]
+    t_rmw = time_call(lambda: ops.striad_rmw(S, a, b, c))[0]
     out["rmw"] = {
         "striad_ms": card["grid"], "striad_rmw_ms": t_rmw,
         "ratio": t_rmw / card["grid"],

@@ -1,7 +1,8 @@
 """Carry the reference's state across to the port.
 
-This system has no weights: its state is the input streams and the
-Table I kernel specs.  Streams arrive as numpy arrays (bf16 ones as
+This system has no weights: its state is the input streams (and the
+stencils' grids, arrays of any shape) and the Table I kernel specs.
+Arrays arrive as numpy arrays (bf16 ones as
 ``np.asarray`` of a JAX array gives them, with the ``ml_dtypes`` bfloat16
 dtype, which ``torch.from_numpy`` does not take); specs as the dict
 ``dataclasses.asdict`` makes of a reference spec.

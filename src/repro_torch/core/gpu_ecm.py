@@ -5,11 +5,17 @@ The counterpart of the reference's ``repro/core/tpu_ecm.py`` for one card:
 memory streaming), composed by Eq. 1 with a fraction of the transfer
 serialized with compute (the ``T_nOL`` role).  Collective terms (ICI/DCN
 in the reference) wait for the multi-card slices of the port.
+
+:func:`gpu_stencil_ecm` builds the step model of one Jacobi sweep, with
+its HBM traffic from the layer condition of the card's L2.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
+
+from .layer_condition import StencilSpec
 
 
 @dataclass(frozen=True)
@@ -69,3 +75,39 @@ def with_measured_overlap(step: StepECM, *, t_serial_s: float,
     multi-buffered timing pair."""
     f = measured_overlap(t_serial_s, t_pipelined_s, step.t_hbm)
     return dataclasses.replace(step, exposed_hbm_fraction=f)
+
+
+def stencil_hbm_streams(spec: StencilSpec, shape: tuple[int, ...], machine,
+                        *, block: tuple[int, ...] | None = None) -> int:
+    """Arrays the sweep of ``shape`` streams through HBM per update: the
+    input streams that miss the card's L2 under the layer condition (of
+    ``spec.elem_bytes`` elements, with ``LC_SAFETY``), plus the write-back
+    of the output.  ``block`` caps the inner widths at the trailing-dim
+    tile of a blocked sweep (the halo pipeline's).  Stores write whole
+    sectors, so there is no write-allocate stream, as in the stream loop's
+    model."""
+    return (spec.load_misses(machine.l2_bytes, tuple(shape[1:]), block=block)
+            + spec.wb_streams)
+
+
+def gpu_stencil_ecm(spec: StencilSpec, shape: tuple[int, ...], machine,
+                    elem_bytes: int, *,
+                    block: tuple[int, ...] | None = None) -> StepECM:
+    """Two-term model of one sweep over an array of ``shape`` with
+    ``elem_bytes`` elements on the card ``machine`` (a
+    ``GPUMachineModel``); times in seconds.
+
+    ``T_hbm = streams x elem_bytes x LUPs / hbm_bytes_per_s`` with the
+    streams of :func:`stencil_hbm_streams` (``block`` as there);
+    ``T_comp = flops_per_elem x LUPs / peak_f32_flops``.
+    """
+    if len(shape) != spec.dim:
+        raise ValueError(f"{spec.name} takes a {spec.dim}D shape, got {shape}")
+    spec = dataclasses.replace(spec, elem_bytes=elem_bytes)
+    lups = math.prod(shape)
+    streams = stencil_hbm_streams(spec, shape, machine, block=block)
+    return StepECM(
+        name=f"gpu-{spec.name}",
+        t_comp=spec.flops_per_elem * lups / machine.peak_f32_flops,
+        t_hbm=streams * elem_bytes * lups / machine.hbm_bytes_per_s,
+        exposed_hbm_fraction=machine.exposed_hbm_fraction)

@@ -2,14 +2,17 @@
 
 ``csrc/`` holds the CUDA C++ sources (built by :mod:`._build` at first
 use), :mod:`.pipeline` the multi-buffered pipeline engine and its host
-contract, :mod:`.stream` the paper's stream ops.  :data:`KERNELS` lists
-every kernel wrapper; each counts its launches.
+contract, :mod:`.stream` the paper's stream ops, :mod:`.stencil` the
+Jacobi stencils.  :data:`KERNELS` lists every kernel wrapper; each counts
+its launches.
 """
-from . import pipeline, stream
-from .pipeline import MAP_PIPELINE, REDUCE_PIPELINE
+from . import pipeline, stencil, stream
+from .pipeline import HALO_PIPELINE, MAP_PIPELINE, REDUCE_PIPELINE
+from .stencil.kernel import JACOBI2D_GRID, JACOBI3D_GRID
 from .stream.kernel import GRID_MAP, GRID_REDUCE
 
-KERNELS = (MAP_PIPELINE, REDUCE_PIPELINE, GRID_MAP, GRID_REDUCE)
+KERNELS = (MAP_PIPELINE, REDUCE_PIPELINE, GRID_MAP, GRID_REDUCE,
+           HALO_PIPELINE, JACOBI2D_GRID, JACOBI3D_GRID)
 
 #: the CUDA sources, one library each
 SOURCES = tuple(sorted({k.source for k in KERNELS}))

@@ -1,4 +1,4 @@
-// Shared device code of the stream kernels (stream.cu, pipeline.cu).
+// Shared device code of the kernels (stream.cu, pipeline.cu, stencil.cu).
 //
 // Arrays are the reference's (rows, 128) stream layout, row-major and
 // contiguous; a 128-lane row is 512 B in f32 and 256 B in bf16, so every
@@ -145,6 +145,38 @@ __global__ void __launch_bounds__(THREADS) sum_partials(const float* __restrict_
   for (long long i = threadIdx.x; i < n; i += THREADS) acc = __fadd_rn(acc, part[i]);
   const float r = block_sum(acc);
   if (threadIdx.x == 0) out[0] = r;
+}
+
+// cp.async: copies from device memory into shared memory that complete
+// asynchronously, in commit groups.  16 bytes (cg: bypass L1) for the
+// stream rings; 4 bytes (ca) for the stencil rings, whose rows start at
+// any 4-byte boundary.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's commit groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_all;\n" ::: "memory"); break;  // deeper rings: correct, less overlap
+  }
 }
 
 // the error of the first failing call, else of the launches since

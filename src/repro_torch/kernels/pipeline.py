@@ -20,10 +20,24 @@ a ring that does not fit raises, the block is never shrunk silently.
 The wrappers :func:`map_pipeline` and :func:`reduce_pipeline` launch the
 CUDA kernels of ``csrc/pipeline.cu`` on CUDA tensors; CPU tensors take
 the plain versions in ``stream/ref.py`` one level up, in ``stream/ops.py``.
+
+**The halo pipeline** (the stencils' engine, :func:`halo_pipeline`, kernel
+in ``csrc/stencil.cu``) keeps the reference's axis-0 contract
+(``halo_pipeline_call``): the padded input's axis 0 must be
+``rows + 2*halo`` or it raises; the block is fitted and the depth capped
+as above; chunk ``c`` reads padded rows ``[c*b, c*b + b + 2*halo)`` and
+writes output rows ``[c*b, (c+1)*b)``.  A whole padded row or layer does
+not fit in shared memory at the sizes the card runs (ten 2D rows of 8194
+f32 are 320 KiB), so each chunk is also cut along the trailing dims into
+tiles of :data:`HALO_TILE` outputs, each fetched with its own halo
+(:func:`halo_plan`).  The ring of a tile is checked against the card's
+shared memory and raises; neither block nor tile is shrunk to fit.  CPU
+tensors take the stencils' plain versions in ``stencil/ops.py``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
@@ -200,4 +214,130 @@ def reduce_pipeline(op: str, ins: tuple, *, num_stages: int,
                            partial.data_ptr(), out.data_ptr(), n_chunks,
                            block, stages, grid,
                            torch.cuda.current_stream(device).cuda_stream)
+    return out
+
+
+#: halo width of the stencils' pipeline: one point on every side
+HALO = 1
+#: trailing-dim tile of a halo-pipeline chunk, in output points: (1, w)
+#: for a 2D strip, (h, w) for a 3D patch, each the 1024 points of the
+#: kernel's 1024 threads.  A 3D slot of 8 + 2 layers of 18 x 66 f32 is
+#: 47,520 B and a 2D one of 10 rows of 1026 is 41,040 B, so a depth-3 ring
+#: at the reference's 8-row block fits in 227 KB.
+HALO_TILE = {2: (1, 1024), 3: (16, 64)}
+
+
+@dataclass(frozen=True)
+class HaloPlan:
+    """Geometry of one halo-pipeline call.
+
+    ``tile`` is ``(tile_h, tile_w)`` (``tile_h == 1`` in 2D), cut to the
+    array where it is narrower; ``tiles_x`` the tiles along the last axis
+    and ``tiles`` those of one axis-0 chunk; ``pitch`` the elements of a
+    slot row (the tile's width plus its halo, plus room for bf16's word
+    alignment); ``lines`` the slot rows per axis-0 row; ``n_items`` the
+    chunks times ``tiles``; ``smem_bytes`` the ring.  The kernel takes
+    all of it as given.
+    """
+
+    block: int
+    n_chunks: int
+    stages: int
+    tile: tuple[int, int]
+    tiles_x: int
+    tiles: int
+    pitch: int
+    lines: int
+    n_items: int
+    smem_bytes: int
+
+
+def halo_plan(in_shape, out_shape, dtype: torch.dtype, *, num_stages: int,
+              block_rows: int, smem_limit: int) -> HaloPlan:
+    """The chunks, tiles and ring of a halo-pipeline call over a padded
+    input of ``in_shape`` into ``out_shape`` (2D or 3D).  Raises
+    ``ValueError`` on an input that is not padded by :data:`HALO` on
+    every side, and on a ring over ``smem_limit`` bytes."""
+    rows = out_shape[0]
+    if in_shape[0] != rows + 2 * HALO:
+        raise ValueError(
+            f"padded input axis 0 must be rows + 2*halo = {rows + 2*HALO}, "
+            f"got {in_shape[0]}")
+    want = tuple(d + 2 * HALO for d in out_shape[1:])
+    if len(out_shape) not in HALO_TILE or tuple(in_shape[1:]) != want:
+        raise ValueError(
+            f"the stencils take a 2D or 3D output and an input padded by "
+            f"{HALO} on every side: trailing dims {want}, got "
+            f"{tuple(in_shape[1:])} for output {tuple(out_shape)}")
+    block, n_chunks, stages = chunking(rows, block_rows, num_stages)
+    dim = len(out_shape)
+    height = out_shape[1] if dim == 3 else 1
+    width = out_shape[-1]
+    th, tw = (min(t, n) for t, n in zip(HALO_TILE[dim], (height, width)))
+    elem_bytes = torch.finfo(dtype).bits // 8
+    # bf16 rows are copied in 4-byte words from an even element: room for
+    # a shift of one element, and an even pitch so every row is aligned
+    pitch = tw + 2 * HALO if elem_bytes == 4 else (tw + 2 * HALO + 2) & ~1
+    lines = th + 2 * HALO if dim == 3 else 1
+    # the ring: a slot per stage, each b + 2 axis-0 rows of `lines` rows
+    smem = stages * (block + 2 * HALO) * lines * pitch * elem_bytes
+    if smem > smem_limit:
+        raise ValueError(
+            f"a {stages}-deep halo ring of {block}-row blocks in "
+            f"{th} x {tw} tiles needs {smem} B of shared memory, over the "
+            f"{smem_limit} B a block may use; pass a smaller block_rows or "
+            f"num_stages")
+    tiles_x = math.ceil(width / tw)
+    tiles = math.ceil(height / th) * tiles_x
+    return HaloPlan(block, n_chunks, stages, (th, tw), tiles_x, tiles, pitch,
+                    lines, n_chunks * tiles, smem)
+
+
+HALO_PIPELINE = _build.Kernel(
+    "halo_pipeline", "stencil", "rt_halo_pipeline",
+    [_I, _I, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     _LL, _I, _LL, _P],
+    replaces="src/repro/kernels/pipeline.py:356")
+
+
+def check_grid(p: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless ``p`` is a contiguous CUDA tensor of a
+    dtype the kernels take, 2D or 3D, starting on a 4-byte boundary."""
+    if p.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {p.device}")
+    if p.dtype not in DTYPES:
+        raise ValueError(f"the CUDA kernels take {list(DTYPES)}, got {p.dtype}")
+    if p.dim() not in HALO_TILE or not p.is_contiguous() or p.data_ptr() % 4:
+        raise ValueError(f"expected a contiguous, 4-byte aligned 2D or 3D "
+                         f"tensor, got {tuple(p.shape)} with strides "
+                         f"{p.stride()}")
+
+
+def halo_pipeline(p: torch.Tensor, *, out_shape: tuple, c0: float, c1: float,
+                  num_stages: int, block_rows: int,
+                  ctas: int | None = None) -> torch.Tensor:
+    """Launch the Jacobi sweep of the padded CUDA array ``p`` (5-point in
+    2D, 7-point in 3D) through the halo pipeline; returns a new tensor of
+    ``out_shape``.
+
+    ``ctas`` pins the persistent grid (the one-SM overlap pair uses 1);
+    by default it is ``min(n_items, SMs)``.
+    """
+    check_grid(p)
+    props = torch.cuda.get_device_properties(p.device)
+    plan = halo_plan(tuple(p.shape), tuple(out_shape), p.dtype,
+                     num_stages=num_stages, block_rows=block_rows,
+                     smem_limit=props.shared_memory_per_block_optin)
+    grid = min(plan.n_items, props.multi_processor_count) if ctas is None else ctas
+    if not 1 <= grid <= plan.n_items:
+        raise ValueError(f"ctas must lie in [1, {plan.n_items}], got {grid}")
+    dim = len(out_shape)
+    height = out_shape[1] if dim == 3 else 1
+    out = torch.empty(tuple(out_shape), dtype=p.dtype, device=p.device)
+    HALO_PIPELINE.launch(
+        dim, DTYPES[p.dtype], p.data_ptr(), out.data_ptr(),
+        _scal(c0, p.dtype), _scal(c1, p.dtype), out_shape[0], height,
+        out_shape[-1], plan.block, plan.stages, *plan.tile, plan.tiles_x,
+        plan.tiles, plan.pitch, plan.lines, plan.n_items, grid,
+        plan.smem_bytes, torch.cuda.current_stream(p.device).cuda_stream)
     return out

@@ -35,6 +35,9 @@ def test_port_files_exist():
     assert len(PORT_FILES) > 10
     assert (ROOT / "src/repro_torch/kernels/csrc/stream.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/pipeline.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/stencil.cu").exists()
+    assert ROOT / "src/repro_torch/benchmarks/gpu_stencil_ecm.py" in PORT_FILES
+    assert ROOT / "src/repro_torch/core/layer_condition.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -49,6 +52,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.kernels\n"
         "import repro_torch.benchmarks.gpu_stream_ecm\n"
+        "import repro_torch.benchmarks.gpu_stencil_ecm\n"
+        "import repro_torch.kernels.stencil.ops\n"
+        "import repro_torch.core.layer_condition\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
