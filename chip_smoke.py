@@ -5,10 +5,11 @@ Run from the repository root on a machine with an H100:
 
     python3 chip_smoke.py
 
-It drives the port's two paths, the paper's stream-ECM loop
-(``repro_torch.benchmarks.gpu_stream_ecm.run``) and the Jacobi stencil
-loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``), and holds every
-CUDA kernel against its plain PyTorch version.  Phases:
+It drives the port's three paths, the paper's stream-ECM loop
+(``repro_torch.benchmarks.gpu_stream_ecm.run``), the Jacobi stencil
+loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``) and the
+compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``), and
+holds every CUDA kernel against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -26,11 +27,21 @@ CUDA kernel against its plain PyTorch version.  Phases:
    plain version on the card and on the CPU; every depth equal to the
    whole-array path; the boundary copied; a constant field a fixed
    point; an unpadded input and a ring over shared memory raise;
-5. the stream loop at 2^26 and 2^20 f32 elements per stream, then the
-   stencil loop at its three full-size points, each path with every
-   kernel's launch count set to 0 just before and read just after; every
-   kernel's share of the HBM bound at most 1.0;
-6. one JSON line with the seven kernels, then the ``ok`` line.
+5. matmul and attention at small sizes: the reference's test shapes at
+   every compiled tiling that divides them (matmul in f32 and bf16;
+   attention causal and not, GQA 2/1/8, and bf16 at one shape), the
+   reference's decode case at ``bq = 1``, each within the reference's
+   tolerance of the plain version; a tiling the kernel is not compiled
+   for, a tile over shared memory, an uncompiled head dim, ``causal``
+   with ``sq != sk`` and a non-dividing block raise;
+6. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
+   loop at its three full-size points, then the compute loop at its four
+   points (f32 and bf16 4096^3 matmul, causal prefill and decode
+   attention at S = 4096, 16 heads, 8 KV heads, d = 128), each path with
+   every kernel's launch count set to 0 just before and read just after;
+   every kernel's share of its bound at most 1.0 (for matmul and
+   attention at every tiling timed);
+7. one JSON line with the nine kernels, then the ``ok`` line.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
@@ -56,8 +67,9 @@ STENCIL_SHAPES = ((24, 33), (40, 128), (23, 17), (24, 2100),
 STENCIL_COEFFS = {2: ((0.0, 0.25), (0.3, 0.175)),
                   3: ((0.0, 1.0 / 6.0), (0.3, 0.175), (0.3, 0.1))}
 
-#: the op (stream loop) or point (stencil loop) and path whose time stands
-#: for each kernel in the kernels line, the family, and the paths it serves
+#: the op (stream loop) or point (stencil and compute loops) and path whose
+#: time stands for each kernel in the kernels line, the family, and the
+#: paths (compute: points) it serves
 KERNEL_VIEW = {
     "map_pipeline": ("striad", "2", "map", ("1", "2", "3")),
     "reduce_pipeline": ("ddot", "2", "reduce", ("1", "2", "3")),
@@ -66,7 +78,17 @@ KERNEL_VIEW = {
     "halo_pipeline": ("2d", "2", "stencil", ("1", "2", "3")),
     "jacobi2d_grid": ("2d", "grid", "stencil", ("grid",)),
     "jacobi3d_grid": ("3d", "grid", "stencil", ("grid",)),
+    "matmul": ("matmul", "pick", "compute", ("matmul", "matmul_bf16")),
+    "flash_attention": ("attention_prefill", "pick", "compute",
+                        ("attention_prefill", "attention_decode")),
 }
+#: the reference's matmul and attention test shapes (tests/test_kernels.py):
+#: (m, n, k), and (b, sq, sk, h, hkv, d) with GQA 2, 1 and 8
+MATMUL_SHAPES = ((256, 256, 256), (512, 384, 640), (128, 128, 1024))
+ATTENTION_SHAPES = ((1, 256, 256, 4, 2, 64), (2, 512, 512, 8, 8, 64),
+                    (2, 256, 256, 8, 1, 128))
+#: the reference's decode case: q (2, 1, 8, 64) against k, v (2, 1024, 2, 64)
+DECODE_SHAPE = (2, 1, 1024, 8, 2, 64)
 #: which points of the stencil loop each stencil kernel serves
 STENCIL_POINTS = {"halo_pipeline": ("2d", "3d", "3d_lc_broken"),
                   "jacobi2d_grid": ("2d",),
@@ -209,6 +231,98 @@ def _stencil_refusals() -> dict:
     return out
 
 
+def _compute_small_checks() -> list[str]:
+    """Phase 5; returns what failed."""
+    from repro_torch import convert
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.check import compare
+    from repro_torch.kernels.matmul import kernel as MK
+
+    failures = []
+    rng = np.random.default_rng(SEED)
+
+    def check(point, arrays, block):
+        inputs = convert.streams_from_numpy(arrays, device="cuda",
+                                            dtype=point.dtype)
+        with GC.full_f32():
+            want = GC.plain_op(point, inputs)
+        ok, err, tol = compare(GC.op(point, inputs, block), want,
+                               tol=GC.TOLERANCE[point.op][point.dtype])
+        if not ok:
+            failures.append(f"{point} block {block}: err {err} tol {tol}")
+
+    for m, n, k in MATMUL_SHAPES:
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((m, k), (k, n))]
+        for dtype in (torch.float32, torch.bfloat16):
+            point = GC.Point("matmul", (m, n, k), dtype)
+            for block in MK.TILINGS:
+                if not (m % block[0] or n % block[1] or k % block[2]):
+                    check(point, arrays, block)
+    for dims in ATTENTION_SHAPES + (DECODE_SHAPE,):
+        b, sq, sk, h, hkv, d = dims
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        dtypes = ((torch.float32, torch.bfloat16) if dims == ATTENTION_SHAPES[0]
+                  else (torch.float32,))
+        for dtype in dtypes:
+            for causal in ((False,) if dims == DECODE_SHAPE else (True, False)):
+                point = GC.Point("attention", dims, dtype, causal)
+                blocks = ([(1, 256)] if dims == DECODE_SHAPE else
+                          [t for t in AK.TILINGS if not (sq % t[0] or sk % t[1])])
+                for block in blocks:
+                    check(point, arrays, block)
+    torch.cuda.synchronize()
+    return failures
+
+
+def _compute_refusals() -> dict:
+    """What the matmul and attention ops refuse, each with its message."""
+    from repro_torch.kernels.attention import ops as AO
+    from repro_torch.kernels.matmul import ops as MO
+
+    x = torch.zeros((256, 256), device="cuda")
+    q = torch.zeros((1, 256, 2, 128), device="cuda")
+    calls = {
+        "matmul_uncompiled_tiling": lambda: MO.matmul(x, x, bm=128, bn=128, bk=32),
+        "matmul_over_shared_memory": lambda: MO.matmul(x, x, bm=128, bn=128, bk=256),
+        "matmul_block_does_not_divide": lambda: MO.matmul(x, x, bm=96),
+        "attention_over_shared_memory": lambda: AO.flash_attention(q, q, q, bq=128, bk=256),
+        "attention_uncompiled_head_dim": lambda: AO.flash_attention(
+            q[..., :32].contiguous(), q[..., :32].contiguous(),
+            q[..., :32].contiguous()),
+        "attention_causal_sq_ne_sk": lambda: AO.flash_attention(
+            q[:, :128], q, q, causal=True),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            out[name] = str(e)
+            continue
+        _fail(f"{name} did not raise")
+    return out
+
+
+def _check_compute_report(report: dict) -> list[str]:
+    where = f"{report['op']} {report['dims']} {report['dtype']}"
+    out, failures = report["output"], []
+    dims = report["dims"]
+    shape = ([dims[0], dims[1]] if report["op"] == "matmul"
+             else [dims[0], dims[1], dims[3], dims[5]])
+    if list(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        failures.append(f"{where}: output shape {tuple(out.shape)} or not finite")
+    ok, err, tol = report["check"]
+    if not ok:
+        failures.append(f"{where}: err {err} tol {tol}")
+    failures += [f"{where} block {b}: {v} of the bound, above 1.0"
+                 for b, v in report["timings"]["bound_share"].items()
+                 if not v <= 1.0]
+    return failures
+
+
 def _check_stencil_report(report: dict) -> list[str]:
     where = f"{report['stencil']} {report['shape']}"
     out = report["output"]
@@ -258,6 +372,7 @@ def main() -> int:
         _fail(f"{SRC / 'repro_torch'} not found: run from the repository")
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
     from repro_torch.benchmarks import gpu_stencil_ecm as GS
     from repro_torch.benchmarks import gpu_stream_ecm as G
     from repro_torch.kernels import _build
@@ -291,7 +406,18 @@ def main() -> int:
     if failures:
         _fail(f"{len(failures)} small-size stencil checks failed")
 
-    # 5. the two paths, each with its launches counted from 0
+    # 5. matmul and attention at small sizes
+    failures = _compute_small_checks()
+    print(json.dumps({"phase": "compute_small",
+                      "matmul_shapes": [list(s) for s in MATMUL_SHAPES],
+                      "attention_shapes": [list(s) for s in ATTENTION_SHAPES
+                                           + (DECODE_SHAPE,)],
+                      "failures": failures}))
+    print(json.dumps(_compute_refusals()))
+    if failures:
+        _fail(f"{len(failures)} small-size matmul and attention checks failed")
+
+    # 6. the three paths, each with its launches counted from 0
     t_path = time.perf_counter()
     kernels.reset_launches()
     full = G.run(rows=G.N_FULL_ROWS)
@@ -322,18 +448,41 @@ def main() -> int:
         print(json.dumps({"device": report["device"]}))
         for rec in GS.summary(report):
             print(json.dumps(rec))
-    print(json.dumps({"path_s": {"stream": stream_s,
-                                 "stencil": time.perf_counter() - t_path}}))
+    stencil_s = time.perf_counter() - t_path
+
+    t_path = time.perf_counter()
+    kernels.reset_launches()
+    compute = {}
+    for point_name, point in GC.POINTS.items():
+        report = GC.run(point=point)
+        failures += _check_compute_report(report)
+        report.pop("output")
+        compute[point_name] = report
+        torch.cuda.empty_cache()
+    launches |= {k.name: k.launches for k in kernels.KERNELS
+                 if KERNEL_VIEW[k.name][2] == "compute"}
+    for report in compute.values():
+        print(json.dumps({"device": report["device"]}))
+        for rec in GC.summary(report):
+            print(json.dumps(rec))
+    print(json.dumps({"path_s": {"stream": stream_s, "stencil": stencil_s,
+                                 "compute": time.perf_counter() - t_path}}))
     failures += [f"{k} was not launched on its path"
                  for k, v in launches.items() if v == 0]
 
-    # 6. the kernels line
+    # 7. the kernels line
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
               "reduce": [o for o in G.OPS if o in kernels.pipeline.REDUCE_OPS]}
     rows = []
     for k in kernels.KERNELS:
         op, path, family, served = KERNEL_VIEW[k.name]
-        if family == "stencil":
+        if family == "compute":
+            checks = [compute[pt]["check"] for pt in served]
+            tm = compute[op]["timings"]
+            rec = tm | {"ms": {path: tm["ms"]}}
+            where = {"op": op, "path": path, "block": compute[op]["block"],
+                     "dims": compute[op]["dims"]}
+        elif family == "stencil":
             checks = [stencil[pt]["checks"][p] for pt in STENCIL_POINTS[k.name]
                       for p in served]
             rec = stencil[op]["timings"]

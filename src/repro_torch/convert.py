@@ -1,7 +1,9 @@
 """Carry the reference's state across to the port.
 
 This system has no weights: its state is the input streams (and the
-stencils' grids, arrays of any shape) and the Table I kernel specs.
+stencils' grids, the matmul operands and the attention inputs q, k, v in
+the ``(B, S, H, d)`` layout: arrays of any shape, taken alike) and the
+Table I kernel specs.
 Arrays arrive as numpy arrays (bf16 ones as
 ``np.asarray`` of a JAX array gives them, with the ``ml_dtypes`` bfloat16
 dtype, which ``torch.from_numpy`` does not take); specs as the dict

@@ -1,0 +1,89 @@
+"""Rank the tilings of the compute-bound kernels by the GPU model.
+
+The port's copy of the two compute objectives of the reference's
+``repro/core/autotune.py`` ``rank`` (``objective="matmul"`` and
+``"attention"``).  Candidates are the tilings the CUDA kernels are
+compiled for (``kernels/matmul/kernel.py`` and
+``kernels/attention/kernel.py`` ``TILINGS``) that divide the problem, so
+nothing a kernel would refuse is offered; the reference's enumeration of
+power-of-two divisors has no counterpart.  On this card a tile lives in
+shared memory and registers, not in the reference's largest cache level
+(``max(capacities)``), so a tiling whose shared memory exceeds the card's
+``smem_per_block_optin`` is no candidate at all, where the reference
+ranks a tile that overflows its reuse level last.
+
+Tilings are ranked by the ``t_ecm`` of their ``StepECM``
+(``core/gpu_ecm.py``), with the reference's tie-break: at equal
+predictions the largest output tile first (fewer grid steps and less
+re-streaming than the light-speed model charges for), and among equal
+tiles the order of the kernel's ``TILINGS``.
+"""
+from __future__ import annotations
+
+from .gpu_ecm import gpu_attention_ecm, gpu_matmul_ecm
+from .workload import AttentionWorkload, MatmulWorkload
+
+
+def matmul_block_candidates(m: int, n: int, k: int, machine
+                            ) -> list[tuple[int, int, int]]:
+    """The compiled ``(bm, bn, bk)`` that divide ``(m, n, k)`` and whose
+    panels fit the card's shared memory."""
+    from ..kernels.matmul import kernel as K
+
+    return [t for t in K.TILINGS
+            if m % t[0] == 0 and n % t[1] == 0 and k % t[2] == 0
+            and K.smem_bytes(*t) <= machine.smem_per_block_optin]
+
+
+def attention_block_candidates(sq: int, skv: int, d: int, machine
+                               ) -> list[tuple[int, int]]:
+    """The compiled ``(bq, bkv)`` that divide ``(sq, skv)``, at a compiled
+    head dim, whose buffers fit the card's shared memory."""
+    from ..kernels.attention import kernel as K
+
+    if d not in K.HEAD_DIMS:
+        return []
+    return [t for t in K.TILINGS
+            if sq % t[0] == 0 and skv % t[1] == 0
+            and K.smem_bytes(*t, d) <= machine.smem_per_block_optin]
+
+
+def rank(dims: tuple[int, int, int], machine, *, objective: str,
+         causal: bool = True, elem_bytes: int = 4) -> list[dict]:
+    """Rank the candidate tilings of ``dims`` on the card ``machine`` (a
+    ``GPUMachineModel``), best first.
+
+    ``objective="matmul"``: ``dims`` is ``(m, n, k)``, blocks
+    ``(bm, bn, bk)``.  ``objective="attention"``: ``dims`` is
+    ``(sq, skv, d)`` of one head (heads multiply every candidate's time
+    alike), blocks ``(bq, bkv)``, ``causal`` as the kernel's.
+    ``elem_bytes`` is the element size of the operands.  Returns dicts
+    ``{"block", "t_ecm" (seconds), "smem_bytes"}``; raises ``ValueError``
+    when no compiled tiling fits.
+    """
+    if objective == "matmul":
+        from ..kernels.matmul.kernel import smem_bytes
+
+        m, n, k = dims
+        cands = matmul_block_candidates(m, n, k, machine)
+        steps = [gpu_matmul_ecm(MatmulWorkload(m, n, k, bm, bn, elem_bytes),
+                                machine) for bm, bn, _ in cands]
+        smem = [smem_bytes(*b) for b in cands]
+    elif objective == "attention":
+        from ..kernels.attention.kernel import smem_bytes
+
+        sq, skv, d = dims
+        cands = attention_block_candidates(sq, skv, d, machine)
+        steps = [gpu_attention_ecm(
+            AttentionWorkload(sq, skv, d, bq, bkv, causal, elem_bytes),
+            machine, batch_heads=1) for bq, bkv in cands]
+        smem = [smem_bytes(*b, d) for b in cands]
+    else:
+        raise ValueError(f"objective must be 'matmul' or 'attention', got "
+                         f"{objective!r}")
+    if not cands:
+        raise ValueError(f"no compiled {objective} tiling fits {tuple(dims)}")
+    order = sorted(range(len(cands)),
+                   key=lambda i: (steps[i].t_ecm, -cands[i][0] * cands[i][1]))
+    return [{"block": cands[i], "t_ecm": steps[i].t_ecm,
+             "smem_bytes": smem[i]} for i in order]

@@ -7,7 +7,9 @@ serialized with compute (the ``T_nOL`` role).  Collective terms (ICI/DCN
 in the reference) wait for the multi-card slices of the port.
 
 :func:`gpu_stencil_ecm` builds the step model of one Jacobi sweep, with
-its HBM traffic from the layer condition of the card's L2.
+its HBM traffic from the layer condition of the card's L2;
+:func:`gpu_matmul_ecm` and :func:`gpu_attention_ecm` those of the
+compute-bound kernels, with their traffic laws evaluated at the L2.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import math
 from dataclasses import dataclass
 
 from .layer_condition import StencilSpec
+from .workload import AttentionWorkload, MatmulWorkload
 
 
 @dataclass(frozen=True)
@@ -111,3 +114,28 @@ def gpu_stencil_ecm(spec: StencilSpec, shape: tuple[int, ...], machine,
         t_comp=spec.flops_per_elem * lups / machine.peak_f32_flops,
         t_hbm=streams * elem_bytes * lups / machine.hbm_bytes_per_s,
         exposed_hbm_fraction=machine.exposed_hbm_fraction)
+
+
+def gpu_matmul_ecm(w: MatmulWorkload, machine) -> StepECM:
+    """Two-term model of one blocked product on the card ``machine``;
+    seconds.  ``T_hbm``: the traffic law's bytes at the card's L2 over the
+    HBM rate.  ``T_comp``: ``2mnk`` FLOP at the FFMA rate, the unit the
+    kernel issues its products on in f32 and in bf16 alike (csrc/matmul.cu
+    widens bf16 to f32)."""
+    read, write = w.traffic(machine.l2_bytes)
+    return StepECM(name="gpu-matmul", t_comp=machine.compute_seconds(w.flops),
+                   t_hbm=machine.hbm_seconds(read + write),
+                   exposed_hbm_fraction=machine.exposed_hbm_fraction)
+
+
+def gpu_attention_ecm(w: AttentionWorkload, machine, *,
+                      batch_heads: int) -> StepECM:
+    """Two-term model of flash attention over ``batch_heads`` fused heads
+    on the card ``machine``; seconds.  Heads multiply the work and the
+    traffic of one head (the traffic law at the card's L2); the products
+    and the softmax run on FFMA (csrc/attention.cu)."""
+    read, write = w.traffic(machine.l2_bytes)
+    return StepECM(name="gpu-flash-attention",
+                   t_comp=machine.compute_seconds(w.flops * batch_heads),
+                   t_hbm=machine.hbm_seconds((read + write) * batch_heads),
+                   exposed_hbm_fraction=machine.exposed_hbm_fraction)

@@ -13,18 +13,21 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 #: Data-sheet rates by card name, as ``torch.cuda.get_device_name`` gives
-#: it: HBM bytes/s, FP32 FLOP/s outside the tensor cores, and the boost
-#: clock that links the two to cycles.  H100 SXM: NVIDIA H100 data sheet
-#: (3.35 TB/s HBM3, 67 TFLOP/s FP32 = 132 SMs x 128 lanes x 2 x 1.98 GHz).
+#: it: HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense bf16
+#: FLOP/s on the tensor cores, and the boost clock that links the rates to
+#: cycles.  H100 SXM: NVIDIA H100 data sheet (3.35 TB/s HBM3, 67 TFLOP/s
+#: FP32 = 132 SMs x 128 lanes x 2 x 1.98 GHz, 989 TFLOP/s bf16 dense).
 DATASHEET: dict[str, dict[str, float]] = {
     "NVIDIA H100 80GB HBM3": {
         "hbm_bytes_per_s": 3.35e12,
         "peak_f32_flops": 67e12,
+        "peak_bf16_tensor_flops": 989e12,
         "clock_hz": 1.98e9,
     },
 }
 
-_PRIOR_FIELDS = ("hbm_bytes_per_s", "peak_f32_flops", "clock_hz")
+_PRIOR_FIELDS = ("hbm_bytes_per_s", "peak_f32_flops", "peak_bf16_tensor_flops",
+                 "clock_hz")
 
 
 @dataclass(frozen=True)
@@ -44,6 +47,7 @@ class GPUMachineModel:
     smem_per_block_optin: int
     hbm_bytes_per_s: float
     peak_f32_flops: float
+    peak_bf16_tensor_flops: float
     clock_hz: float
     fp32_lanes_per_sm: int = 128
     priors: tuple[str, ...] = _PRIOR_FIELDS

@@ -3,16 +3,19 @@
 ``csrc/`` holds the CUDA C++ sources (built by :mod:`._build` at first
 use), :mod:`.pipeline` the multi-buffered pipeline engine and its host
 contract, :mod:`.stream` the paper's stream ops, :mod:`.stencil` the
-Jacobi stencils.  :data:`KERNELS` lists every kernel wrapper; each counts
+Jacobi stencils, :mod:`.matmul` the blocked matmul and :mod:`.attention`
+flash attention.  :data:`KERNELS` lists every kernel wrapper; each counts
 its launches.
 """
-from . import pipeline, stencil, stream
+from . import attention, matmul, pipeline, stencil, stream
+from .attention.kernel import FLASH_ATTENTION
+from .matmul.kernel import MATMUL
 from .pipeline import HALO_PIPELINE, MAP_PIPELINE, REDUCE_PIPELINE
 from .stencil.kernel import JACOBI2D_GRID, JACOBI3D_GRID
 from .stream.kernel import GRID_MAP, GRID_REDUCE
 
 KERNELS = (MAP_PIPELINE, REDUCE_PIPELINE, GRID_MAP, GRID_REDUCE,
-           HALO_PIPELINE, JACOBI2D_GRID, JACOBI3D_GRID)
+           HALO_PIPELINE, JACOBI2D_GRID, JACOBI3D_GRID, MATMUL, FLASH_ATTENTION)
 
 #: the CUDA sources, one library each
 SOURCES = tuple(sorted({k.source for k in KERNELS}))

@@ -2,10 +2,11 @@
 
 Every check of the port goes through :func:`compare`: the small-size
 correctness phase on the card, the full-size ``validate()`` of the
-benchmark, and the CPU tests.  It is NaN-safe: an elementwise output
+benchmarks, and the CPU tests.  It is NaN-safe: an elementwise output
 agrees only if ``torch.equal`` holds (False on any NaN), a sum only if it
 is finite and within tolerance, and the reported error counts NaN as
-infinite.
+infinite.  Outputs whose every element is a sum (matmul, attention) take
+an explicit ``tol=(rtol, atol)`` instead.
 """
 from __future__ import annotations
 
@@ -26,22 +27,33 @@ def sum_tolerance(want: float, summed_from: torch.Tensor) -> float:
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, *,
-            summed_from: torch.Tensor | None = None
+            summed_from: torch.Tensor | None = None,
+            tol: tuple[float, float] | None = None
             ) -> tuple[bool, float, float]:
     """``(ok, max_abs_err, tolerance)`` of ``got`` against ``want``.
 
     ``summed_from`` is the input of a sum (its size and dtype set the
-    tolerance); ``None`` means an elementwise output, which must equal
-    ``want`` bit for bit (tolerance 0).
+    tolerance).  ``tol = (rtol, atol)`` holds every element to
+    ``|got - want| <= atol + rtol * |want|`` with every element of ``got``
+    finite (numpy's ``assert_allclose``, NaN-safe); the tolerance reported
+    is the allowance at the largest ``|want|``.  With neither, the output
+    is elementwise and must equal ``want`` bit for bit (tolerance 0).
     """
+    if summed_from is not None and tol is not None:
+        raise ValueError("pass summed_from or tol, not both")
     if got.shape != want.shape or got.dtype != want.dtype:
         raise ValueError(f"cannot compare {tuple(got.shape)} {got.dtype} "
                          f"with {tuple(want.shape)} {want.dtype}")
     inf = float("inf")
     diff = (got.float() - want.float()).abs().nan_to_num(nan=inf, posinf=inf)
     err = float(diff.max()) if diff.numel() else 0.0
+    if tol is not None:
+        rtol, atol = tol
+        allowed = atol + rtol * want.float().abs()
+        ok = bool(torch.isfinite(got).all()) and bool((diff <= allowed).all())
+        return ok, err, float(allowed.max()) if allowed.numel() else atol
     if summed_from is None:
         return torch.equal(got, want), err, 0.0
-    tol = sum_tolerance(float(want), summed_from)
-    ok = bool(torch.isfinite(got).all()) and err <= tol
-    return ok, err, tol
+    bound = sum_tolerance(float(want), summed_from)
+    ok = bool(torch.isfinite(got).all()) and err <= bound
+    return ok, err, bound

@@ -1,4 +1,5 @@
-// Shared device code of the kernels (stream.cu, pipeline.cu, stencil.cu).
+// Shared device code of the kernels (stream.cu, pipeline.cu, stencil.cu,
+// matmul.cu, attention.cu).
 //
 // Arrays are the reference's (rows, 128) stream layout, row-major and
 // contiguous; a 128-lane row is 512 B in f32 and 256 B in bf16, so every
@@ -177,6 +178,62 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_all;\n" ::: "memory"); break;  // deeper rings: correct, less overlap
   }
+}
+
+// N consecutive elements of `dtype` at element offset i of p, widened to
+// float (exact for bf16).  One vector load: N f32 as N/4 float4s (float2
+// for N = 2), N bf16 in 2N bytes; i must keep that vector aligned.
+template <int N>
+__device__ __forceinline__ void load_vec(const void* p, long long i, int dtype, float* out) {
+  if (dtype == F32) {
+    const float* f = static_cast<const float*>(p) + i;
+    if constexpr (N == 2) {
+      const float2 x = *reinterpret_cast<const float2*>(f);
+      out[0] = x.x;
+      out[1] = x.y;
+    } else {
+      static_assert(N % 4 == 0, "f32 vectors of 2 or 4k elements");
+#pragma unroll
+      for (int u = 0; u < N / 4; ++u) {
+        const float4 x = reinterpret_cast<const float4*>(f)[u];
+        out[4 * u] = x.x;
+        out[4 * u + 1] = x.y;
+        out[4 * u + 2] = x.z;
+        out[4 * u + 3] = x.w;
+      }
+    }
+  } else {
+    const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(p) + i;
+    alignas(16) __nv_bfloat16 h[N];
+    if constexpr (N == 8) *reinterpret_cast<uint4*>(h) = *reinterpret_cast<const uint4*>(b);
+    else if constexpr (N == 4) *reinterpret_cast<uint2*>(h) = *reinterpret_cast<const uint2*>(b);
+    else *reinterpret_cast<unsigned*>(h) = *reinterpret_cast<const unsigned*>(b);
+#pragma unroll
+    for (int u = 0; u < N; ++u) out[u] = __bfloat162float(h[u]);
+  }
+}
+
+__device__ __forceinline__ float load1(const void* p, long long i, int dtype) {
+  return dtype == F32 ? static_cast<const float*>(p)[i]
+                      : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+// four floats to elements i..i+3 of p in `dtype` (bf16 rounded to nearest
+// even), one 16- or 8-byte store
+__device__ __forceinline__ void store4(void* p, long long i, int dtype, const float* v) {
+  if (dtype == F32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    alignas(8) __nv_bfloat16 h[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) h[u] = __float2bfloat16_rn(v[u]);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p) + i) = *reinterpret_cast<const uint2*>(h);
+  }
+}
+
+__device__ __forceinline__ void store1(void* p, long long i, int dtype, float v) {
+  if (dtype == F32) static_cast<float*>(p)[i] = v;
+  else static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
 }
 
 // the error of the first failing call, else of the launches since

@@ -1,0 +1,2 @@
+"""The blocked matmul: plain version (:mod:`.ref`), the kernel wrapper
+(:mod:`.kernel`) and the public op with its model bridges (:mod:`.ops`)."""

@@ -313,6 +313,21 @@ def check_grid(p: torch.Tensor) -> None:
                          f"{p.stride()}")
 
 
+def check_dense(*ts: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless every tensor is a contiguous CUDA tensor
+    of one dtype the kernels take, starting on a 16-byte boundary (the
+    matmul and attention kernels load 16 bytes a thread)."""
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels take CUDA tensors, got {t.device}")
+        if t.dtype not in DTYPES or t.dtype != ts[0].dtype:
+            raise ValueError(f"the CUDA kernels take operands of one dtype of "
+                             f"{list(DTYPES)}, got {[u.dtype for u in ts]}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"expected contiguous, 16-byte aligned operands, "
+                             f"got {tuple(t.shape)} with strides {t.stride()}")
+
+
 def halo_pipeline(p: torch.Tensor, *, out_shape: tuple, c0: float, c1: float,
                   num_stages: int, block_rows: int,
                   ctas: int | None = None) -> torch.Tensor:

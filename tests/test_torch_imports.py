@@ -36,8 +36,14 @@ def test_port_files_exist():
     assert (ROOT / "src/repro_torch/kernels/csrc/stream.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/pipeline.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/csrc/stencil.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/matmul.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/attention.cu").exists()
     assert ROOT / "src/repro_torch/benchmarks/gpu_stencil_ecm.py" in PORT_FILES
     assert ROOT / "src/repro_torch/core/layer_condition.py" in PORT_FILES
+    for f in ("benchmarks/gpu_compute_ecm.py", "core/workload.py",
+              "core/autotune.py", "kernels/matmul/ops.py",
+              "kernels/attention/ops.py"):
+        assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -55,6 +61,9 @@ def test_import_leaves_jax_out():
         "import repro_torch.benchmarks.gpu_stencil_ecm\n"
         "import repro_torch.kernels.stencil.ops\n"
         "import repro_torch.core.layer_condition\n"
+        "import repro_torch.benchmarks.gpu_compute_ecm\n"
+        "import repro_torch.kernels.matmul.ops, repro_torch.kernels.attention.ops\n"
+        "import repro_torch.core.autotune, repro_torch.core.workload\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

@@ -1,5 +1,6 @@
-"""The slices as a whole: the port's stream-ECM loop and stencil loop
-(``run``) on the CPU against the reference's ops on the same inputs."""
+"""The slices as a whole: the port's stream-ECM loop, stencil loop and
+compute-bound loop (``run``) on the CPU against the reference's ops on the
+same inputs."""
 import inspect
 
 import pytest
@@ -12,6 +13,7 @@ import numpy as np  # noqa: E402
 from benchmarks import tpu_stream_ecm  # noqa: E402
 from repro.kernels.stencil import ops as jstencil  # noqa: E402
 from repro.kernels.stream import ops as jops  # noqa: E402
+from repro_torch.benchmarks import gpu_compute_ecm as GC  # noqa: E402
 from repro_torch.benchmarks import gpu_stencil_ecm as GS  # noqa: E402
 from repro_torch.benchmarks import gpu_stream_ecm as G  # noqa: E402
 from repro_torch.convert import streams_from_numpy  # noqa: E402
@@ -109,6 +111,69 @@ def test_stencil_loop_has_no_knob_without_a_caller():
     assert list(inspect.signature(GS.timings).parameters) == ["a", "machine"]
     assert list(inspect.signature(GS.run).parameters) == ["device", "shape"]
     assert set(GS.POINTS) == {"2d", "3d", "3d_lc_broken"}
+
+
+#: the reference's kernel_payload sizes (benchmarks/compute_bench.py):
+#: matmul 256^3, causal attention at S = 256, d = 64, one head
+COMPUTE_POINTS = {
+    "matmul": GC.Point("matmul", (256, 256, 256)),
+    "attention": GC.Point("attention", (1, 256, 256, 1, 1, 64), causal=True),
+    "attention_gqa_decode": GC.Point("attention", (2, 1, 512, 4, 2, 64)),
+}
+
+
+@pytest.mark.parametrize("name", list(COMPUTE_POINTS))
+def test_compute_run_on_cpu_matches_reference(name):
+    """The compute loop on the CPU: the op's output at the model's pick
+    against the reference's Pallas kernel (interpret mode) at the same
+    tiling on the same inputs, within the reference's tolerance, which is
+    also kernel_payload's matches_ref bound (max error below 1e-3)."""
+    from repro.kernels.attention import ops as jatt
+    from repro.kernels.matmul import ops as jmm
+
+    point = COMPUTE_POINTS[name]
+    report = GC.run(device="cpu", point=point)
+    assert "timings" not in report and report["check"][0]
+    assert report["ranked"][0]["block"] == report["block"]
+    assert all(r["predicted_ms"] > 0 for r in report["ranked"])
+    inputs = [jnp.asarray(t.numpy())
+              for t in GC.make_inputs(point, torch.device("cpu"))]
+    if point.op == "matmul":
+        bm, bn, bk = report["block"]
+        want = jmm.matmul(*inputs, bm=bm, bn=bn, bk=bk, interpret=True)
+    else:
+        bq, bk = report["block"]
+        want = jatt.flash_attention(*inputs, causal=point.causal, bq=bq,
+                                    bk=bk, interpret=True)
+    (w,) = streams_from_numpy([np.asarray(want)], device="cpu")
+    ok, err, tol = compare(report["output"], w,
+                           tol=GC.TOLERANCE[point.op][point.dtype])
+    assert ok and err < 1e-3, (err, tol)
+
+
+def test_compute_run_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: run() measures on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GC.run()
+
+
+def test_compute_loop_has_no_knob_without_a_caller():
+    """run takes the device and the point, which the tests and
+    chip_smoke.py set; timings what run hands it; the ops keep the
+    reference's signatures less interpret."""
+    from repro_torch.kernels.attention import ops as att
+    from repro_torch.kernels.matmul import ops as mm
+
+    assert list(inspect.signature(GC.run).parameters) == ["device", "point"]
+    assert list(inspect.signature(GC.timings).parameters) == \
+        ["point", "inputs", "ranked", "machine"]
+    assert set(GC.POINTS) == {"matmul", "matmul_bf16", "attention_prefill",
+                              "attention_decode"}
+    assert list(inspect.signature(mm.matmul).parameters) == \
+        ["x", "y", "bm", "bn", "bk", "out_dtype"]
+    assert list(inspect.signature(att.flash_attention).parameters) == \
+        ["q", "k", "v", "causal", "bq", "bk"]
 
 
 def test_streams_from_numpy_keeps_bits():
