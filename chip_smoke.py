@@ -28,20 +28,26 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    whole-array path; the boundary copied; a constant field a fixed
    point; an unpadded input and a ring over shared memory raise;
 5. matmul and attention at small sizes: the reference's test shapes at
-   every compiled tiling that divides them (matmul in f32 and bf16;
-   attention causal and not, GQA 2/1/8, and bf16 at one shape), the
-   reference's decode case at ``bq = 1``, each within the reference's
-   tolerance of the plain version; a tiling the kernel is not compiled
-   for, a tile over shared memory, an uncompiled head dim, ``causal``
-   with ``sq != sk`` and a non-dividing block raise;
+   every compiled tiling that divides them (matmul in f32 on the FFMA
+   route and bf16 on the wgmma route, plus bf16 shapes whose K steps are
+   fewer than, as many as and many times the TMA ring's stages, and bf16
+   in with f32 out; attention causal and not, GQA 2/1/8, and bf16 at one
+   shape), the reference's decode case at ``bq = 1``, each within the
+   reference's tolerance of the plain version; a tiling a route is not
+   compiled for, a tile over shared memory, bf16 rows that are no
+   16-byte multiple, a misaligned view, an uncompiled head dim, ``causal``
+   with ``sq != sk`` and a non-dividing block raise; the registers,
+   shared memory and spills ``-Xptxas -v`` gave each matmul kernel;
 6. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
    loop at its three full-size points, then the compute loop at its four
    points (f32 and bf16 4096^3 matmul, causal prefill and decode
    attention at S = 4096, 16 heads, 8 KV heads, d = 128), each path with
    every kernel's launch count set to 0 just before and read just after;
    every kernel's share of its bound at most 1.0 (for matmul and
-   attention at every tiling timed);
-7. one JSON line with the nine kernels, then the ``ok`` line.
+   attention at every tiling timed); the f32 matmul point launched the
+   FFMA route and the bf16 point the wgmma route;
+7. one JSON line with the nine kernels (the matmul row with its launches
+   per route), then the ``ok`` line.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
@@ -85,6 +91,11 @@ KERNEL_VIEW = {
 #: the reference's matmul and attention test shapes (tests/test_kernels.py):
 #: (m, n, k), and (b, sq, sk, h, hkv, d) with GQA 2, 1 and 8
 MATMUL_SHAPES = ((256, 256, 256), (512, 384, 640), (128, 128, 1024))
+#: bf16 shapes whose 64-deep K steps are 1 and 2 (fewer than the wgmma
+#: route's 4 stages), 4 (as many; also the first reference shape) and 64
+#: (the ring wraps 16 times), and one with three row and column tiles
+MATMUL_RING_SHAPES = ((128, 256, 64), (256, 256, 128), (256, 512, 4096),
+                      (384, 768, 192))
 ATTENTION_SHAPES = ((1, 256, 256, 4, 2, 64), (2, 512, 512, 8, 8, 64),
                     (2, 256, 256, 8, 1, 128))
 #: the reference's decode case: q (2, 1, 8, 64) against k, v (2, 1024, 2, 64)
@@ -238,6 +249,8 @@ def _compute_small_checks() -> list[str]:
     from repro_torch.kernels.attention import kernel as AK
     from repro_torch.kernels.check import compare
     from repro_torch.kernels.matmul import kernel as MK
+    from repro_torch.kernels.matmul import ops as MO
+    from repro_torch.kernels.matmul import ref as MR
 
     failures = []
     rng = np.random.default_rng(SEED)
@@ -252,14 +265,29 @@ def _compute_small_checks() -> list[str]:
         if not ok:
             failures.append(f"{point} block {block}: err {err} tol {tol}")
 
-    for m, n, k in MATMUL_SHAPES:
+    for m, n, k in MATMUL_SHAPES + MATMUL_RING_SHAPES:
         arrays = [rng.standard_normal(s).astype(np.float32)
                   for s in ((m, k), (k, n))]
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = ((torch.float32, torch.bfloat16) if (m, n, k) in MATMUL_SHAPES
+                  else (torch.bfloat16,))
+        for dtype in dtypes:
             point = GC.Point("matmul", (m, n, k), dtype)
-            for block in MK.TILINGS:
+            for block in MK.TILINGS[MK.route_of(dtype)]:
                 if not (m % block[0] or n % block[1] or k % block[2]):
                     check(point, arrays, block)
+        # bf16 in, f32 out: the reference's contract
+        x, y = convert.streams_from_numpy(arrays, device="cuda",
+                                          dtype=torch.bfloat16)
+        want = MR.matmul(x, y, torch.float32)
+        for bm, bn, bk in MK.TILINGS["wgmma"]:
+            if not (m % bm or n % bn or k % bk):
+                got = MO.matmul(x, y, bm=bm, bn=bn, bk=bk,
+                                out_dtype=torch.float32)
+                ok, err, tol = compare(got, want,
+                                       tol=MR.TOLERANCE[torch.bfloat16])
+                if not ok:
+                    failures.append(f"matmul {(m, n, k)} bf16 -> f32 block "
+                                    f"{(bm, bn, bk)}: err {err} tol {tol}")
     for dims in ATTENTION_SHAPES + (DECODE_SHAPE,):
         b, sq, sk, h, hkv, d = dims
         arrays = [rng.standard_normal(s).astype(np.float32)
@@ -280,14 +308,25 @@ def _compute_small_checks() -> list[str]:
 def _compute_refusals() -> dict:
     """What the matmul and attention ops refuse, each with its message."""
     from repro_torch.kernels.attention import ops as AO
+    from repro_torch.kernels.matmul import kernel as MK
     from repro_torch.kernels.matmul import ops as MO
 
     x = torch.zeros((256, 256), device="cuda")
+    xb = x.to(torch.bfloat16)
+    k100 = torch.zeros((128, 100), device="cuda", dtype=torch.bfloat16)
+    shifted = torch.zeros(256 * 256 + 1, device="cuda",
+                          dtype=torch.bfloat16)[1:].view(256, 256)
     q = torch.zeros((1, 256, 2, 128), device="cuda")
     calls = {
-        "matmul_uncompiled_tiling": lambda: MO.matmul(x, x, bm=128, bn=128, bk=32),
+        "matmul_uncompiled_tiling": lambda: MO.matmul(x, x, bm=128, bn=128, bk=8),
         "matmul_over_shared_memory": lambda: MO.matmul(x, x, bm=128, bn=128, bk=256),
         "matmul_block_does_not_divide": lambda: MO.matmul(x, x, bm=96),
+        "matmul_bf16_uncompiled_tiling": lambda: MO.matmul(xb, xb, bk=32),
+        "matmul_bf16_over_shared_memory": lambda: MO.matmul(xb, xb, bm=256, bn=256),
+        "matmul_bf16_k_not_a_multiple_of_8": lambda: MK.matmul_tiled(
+            k100, k100.T.contiguous(), bm=128, bn=128, bk=100,
+            out_dtype=torch.bfloat16),
+        "matmul_bf16_misaligned_view": lambda: MO.matmul(shifted, xb),
         "attention_over_shared_memory": lambda: AO.flash_attention(q, q, q, bq=128, bk=256),
         "attention_uncompiled_head_dim": lambda: AO.flash_attention(
             q[..., :32].contiguous(), q[..., :32].contiguous(),
@@ -414,6 +453,8 @@ def main() -> int:
                                            + (DECODE_SHAPE,)],
                       "failures": failures}))
     print(json.dumps(_compute_refusals()))
+    print(json.dumps({"matmul_ptxas": [e for e in _build.ptxas_report("matmul")
+                                       if e["kernel"].startswith("void matmul_")]}))
     if failures:
         _fail(f"{len(failures)} small-size matmul and attention checks failed")
 
@@ -454,13 +495,24 @@ def main() -> int:
     kernels.reset_launches()
     compute = {}
     for point_name, point in GC.POINTS.items():
+        before = dict(kernels.MATMUL.launches_by_route)
         report = GC.run(point=point)
         failures += _check_compute_report(report)
         report.pop("output")
+        report["matmul_launches_by_route"] = {
+            r: n - before[r] for r, n in kernels.MATMUL.launches_by_route.items()}
+        if point.op == "matmul":
+            route = kernels.matmul.kernel.route_of(point.dtype)
+            if {r: n > 0 for r, n in report["matmul_launches_by_route"].items()} \
+                    != {r: r == route for r in before}:
+                failures.append(f"{point_name} launched the matmul routes "
+                                f"{report['matmul_launches_by_route']}, not "
+                                f"{route} alone")
         compute[point_name] = report
         torch.cuda.empty_cache()
     launches |= {k.name: k.launches for k in kernels.KERNELS
                  if KERNEL_VIEW[k.name][2] == "compute"}
+    matmul_routes = dict(kernels.MATMUL.launches_by_route)
     for report in compute.values():
         print(json.dumps({"device": report["device"]}))
         for rec in GC.summary(report):
@@ -493,6 +545,15 @@ def main() -> int:
                       for p in served]
             rec = full["timings"]["ops"][op]
             where = {"op": op, "path": path, "n": full["n"]}
+        if k is kernels.MATMUL:
+            where["launches_by_route"] = matmul_routes
+            where["by_route"] = {
+                kernels.matmul.kernel.route_of(GC.POINTS[pt].dtype): {
+                    "point": pt, "block": compute[pt]["block"],
+                    "launches": compute[pt]["matmul_launches_by_route"],
+                    **{key: compute[pt]["timings"][key] for key in (
+                        "ms", "plain_ms", "library_ms", "bound_ms")}}
+                for pt in served}
         worst = max(checks, key=lambda c: c[1])
         rows.append({
             "name": k.name, "route": k.route, "source": k.source_path,

@@ -18,7 +18,10 @@ card that validates the ranking.  For one point:
   work (``bound_ms``).
 
 f32 runs in full f32: ``torch.backends.cuda.matmul.allow_tf32`` is off
-while the plain versions and the yardsticks run (:func:`full_f32`).
+while the plain versions and the yardsticks run (:func:`full_f32`).  The
+matmul kernel takes f32 on its FFMA route and bf16 on its wgmma route
+(``kernels/matmul/kernel.py``); each matmul point ranks and times its
+route's tilings, and its report names the route.
 
 Run ``PYTHONPATH=src python -m repro_torch.benchmarks.gpu_compute_ecm`` on
 a machine with the card; it prints JSON lines for each point in
@@ -290,6 +293,7 @@ def run(device: str = "cuda", point: Point = POINTS["matmul"]) -> dict:
         "dtype": str(point.dtype).removeprefix("torch."),
         "causal": point.causal,
         "block": list(pick),
+        "route": MK.route_of(point.dtype) if point.op == "matmul" else None,
         "model": model(point, pick, machine),
         "ranked": [r | {"block": list(r["block"])} for r in ranked],
         "output": out,
@@ -303,8 +307,8 @@ def run(device: str = "cuda", point: Point = POINTS["matmul"]) -> dict:
 def summary(report: dict) -> list[dict]:
     """The report as JSON-ready records, one per printed line."""
     head = {k: report[k] for k in ("op", "dims", "dtype", "causal")}
-    lines = [head | {"block": report["block"], "check": report["check"],
-                     "model": report["model"]},
+    lines = [head | {"block": report["block"], "route": report["route"],
+                     "check": report["check"], "model": report["model"]},
              head | {"ranked": report["ranked"]}]
     tm = report.get("timings")
     if tm:

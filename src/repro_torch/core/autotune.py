@@ -3,14 +3,14 @@
 The port's copy of the two compute objectives of the reference's
 ``repro/core/autotune.py`` ``rank`` (``objective="matmul"`` and
 ``"attention"``).  Candidates are the tilings the CUDA kernels are
-compiled for (``kernels/matmul/kernel.py`` and
-``kernels/attention/kernel.py`` ``TILINGS``) that divide the problem, so
-nothing a kernel would refuse is offered; the reference's enumeration of
-power-of-two divisors has no counterpart.  On this card a tile lives in
-shared memory and registers, not in the reference's largest cache level
-(``max(capacities)``), so a tiling whose shared memory exceeds the card's
-``smem_per_block_optin`` is no candidate at all, where the reference
-ranks a tile that overflows its reuse level last.
+compiled for (``kernels/matmul/kernel.py`` ``TILINGS`` of the operands'
+route, and ``kernels/attention/kernel.py`` ``TILINGS``) that divide the
+problem, so nothing a kernel would refuse is offered; the reference's
+enumeration of power-of-two divisors has no counterpart.  On this card a
+tile lives in shared memory and registers, not in the reference's largest
+cache level (``max(capacities)``), so a tiling whose shared memory
+exceeds the card's ``smem_per_block_optin`` is no candidate at all, where
+the reference ranks a tile that overflows its reuse level last.
 
 Tilings are ranked by the ``t_ecm`` of their ``StepECM``
 (``core/gpu_ecm.py``), with the reference's tie-break: at equal
@@ -20,19 +20,26 @@ tiles the order of the kernel's ``TILINGS``.
 """
 from __future__ import annotations
 
+import torch
+
 from .gpu_ecm import gpu_attention_ecm, gpu_matmul_ecm
 from .workload import AttentionWorkload, MatmulWorkload
 
+#: the matmul operand dtype of an element size (the kernel's routes)
+_MATMUL_DTYPES = {4: torch.float32, 2: torch.bfloat16}
 
-def matmul_block_candidates(m: int, n: int, k: int, machine
-                            ) -> list[tuple[int, int, int]]:
-    """The compiled ``(bm, bn, bk)`` that divide ``(m, n, k)`` and whose
-    panels fit the card's shared memory."""
+
+def matmul_block_candidates(m: int, n: int, k: int, machine, *,
+                            elem_bytes: int) -> list[tuple[int, int, int]]:
+    """The compiled ``(bm, bn, bk)`` of the route of ``elem_bytes``-byte
+    operands (4: f32 on FFMA, 2: bf16 on wgmma) that divide ``(m, n, k)``
+    and whose ring fits the card's shared memory."""
     from ..kernels.matmul import kernel as K
 
-    return [t for t in K.TILINGS
+    dtype = _MATMUL_DTYPES[elem_bytes]
+    return [t for t in K.TILINGS[K.route_of(dtype)]
             if m % t[0] == 0 and n % t[1] == 0 and k % t[2] == 0
-            and K.smem_bytes(*t) <= machine.smem_per_block_optin]
+            and K.smem_bytes(*t, dtype) <= machine.smem_per_block_optin]
 
 
 def attention_block_candidates(sq: int, skv: int, d: int, machine
@@ -65,10 +72,10 @@ def rank(dims: tuple[int, int, int], machine, *, objective: str,
         from ..kernels.matmul.kernel import smem_bytes
 
         m, n, k = dims
-        cands = matmul_block_candidates(m, n, k, machine)
+        cands = matmul_block_candidates(m, n, k, machine, elem_bytes=elem_bytes)
         steps = [gpu_matmul_ecm(MatmulWorkload(m, n, k, bm, bn, elem_bytes),
                                 machine) for bm, bn, _ in cands]
-        smem = [smem_bytes(*b) for b in cands]
+        smem = [smem_bytes(*b, _MATMUL_DTYPES[elem_bytes]) for b in cands]
     elif objective == "attention":
         from ..kernels.attention.kernel import smem_bytes
 

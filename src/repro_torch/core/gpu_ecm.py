@@ -119,11 +119,14 @@ def gpu_stencil_ecm(spec: StencilSpec, shape: tuple[int, ...], machine,
 def gpu_matmul_ecm(w: MatmulWorkload, machine) -> StepECM:
     """Two-term model of one blocked product on the card ``machine``;
     seconds.  ``T_hbm``: the traffic law's bytes at the card's L2 over the
-    HBM rate.  ``T_comp``: ``2mnk`` FLOP at the FFMA rate, the unit the
-    kernel issues its products on in f32 and in bf16 alike (csrc/matmul.cu
-    widens bf16 to f32)."""
+    HBM rate.  ``T_comp``: ``2mnk`` FLOP at the rate of the unit the
+    kernel issues its products on (csrc/matmul.cu): the FP32 units for f32
+    operands (4-byte elements), the tensor cores (``wgmma``) for bf16
+    (2-byte)."""
     read, write = w.traffic(machine.l2_bytes)
-    return StepECM(name="gpu-matmul", t_comp=machine.compute_seconds(w.flops),
+    t_comp = (w.flops / machine.peak_bf16_tensor_flops if w.elem_bytes == 2
+              else machine.compute_seconds(w.flops))
+    return StepECM(name="gpu-matmul", t_comp=t_comp,
                    t_hbm=machine.hbm_seconds(read + write),
                    exposed_hbm_fraction=machine.exposed_hbm_fraction)
 

@@ -23,4 +23,4 @@ SOURCES = tuple(sorted({k.source for k in KERNELS}))
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()

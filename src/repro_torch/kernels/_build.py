@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -79,6 +80,35 @@ def build(names: tuple[str, ...]) -> dict[str, Path]:
     return targets
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)' for '(\w+)'")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """What ``-Xptxas -v`` said of each kernel of ``csrc/<name>.cu`` in its
+    build log: ``{"kernel", "registers", "spill_stores", "spill_loads",
+    "stack_bytes"}`` per entry, the name demangled where ``c++filt``
+    exists.  The library must be built."""
+    entries, cur = [], None
+    for line in _target(name).with_suffix(".log").read_text().splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            cur = {"kernel": m.group(1)}
+            entries.append(cur)
+        elif cur is not None and (m := _PTXAS_STACK.search(line)):
+            cur |= {"stack_bytes": int(m.group(1)), "spill_stores": int(m.group(2)),
+                    "spill_loads": int(m.group(3))}
+        elif cur is not None and (m := _PTXAS_USED.search(line)):
+            cur["registers"] = int(m.group(1))
+    if shutil.which("c++filt") and entries:
+        names = subprocess.run(["c++filt"], input="\n".join(e["kernel"] for e in entries),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        for e, d in zip(entries, names):
+            e["kernel"] = d.replace("(anonymous namespace)::", "")
+    return entries
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     if name not in _LIBS:
@@ -93,26 +123,36 @@ class Kernel:
     """One C entry of a built library, with the count of its launches.
 
     ``argtypes`` must give ``ctypes.c_void_p`` for every pointer and for
-    the stream, or ctypes would pass them as 32-bit ints.
+    the stream, or ctypes would pass them as 32-bit ints.  An entry with
+    several device routes behind it names them in ``routes``; each launch
+    then names its route, counted in ``launches_by_route``.
     """
 
     route = "cuda"
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
-                 replaces: str):
+                 replaces: str, routes: tuple[str, ...] = ()):
         self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces
-        self.launches = 0
+        self.routes = routes
         self._fn = None
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.launches_by_route = dict.fromkeys(self.routes, 0)
 
     @property
     def source_path(self) -> str:
         return f"src/repro_torch/kernels/csrc/{self.source}.cu"
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, route: str | None = None) -> None:
+        if route not in (self.routes or (None,)):
+            raise ValueError(f"{self.symbol}: route {route!r}, not one of "
+                             f"{self.routes}")
         if self._fn is None:
             fn = getattr(library(self.source), self.symbol)
             fn.argtypes = self.argtypes
@@ -123,3 +163,5 @@ class Kernel:
             msg = library(self.source).rt_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc}: {msg}")
         self.launches += 1
+        if route is not None:
+            self.launches_by_route[route] += 1

@@ -28,6 +28,8 @@ namespace rt {
 enum Op { COPY = 0, STORE = 1, UPDATE = 2, STRIAD = 3, SCHOENAUER = 4, TRIAD_UPDATE = 5 };
 enum Red { LOAD = 0, DDOT = 1 };
 enum Dtype { F32 = 0, BF16 = 1 };
+// host-side failures beyond cudaError_t's range (hopper.cuh; rt_error_string)
+enum HostError { ERR_DRIVER_ENTRY = 100000, ERR_TMA_ENCODE = 100001 };
 
 constexpr int THREADS = 256;
 constexpr int LANES = 128;
@@ -150,16 +152,23 @@ __global__ void __launch_bounds__(THREADS) sum_partials(const float* __restrict_
 
 // cp.async: copies from device memory into shared memory that complete
 // asynchronously, in commit groups.  16 bytes (cg: bypass L1) for the
-// stream rings; 4 bytes (ca) for the stencil rings, whose rows start at
-// any 4-byte boundary.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+// stream rings and matmul's B panels; 4 bytes (ca) for the stencil rings,
+// whose rows start at any 4-byte boundary, and matmul's A panels, which
+// they transpose.  `dst` is an address in the shared window.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  cp_async16(static_cast<unsigned>(__cvta_generic_to_shared(smem)), gmem);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  cp_async4(static_cast<unsigned>(__cvta_generic_to_shared(smem)), gmem);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -231,6 +240,13 @@ __device__ __forceinline__ void store4(void* p, long long i, int dtype, const fl
   }
 }
 
+// two floats to elements i, i+1 of p in `dtype` (bf16 rounded to nearest
+// even), one 8- or 4-byte store
+__device__ __forceinline__ void store2(void* p, long long i, int dtype, float x, float y) {
+  if (dtype == F32) *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(x, y);
+  else *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + i) = __floats2bfloat162_rn(x, y);
+}
+
 __device__ __forceinline__ void store1(void* p, long long i, int dtype, float v) {
   if (dtype == F32) static_cast<float*>(p)[i] = v;
   else static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
@@ -244,4 +260,8 @@ inline cudaError_t finish(cudaError_t e) {
 
 }  // namespace rt
 
-extern "C" const char* rt_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
+extern "C" const char* rt_error_string(int e) {
+  if (e == rt::ERR_DRIVER_ENTRY) return "the driver's cuTensorMapEncodeTiled was not found";
+  if (e == rt::ERR_TMA_ENCODE) return "cuTensorMapEncodeTiled refused the tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}

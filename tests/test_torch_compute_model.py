@@ -110,7 +110,7 @@ def test_kv_fraction_is_the_kernels_skip_rule(sq, bq, bkv):
 
 def test_step_models_at_the_full_size_points():
     """The hand-reckoned figures: 2mnk at 67 TFLOP/s (2.051 ms); bf16's
-    bound at 989 TFLOP/s (0.139 ms); decode's KV bytes, repeated, at
+    bound and model at 989 TFLOP/s (0.139 ms); decode's KV bytes, repeated, at
     3.35 TB/s (0.160 ms); exact causal prefill work (1.026 ms)."""
     mm = gpu_matmul_ecm(MO.matmul_workload(4096, 4096, 4096), H100_SXM)
     assert mm.t_comp == pytest.approx(2.0513e-3, rel=1e-4)
@@ -118,9 +118,9 @@ def test_step_models_at_the_full_size_points():
     bf = GC.bound(GC.POINTS["matmul_bf16"], H100_SXM)
     assert bf["bound_ms"] == pytest.approx(0.13897, rel=1e-4)
     assert bf["bound_by"] == "operations"
-    # the kernel widens bf16 to f32: its model runs at the FFMA rate
-    assert GC.model(GC.POINTS["matmul_bf16"], (128, 128, 16),
-                    H100_SXM)["t_comp_ms"] == pytest.approx(2.0513, rel=1e-4)
+    # bf16 runs on the tensor cores (wgmma): its model's T_comp is the bound
+    assert GC.model(GC.POINTS["matmul_bf16"], (128, 256, 64),
+                    H100_SXM)["t_comp_ms"] == pytest.approx(0.13897, rel=1e-4)
     dec = gpu_attention_ecm(AO.attention_workload(1, 4096, 128, bq=1, bk=256,
                                                   causal=False),
                             H100_SXM, batch_heads=8 * 16)
@@ -142,20 +142,44 @@ def _keys_sorted(ranked):
 
 
 def test_rank_matmul():
-    """All eight tilings are compute-bound at 4096^3 and tie: the largest
-    tile first, then the kernel's table order."""
+    """Each route ranks its own table.  f32: all twelve tilings are
+    compute-bound at 4096^3 and tie: the largest tile first, then the
+    kernel's table order (the deeper stage first).  bf16: the model is HBM-bound (B, 32 MiB, is
+    re-read once per row block at the safety factor), so bm = 128 beats
+    bm = 64, and the wider tile wins the tie."""
     ranked = rank((4096, 4096, 4096), H100_SXM, objective="matmul")
-    assert [r["block"] for r in ranked[:2]] == [(128, 128, 16), (128, 128, 128)]
-    assert sorted(r["block"] for r in ranked) == sorted(MK.TILINGS)
+    assert [r["block"] for r in ranked[:2]] == [(128, 256, 32), (128, 256, 16)]
+    assert sorted(r["block"] for r in ranked) == sorted(MK.TILINGS["ffma"])
     assert _keys_sorted(ranked)
     assert MO.tuned_blocks(4096, 4096, 4096) == ranked[0]["block"]
+    bf = rank((4096, 4096, 4096), H100_SXM, objective="matmul", elem_bytes=2)
+    assert [r["block"] for r in bf] == [(128, 256, 64), (128, 128, 64),
+                                        (64, 128, 64)]
+    assert sorted(r["block"] for r in bf) == sorted(MK.TILINGS["wgmma"])
+    assert _keys_sorted(bf) and bf[0]["t_ecm"] < bf[-1]["t_ecm"]
+    assert [r["smem_bytes"] for r in bf] == [
+        MK.smem_bytes(*r["block"], torch.bfloat16) for r in bf]
+    assert MO.tuned_blocks(4096, 4096, 4096, dtype=torch.bfloat16) == \
+        bf[0]["block"]
+    # the reference's (512, 384, 640): bn = 256 does not divide n
+    assert {r["block"] for r in rank((512, 384, 640), H100_SXM,
+                                     objective="matmul", elem_bytes=2)} == \
+        {(64, 128, 64), (128, 128, 64)}
     # only tilings that divide: m = 192 leaves bm = 64, k = 48 leaves bk = 16
     small = rank((192, 256, 48), H100_SXM, objective="matmul")
-    assert {r["block"] for r in small} == {(64, 64, 16), (64, 128, 16)}
+    assert {r["block"] for r in small} == {(64, 64, 16), (64, 128, 16),
+                                           (64, 256, 16)}
     # off the data sheet: a card with less shared memory loses the deep tiles
-    tight = dataclasses.replace(H100_SXM, smem_per_block_optin=100_000)
+    tight = dataclasses.replace(H100_SXM, smem_per_block_optin=90_000)
     blocks = {r["block"] for r in rank((4096,) * 3, tight, objective="matmul")}
-    assert blocks == set(MK.TILINGS) - {(128, 128, 128)}
+    assert blocks == set(MK.TILINGS["ffma"]) - {(128, 256, 32), (128, 128, 32),
+                                                (64, 256, 32)}
+    roomier = dataclasses.replace(H100_SXM, smem_per_block_optin=140_000)
+    blocks = {r["block"] for r in rank((4096,) * 3, roomier, objective="matmul",
+                                       elem_bytes=2)}
+    assert blocks == set(MK.TILINGS["wgmma"]) - {(128, 256, 64)}
+    with pytest.raises(ValueError, match="no compiled matmul tiling"):
+        rank((4096,) * 3, tight, objective="matmul", elem_bytes=2)
 
 
 def test_rank_breaks_ties_and_orders_by_the_model():
@@ -192,6 +216,6 @@ def test_rank_has_no_knob_without_a_caller():
     assert list(params) == ["dims", "machine", "objective", "causal",
                             "elem_bytes"]
     assert list(inspect.signature(MO.tuned_blocks).parameters) == \
-        ["m", "n", "k", "machine"]
+        ["m", "n", "k", "dtype", "machine"]
     assert list(inspect.signature(AO.tuned_blocks).parameters) == \
         ["sq", "sk", "d", "causal", "machine"]

@@ -81,34 +81,165 @@ def test_matmul_blocks_clamp_and_must_divide():
         ops.matmul(x, x)
 
 
-def test_default_tiling_is_compiled():
-    """The port's defaults are a tiling the kernel has, unlike the
-    reference's VMEM-sized 256/256/512."""
-    assert (K.DEFAULT_BM, K.DEFAULT_BN, K.DEFAULT_BK) in K.TILINGS
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_default_tiling_is_compiled(dtype):
+    """The port's defaults are a tiling of the dtype's route, unlike the
+    reference's VMEM-sized 256/256/512, and the op takes them when no
+    block is given."""
+    tdt, jdt = DTYPES[dtype]
+    route = K.route_of(tdt)
+    assert K.DEFAULTS[route] in K.TILINGS[route]
     from repro.kernels.matmul import kernel as JK
-    assert (JK.DEFAULT_BM, JK.DEFAULT_BN, JK.DEFAULT_BK) not in K.TILINGS
+    assert (JK.DEFAULT_BM, JK.DEFAULT_BN, JK.DEFAULT_BK) not in K.TILINGS[route]
+    for m, n, k in SHAPES:   # the defaults divide the reference's shapes
+        assert not (m % K.DEFAULTS[route][0] or n % K.DEFAULTS[route][1]
+                    or k % K.DEFAULTS[route][2])
+    assert list(K.TILINGS) == list(K.ROUTES.values()) == ["ffma", "wgmma"]
 
 
-def test_tiling_table_and_shared_memory():
-    """Every compiled tiling fits the H100; a tiling over shared memory and
-    one the kernel is not compiled for raise, before any launch."""
-    assert len(set(K.TILINGS)) == len(K.TILINGS) == 8
-    for t in K.TILINGS:
-        assert K.check_tiling(*t, SMEM) == K.smem_bytes(*t) == \
-            (t[0] + t[1]) * t[2] * 4
-    assert K.smem_bytes(128, 128, 128) == 131072
+#: per route: (count of tilings, a tiling's shared bytes by formula)
+ROUTE_TABLES = {
+    "f32": (12, lambda bm, bn, bk: 3 * (bm + 4 + bn) * bk * 4),
+    "bf16": (3, lambda bm, bn, bk: 1024 + 4 * (bm + bn) * bk * 2 + 4 * 2 * 8),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_tiling_table_and_shared_memory(dtype):
+    """Every compiled tiling of the route fits the H100; a tiling over
+    shared memory and one the route is not compiled for raise, before
+    any launch."""
+    tdt, _ = DTYPES[dtype]
+    route = K.route_of(tdt)
+    count, formula = ROUTE_TABLES[dtype]
+    assert len(set(K.TILINGS[route])) == len(K.TILINGS[route]) == count
+    for t in K.TILINGS[route]:
+        assert K.check_tiling(*t, SMEM, tdt) == K.smem_bytes(*t, tdt) == formula(*t)
+    big = (128, 128, 256) if dtype == "f32" else (256, 256, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        K.check_tiling(128, 128, 256, SMEM)
+        K.check_tiling(*big, SMEM, tdt)
     with pytest.raises(ValueError, match="compiled"):
-        K.check_tiling(128, 128, 32, SMEM)
+        K.check_tiling(128, 128, 8, SMEM, tdt)
     with pytest.raises(ValueError, match="shared memory"):
-        K.check_tiling(128, 128, 128, 100_000)
+        K.check_tiling(*K.DEFAULTS[route], 10_000, tdt)
+    # the other route's tilings are not this route's
+    other = K.TILINGS["wgmma" if route == "ffma" else "ffma"]
+    assert not set(other) & set(K.TILINGS[route])
+    with pytest.raises(ValueError, match="compiled"):
+        K.check_tiling(*other[0], SMEM, tdt)
 
 
-def test_kernel_wrapper_refuses_cpu_tensors():
-    x = torch.zeros((128, 128))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plan_of_each_compiled_tiling(dtype):
+    """The one host plan: on the wgmma route every TMA box's inner
+    dimension is at most one 128-byte swizzle row, the boxes fill a stage,
+    one consumer warpgroup per 64 rows plus the producer's, ``bn`` at most
+    256 and a multiple of 8; on either route stages x stage bytes plus
+    the alignment slack (and the mbarriers) fit the card."""
+    tdt, _ = DTYPES[dtype]
+    for t in K.TILINGS[K.route_of(tdt)]:
+        p = K.plan(*t, tdt)
+        bm, bn, bk = p.block
+        assert p.block == t
+        assert p.stages * p.stage_bytes + p.slack <= p.smem_bytes <= SMEM
+        if p.route == "wgmma":
+            assert p.stage_bytes == (bm + bn) * bk * 2
+            assert bm % 64 == 0 and bn <= 256 and bn % 8 == 0 and bk == 64
+            assert p.threads == 128 * (bm // 64 + 1)
+            assert p.swizzle == 128 and p.slack == 1024
+            assert all(cols * 2 <= p.swizzle for _, cols in p.boxes)
+            assert sum(r * c for r, c in p.boxes) * 2 == p.stage_bytes
+            assert p.boxes[0] == (bm, bk)
+            assert p.smem_bytes == p.slack + p.stages * p.stage_bytes + 16 * p.stages
+        else:
+            assert p.stage_bytes == (bm + K.FFMA_A_PAD + bn) * bk * 4
+            assert p.boxes == () and p.swizzle == 0 and p.slack == 0
+            assert p.stages >= 2 and p.threads == 256
+            assert p.smem_bytes == p.stages * p.stage_bytes
+
+
+def _operands(m, n, k, tdt, offset=0):
+    """x (m, k), y (k, n) of ``tdt`` on the CPU; x starts ``offset``
+    elements into its buffer."""
+    x = torch.zeros(m * k + offset, dtype=tdt)[offset:].view(m, k)
+    return x, torch.zeros((k, n), dtype=tdt)
+
+
+@pytest.mark.parametrize("case", ["uncompiled", "over_shared_memory",
+                                  "bf16_k", "bf16_n", "misaligned",
+                                  "not_divided", "mixed_dtypes"])
+def test_check_operands_refuses_before_launch(case):
+    """What the kernel wrapper refuses, checked on the host before any
+    launch (and so testable on the CPU)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    calls = {
+        "uncompiled": (_operands(128, 128, 128, bf), (128, 64, 64), "compiled"),
+        "over_shared_memory": (_operands(256, 256, 256, f32), (128, 128, 256),
+                               "shared memory"),
+        "bf16_k": (_operands(128, 128, 100, bf), (128, 128, 100), "multiples of 8"),
+        "bf16_n": (_operands(128, 132, 128, bf), (128, 132, 64), "multiples of 8"),
+        "misaligned": (_operands(128, 128, 128, bf, offset=1), (128, 128, 64),
+                       "16-byte aligned"),
+        "not_divided": (_operands(128, 128, 96, bf), (128, 128, 64), "do not divide"),
+        "mixed_dtypes": ((torch.zeros((128, 64), dtype=bf),
+                          torch.zeros((64, 128), dtype=f32)), (128, 128, 64),
+                         "one dtype"),
+    }
+    (x, y), (bm, bn, bk), msg = calls[case]
+    with pytest.raises(ValueError, match=msg):
+        K.check_operands(x, y, bm=bm, bn=bn, bk=bk, smem_limit=SMEM)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_check_operands_plans_the_route(dtype):
+    tdt, _ = DTYPES[dtype]
+    x, y = _operands(512, 384, 640, tdt)
+    t = K.DEFAULTS[K.route_of(tdt)]
+    p = K.check_operands(x, y, bm=t[0], bn=t[1], bk=t[2], smem_limit=SMEM)
+    assert p == K.plan(*t, tdt) and p.route == K.ROUTES[tdt]
+
+
+def test_launch_counts_by_route():
+    """The one matmul kernel counts its launches per route; a launch must
+    name one of its routes (checked before the library is loaded), and a
+    reset clears both counts."""
+    assert K.MATMUL.routes == ("ffma", "wgmma")
+    K.MATMUL.launches_by_route["wgmma"] += 2
+    K.MATMUL.launches += 2
+    K.MATMUL.reset()
+    assert K.MATMUL.launches == 0
+    assert K.MATMUL.launches_by_route == {"ffma": 0, "wgmma": 0}
+    for route in (None, "tf32"):
+        with pytest.raises(ValueError, match="route"):
+            K.MATMUL.launch(route=route)
+    assert K.MATMUL.launches_by_route == {"ffma": 0, "wgmma": 0}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_matmul_at_the_route_default_matches_reference(shape, dtype):
+    """The op at its default blocks (the route's, clamped) within the
+    reference's tolerance of its Pallas kernel at the same blocks, and of
+    its oracle."""
+    tdt, jdt = DTYPES[dtype]
+    (jx, jy), (tx, ty) = _pair(*shape, jdt, seed=3)
+    bm, bn, bk = (min(b, d) for b, d in zip(K.DEFAULTS[K.route_of(tdt)],
+                                             (shape[0], shape[1], shape[2])))
+    got = ops.matmul(tx, ty)
+    assert got.dtype == tdt and tuple(got.shape) == shape[:2]
+    for want in (jops.matmul(jx, jy, bm=bm, bn=bn, bk=bk, interpret=True),
+                 jref.matmul(jx, jy)):
+        (w,) = streams_from_numpy([np.asarray(want)], device="cpu")
+        ok, err, tol = compare(got, w, tol=ref.TOLERANCE[tdt])
+        assert ok, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_wrapper_refuses_cpu_tensors(dtype):
+    x = torch.zeros((128, 128), dtype=DTYPES[dtype][0])
+    bm, bn, bk = K.DEFAULTS[K.route_of(x.dtype)]
     with pytest.raises(ValueError, match="CUDA"):
-        K.matmul_tiled(x, x, bm=128, bn=128, bk=16, out_dtype=torch.float32)
+        K.matmul_tiled(x, x, bm=bm, bn=bn, bk=bk, out_dtype=torch.float32)
 
 
 def test_compare_tol_mode_is_elementwise_and_nan_safe():
