@@ -313,24 +313,26 @@ def _compute_refusals() -> dict:
 
     x = torch.zeros((256, 256), device="cuda")
     xb = x.to(torch.bfloat16)
+    x192 = torch.zeros((192, 192), device="cuda", dtype=torch.bfloat16)
     k100 = torch.zeros((128, 100), device="cuda", dtype=torch.bfloat16)
     shifted = torch.zeros(256 * 256 + 1, device="cuda",
                           dtype=torch.bfloat16)[1:].view(256, 256)
     q = torch.zeros((1, 256, 2, 128), device="cuda")
     calls = {
         "matmul_uncompiled_tiling": lambda: MO.matmul(x, x, bm=128, bn=128, bk=8),
-        "matmul_over_shared_memory": lambda: MO.matmul(x, x, bm=128, bn=128, bk=256),
+        "matmul_over_shared_memory": lambda: MO.matmul(x, x, bm=256, bn=256, bk=64),
         "matmul_block_does_not_divide": lambda: MO.matmul(x, x, bm=96),
         "matmul_bf16_uncompiled_tiling": lambda: MO.matmul(xb, xb, bk=32),
-        "matmul_bf16_over_shared_memory": lambda: MO.matmul(xb, xb, bm=256, bn=256),
+        "matmul_bf16_over_shared_memory": lambda: MO.matmul(xb, xb, bm=256, bn=256, bk=64),
+        "matmul_bf16_no_compiled_tiling_divides": lambda: MO.matmul(x192, x192),
         "matmul_bf16_k_not_a_multiple_of_8": lambda: MK.matmul_tiled(
             k100, k100.T.contiguous(), bm=128, bn=128, bk=100,
             out_dtype=torch.bfloat16),
         "matmul_bf16_misaligned_view": lambda: MO.matmul(shifted, xb),
         "attention_over_shared_memory": lambda: AO.flash_attention(q, q, q, bq=128, bk=256),
         "attention_uncompiled_head_dim": lambda: AO.flash_attention(
-            q[..., :32].contiguous(), q[..., :32].contiguous(),
-            q[..., :32].contiguous()),
+            q[..., :96].contiguous(), q[..., :96].contiguous(),
+            q[..., :96].contiguous()),
         "attention_causal_sq_ne_sk": lambda: AO.flash_attention(
             q[:, :128], q, q, causal=True),
     }

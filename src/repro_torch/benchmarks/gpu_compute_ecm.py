@@ -197,7 +197,8 @@ def _kernel_call(point: Point, operands, block):
     q, k, v = operands
     bq, bk = block
     return lambda: AK.flash_attention_fused(q, k, v, causal=point.causal,
-                                            bq=bq, bk=bk)
+                                            bq=bq, bk=bk,
+                                            scale=q.shape[-1] ** -0.5)
 
 
 def _library(point: Point, operands):

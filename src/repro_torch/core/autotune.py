@@ -44,10 +44,12 @@ def matmul_block_candidates(m: int, n: int, k: int, machine, *,
 
 def attention_block_candidates(sq: int, skv: int, d: int, machine
                                ) -> list[tuple[int, int]]:
-    """The compiled ``(bq, bkv)`` that divide ``(sq, skv)``, at a compiled
-    head dim, whose buffers fit the card's shared memory."""
+    """The compiled ``(bq, bkv)`` that divide ``(sq, skv)``, at the
+    compiled head dim that runs ``d`` (``d`` itself, or the one the op pads
+    it to), whose buffers fit the card's shared memory."""
     from ..kernels.attention import kernel as K
 
+    d = K.PADDED_HEAD_DIMS.get(d, d)
     if d not in K.HEAD_DIMS:
         return []
     return [t for t in K.TILINGS
@@ -77,6 +79,7 @@ def rank(dims: tuple[int, int, int], machine, *, objective: str,
                                 machine) for bm, bn, _ in cands]
         smem = [smem_bytes(*b, _MATMUL_DTYPES[elem_bytes]) for b in cands]
     elif objective == "attention":
+        from ..kernels.attention import kernel as K
         from ..kernels.attention.kernel import smem_bytes
 
         sq, skv, d = dims
@@ -84,7 +87,7 @@ def rank(dims: tuple[int, int, int], machine, *, objective: str,
         steps = [gpu_attention_ecm(
             AttentionWorkload(sq, skv, d, bq, bkv, causal, elem_bytes),
             machine, batch_heads=1) for bq, bkv in cands]
-        smem = [smem_bytes(*b, d) for b in cands]
+        smem = [smem_bytes(*b, K.PADDED_HEAD_DIMS.get(d, d)) for b in cands]
     else:
         raise ValueError(f"objective must be 'matmul' or 'attention', got "
                          f"{objective!r}")

@@ -25,6 +25,8 @@ from ..pipeline import DTYPES, check_dense
 #: rt_flash_attention holds the same list)
 TILINGS = ((64, 64), (64, 128), (128, 64), (128, 128), (1, 128), (1, 256))
 HEAD_DIMS = (64, 128)
+#: head dims the op runs at a compiled one, zero-padded (ops.py)
+PADDED_HEAD_DIMS = {16: 64, 32: 64}
 DEFAULT_BQ = 128
 DEFAULT_BK = 128
 #: floats of padding per row of P (csrc/attention.cu PAD)
@@ -72,9 +74,10 @@ def check_tiling(bq: int, bk: int, d: int, smem_limit: int) -> int:
 
 
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool, bq: int, bk: int) -> torch.Tensor:
-    """Launch attention over fused heads on CUDA tensors; returns a new
-    ``(BH, Sq, d)`` tensor of q's dtype."""
+                          *, causal: bool, bq: int, bk: int,
+                          scale: float) -> torch.Tensor:
+    """Launch attention over fused heads on CUDA tensors, the scores scaled
+    by ``scale``; returns a new ``(BH, Sq, d)`` tensor of q's dtype."""
     check_dense(q, k, v)
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 or (
             q.shape[0], q.shape[2]) != (k.shape[0], k.shape[2]):
@@ -94,6 +97,6 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     FLASH_ATTENTION.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, sk,
-        d, bq, bk, int(causal), d ** -0.5, DTYPES[q.dtype],
+        d, bq, bk, int(causal), scale, DTYPES[q.dtype],
         0 if bq == 1 else smem, torch.cuda.current_stream(q.device).cuda_stream)
     return out

@@ -5,24 +5,36 @@ to the model: :func:`attention_workload` builds the
 asks ``core.autotune.rank`` for the tiling to pass back into
 :func:`flash_attention`.
 
-q is ``(B, Sq, H, d)``, k and v ``(B, Sk, Hkv, d)``.  GQA repeats each KV
-head ``H / Hkv`` times (``repeat_interleave`` on dim 2, the order of
-``jnp.repeat``) before the fused ``(B*H, S, d)`` kernel; blocks are
-clamped to the sequence lengths; ``causal`` with ``sq != sk`` raises.
-The output is in q's dtype.  A CPU tensor takes the plain version in
-:mod:`.ref`; any other launches the CUDA kernel, which is compiled for
-the tilings in ``kernel.TILINGS`` at d in ``kernel.HEAD_DIMS`` and raises
-on any other.  So the defaults are 128 x 128, a tiling the kernel has,
-not the reference's 512 x 512, which is sized for a TPU's VMEM.
+q is ``(B, Sq, H, d)``, k and v ``(B, Sk, Hkv, d)``; ``causal`` with
+``sq != sk`` raises; the output is in q's dtype.  Blocks the caller
+passes are clamped to the sequence lengths and must then divide them.  A
+CPU tensor takes the plain version in :mod:`.ref` on the reference's
+operands (KV heads repeated to q's, ``repeat_interleave`` on dim 2, the
+order of ``jnp.repeat``; heads fused), and a block left at ``None`` there
+is the reference's default 512, clamped.  Any other tensor launches the
+CUDA kernel, compiled for the tilings in ``kernel.TILINGS`` at the head
+dims in ``kernel.HEAD_DIMS``: blocks left at ``None`` take the first
+tiling of :func:`tuned_blocks`' ranking that agrees with the block given
+(raising only when no compiled tiling divides the problem).  Head dims
+16 and 32 run at 64 (``kernel.PADDED_HEAD_DIMS``): q, k and v are padded
+with zeros, the scale stays ``d ** -0.5`` of the true d, and the padded
+output columns are dropped.  A zero column adds ``0 * 0`` to every score
+and feeds only the output columns that are dropped, so the result is the
+unpadded one.  Any other head dim or tiling raises.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ...core.machine import H100_SXM, GPUMachineModel
 from ...core.workload import AttentionWorkload
 from . import kernel as K
 from . import ref
+
+#: the reference's default blocks (repro/kernels/attention/kernel.py
+#: DEFAULT_BQ, DEFAULT_BK), sized for a TPU's VMEM
+REFERENCE_BLOCKS = (512, 512)
 
 
 def _fuse(t: torch.Tensor) -> torch.Tensor:
@@ -32,8 +44,8 @@ def _fuse(t: torch.Tensor) -> torch.Tensor:
 
 
 def fused_inputs(q, k, v):
-    """The kernel's operands of :func:`flash_attention`: KV heads repeated
-    to q's, every tensor fused to ``(B*H, S, d)``."""
+    """The plain version's operands of :func:`flash_attention`: KV heads
+    repeated to q's, every tensor fused to ``(B*H, S, d)``."""
     h, hkv = q.shape[2], k.shape[2]
     if h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} KV heads")
@@ -44,23 +56,49 @@ def fused_inputs(q, k, v):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, bq: int = K.DEFAULT_BQ,
-                    bk: int = K.DEFAULT_BK) -> torch.Tensor:
+                    causal: bool = True, bq: int | None = None,
+                    bk: int | None = None) -> torch.Tensor:
     """Returns ``(B, Sq, H, d)`` (a permuted view of the fused output)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if causal and sq != sk:
         raise ValueError("causal masking assumes aligned q/k positions "
                          f"(sq == sk), got sq={sq}, sk={sk}")
-    bq, bk = min(bq, sq), min(bk, sk)
-    if sq % bq or sk % bk:
-        raise ValueError(f"blocks {(bq, bk)} do not divide {(sq, sk)}")
-    qf, kf, vf = fused_inputs(q, k, v)
+    dims = (sq, sk)
+    asked = tuple(None if x is None else min(x, s) for x, s in zip((bq, bk), dims))
     if q.device.type == "cpu":
-        out = ref.attention(qf, kf, vf, causal=causal)
-    else:
-        out = K.flash_attention_fused(qf, kf, vf, causal=causal, bq=bq, bk=bk)
-    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+        _check_divides(tuple(min(r, s) if a is None else a for a, r, s
+                             in zip(asked, REFERENCE_BLOCKS, dims)), dims)
+        out = ref.attention(*fused_inputs(q, k, v), causal=causal)
+        return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+    _check_divides(asked, dims)
+    bq, bk = _card_blocks(sq, sk, d, causal, asked)
+    dk = K.PADDED_HEAD_DIMS.get(d, d)
+    if dk != d:
+        q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
+    qf, kf, vf = fused_inputs(q, k, v)
+    out = K.flash_attention_fused(qf, kf, vf, causal=causal, bq=bq, bk=bk,
+                                  scale=d ** -0.5)
+    return out.reshape(b, h, sq, dk).permute(0, 2, 1, 3)[..., :d]
+
+
+def _check_divides(blocks: tuple, dims: tuple) -> None:
+    if any(x is not None and s % x for x, s in zip(blocks, dims)):
+        raise ValueError(f"blocks {blocks} do not divide {dims}")
+
+
+def _card_blocks(sq: int, sk: int, d: int, causal: bool, asked: tuple) -> tuple:
+    """The caller's blocks, with one left at ``None`` taken from the first
+    ranked compiled tiling that agrees with the one given."""
+    if None not in asked:
+        return asked
+    from ...core.autotune import rank
+
+    for r in rank((sq, sk, d), H100_SXM, objective="attention", causal=causal):
+        if all(a is None or a == x for a, x in zip(asked, r["block"])):
+            return r["block"]
+    raise ValueError(f"no compiled attention tiling of {(sq, sk)} has the "
+                     f"blocks {asked}")
 
 
 def attention_workload(sq: int, sk: int, d: int, *, bq: int = K.DEFAULT_BQ,
@@ -77,8 +115,9 @@ def tuned_blocks(sq: int, sk: int, d: int, *, causal: bool = True,
                  machine: GPUMachineModel = H100_SXM) -> tuple[int, int]:
     """The ``(bq, bk)`` that ``rank`` puts first for f32 attention on
     ``machine`` (candidates: the compiled tilings that divide the sequence
-    lengths, at a compiled head dim, that fit the card's shared memory).
-    The reference's on-disk cache of this pick is not ported."""
+    lengths, at the compiled head dim that runs ``d``, that fit the card's
+    shared memory).  The reference's on-disk cache of this pick is not
+    ported."""
     from ...core.autotune import rank
 
     return rank((sq, sk, d), machine, objective="attention",

@@ -41,8 +41,8 @@ TILINGS = {
                   for bn in (64, 128, 256)),
     "wgmma": ((64, 128, 64), (128, 128, 64), (128, 256, 64)),
 }
-#: the op's default (bm, bn, bk) by route: compiled, and dividing the
-#: reference's test shapes
+#: a compiled (bm, bn, bk) of each route that divides the reference's test
+#: shapes: the output tiling ``ops.matmul_workload`` models by default
 DEFAULTS = {"ffma": (128, 128, 16), "wgmma": (128, 128, 64)}
 FFMA_STAGES = 3
 FFMA_THREADS = 256
@@ -112,6 +112,22 @@ def plan(bm: int, bn: int, bk: int, dtype: torch.dtype) -> Plan:
     return Plan(route, (bm, bn, bk), WGMMA_STAGES, 128 * (bm // 64 + 1),
                 boxes, SWIZZLE_BYTES, stage, WGMMA_SLACK,
                 WGMMA_SLACK + WGMMA_STAGES * stage + barriers)
+
+
+def compiled_depth(bm: int, bn: int, bk: int, dtype: torch.dtype) -> int:
+    """The stage depth that runs a ``(bm, bn, bk)`` request on ``dtype``'s
+    route: ``bk`` where the tiling is compiled, else the largest compiled
+    depth of ``(bm, bn)`` that divides ``bk``, else ``bk`` as asked (and
+    :func:`check_tiling` says why it does not launch).
+
+    ``bk`` moves no device-memory traffic: it is the depth of one stage
+    of the ring, and both routes add each output's products in k order,
+    one at a time on FFMA and 16 deep inside ``wgmma``.  So the f32 route
+    gives the same bits at ``bk`` and at the depth it maps to."""
+    depths = [t[2] for t in TILINGS[route_of(dtype)] if t[:2] == (bm, bn)]
+    if bk in depths:
+        return bk
+    return max((d for d in depths if bk % d == 0), default=bk)
 
 
 def smem_bytes(bm: int, bn: int, bk: int, dtype: torch.dtype) -> int:

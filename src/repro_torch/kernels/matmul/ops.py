@@ -4,15 +4,19 @@ the bridges to the model: :func:`matmul_workload` builds the
 ``core.workload.MatmulWorkload`` of a tiling, :func:`tuned_blocks` asks
 ``core.autotune.rank`` for the tiling to pass back into :func:`matmul`.
 
-Blocks are clamped to the problem (``min(b, dim)``) and a dimension the
-clamped block does not divide raises; the product accumulates in f32 and
-comes out in ``out_dtype or x.dtype``.  A CPU tensor takes the plain
-version in :mod:`.ref`; any other launches the CUDA kernel, which is
-compiled per route (f32: FFMA, bf16: wgmma) for the tilings in
-``kernel.TILINGS`` and raises on any other.  So a block left at ``None``
-takes the route's default in ``kernel.DEFAULTS`` (128 x 128, 16 deep in
-f32; 128 x 128, 64 deep in bf16), not the reference's 256/256/512, which
-are sized for a TPU's VMEM.
+Blocks the caller passes are clamped to the problem (``min(b, dim)``) and
+a dimension the clamped block does not divide raises; the product
+accumulates in f32 and comes out in ``out_dtype or x.dtype``.  A CPU
+tensor takes the plain version in :mod:`.ref`, and a block left at
+``None`` there is the reference's default (256, 256, 512), clamped, so
+the CPU accepts and refuses what the reference does.  Any other tensor
+launches the CUDA kernel, which is compiled per route (f32: FFMA, bf16:
+wgmma) for the tilings in ``kernel.TILINGS``: blocks left at ``None``
+take the first tiling of :func:`tuned_blocks`' ranking that agrees with
+the blocks given (raising only when no compiled tiling divides the
+problem), and a ``bk`` the route is not compiled for runs at the largest
+compiled depth that divides it (``kernel.compiled_depth``: the same
+product, see there).  Any other tiling raises.
 """
 from __future__ import annotations
 
@@ -23,6 +27,10 @@ from ...core.workload import MatmulWorkload
 from . import kernel as K
 from . import ref
 
+#: the reference's default blocks (repro/kernels/matmul/kernel.py
+#: DEFAULT_BM, DEFAULT_BN, DEFAULT_BK), sized for a TPU's VMEM
+REFERENCE_BLOCKS = (256, 256, 512)
+
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
            bn: int | None = None, bk: int | None = None,
@@ -31,14 +39,41 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
     (m, k), (k2, n) = x.shape, y.shape
     if k != k2:
         raise ValueError(f"cannot multiply {tuple(x.shape)} by {tuple(y.shape)}")
-    dm, dn, dk = K.DEFAULTS[K.route_of(x.dtype)]
-    bm, bn, bk = min(bm or dm, m), min(bn or dn, n), min(bk or dk, k)
-    if m % bm or n % bn or k % bk:
-        raise ValueError(f"blocks {(bm, bn, bk)} do not divide {(m, n, k)}")
+    dims = (m, n, k)
+    asked = tuple(None if b is None else min(b, d)
+                  for b, d in zip((bm, bn, bk), dims))
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
+        blocks = tuple(min(b, d) if a is None else a
+                       for a, b, d in zip(asked, REFERENCE_BLOCKS, dims))
+        _check_divides(blocks, dims)
         return ref.matmul(x, y, out_dtype)
-    return K.matmul_tiled(x, y, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+    _check_divides(asked, dims)
+    bm, bn, bk = _card_blocks(dims, x.dtype, asked)
+    return K.matmul_tiled(x, y, bm=bm, bn=bn,
+                          bk=K.compiled_depth(bm, bn, bk, x.dtype),
+                          out_dtype=out_dtype)
+
+
+def _check_divides(blocks: tuple, dims: tuple) -> None:
+    if any(b is not None and d % b for b, d in zip(blocks, dims)):
+        raise ValueError(f"blocks {blocks} do not divide {dims}")
+
+
+def _card_blocks(dims: tuple, dtype: torch.dtype, asked: tuple) -> tuple:
+    """The caller's blocks, with each one left at ``None`` taken from the
+    first ranked compiled tiling whose ``(bm, bn)`` agree with those
+    given."""
+    if None not in asked:
+        return asked
+    from ...core.autotune import rank
+
+    eb = torch.empty((), dtype=dtype).element_size()
+    for r in rank(dims, H100_SXM, objective="matmul", elem_bytes=eb):
+        if all(a is None or a == b for a, b in zip(asked[:2], r["block"])):
+            return tuple(b if a is None else a for a, b in zip(asked, r["block"]))
+    raise ValueError(f"no compiled {K.route_of(dtype)} matmul tiling of "
+                     f"{dims} has the blocks {asked}")
 
 
 def matmul_workload(m: int, n: int, k: int, *, bm: int = K.DEFAULTS["ffma"][0],

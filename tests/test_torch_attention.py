@@ -79,6 +79,35 @@ def test_flash_attention_decode_matches_reference():
         assert ok, (err, tol)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_none_blocks_follow_the_reference_at_192(causal):
+    """sq = sk = 192, blocks left at None: the reference clamps its 512
+    to 192 and runs; so does the op on the CPU, within 2e-3 of the
+    reference's Pallas kernel and of its oracle."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 192, 192, 4, 2, 64, seed=4)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    pallas = jops.flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    for want in (pallas, _oracle(jq, jk, jv, causal)):
+        ok, err, tol = _close(got, want)
+        assert ok, (err, tol)
+    assert ops.REFERENCE_BLOCKS == (jops.K.DEFAULT_BQ, jops.K.DEFAULT_BK)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_gqa_and_head_dims_match_reference(rep, d):
+    """GQA 1/2/4/8 at the head dims of the smoke configs (16, 32) and of
+    the full ones (64, 128), causal, blocks left at None: within 2e-3 of
+    the reference's Pallas kernel and of its oracle."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 64, 64, 8, 8 // rep, d, seed=rep + d)
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert tuple(got.shape) == (1, 64, 8, d)
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, interpret=True)
+    for want in (pallas, _oracle(jq, jk, jv, True)):
+        ok, err, tol = _close(got, want)
+        assert ok, (err, tol)
+
+
 def test_bf16_inputs_keep_their_dtype():
     """bf16 in, bf16 out, within the reference's bf16 tolerance of its
     oracle on the same bf16 inputs."""
@@ -153,4 +182,5 @@ def test_tiling_table_and_shared_memory():
 def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros((2, 128, 64))
     with pytest.raises(ValueError, match="CUDA"):
-        K.flash_attention_fused(x, x, x, causal=True, bq=128, bk=128)
+        K.flash_attention_fused(x, x, x, causal=True, bq=128, bk=128,
+                                scale=0.125)

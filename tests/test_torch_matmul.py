@@ -83,14 +83,16 @@ def test_matmul_blocks_clamp_and_must_divide():
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_default_tiling_is_compiled(dtype):
-    """The port's defaults are a tiling of the dtype's route, unlike the
-    reference's VMEM-sized 256/256/512, and the op takes them when no
-    block is given."""
+    """The port's default tiling of each route (the one the model's
+    workload takes by default) is compiled and divides the reference's
+    shapes, unlike the reference's VMEM-sized 256/256/512, which the op
+    takes on the CPU only."""
     tdt, jdt = DTYPES[dtype]
     route = K.route_of(tdt)
     assert K.DEFAULTS[route] in K.TILINGS[route]
     from repro.kernels.matmul import kernel as JK
     assert (JK.DEFAULT_BM, JK.DEFAULT_BN, JK.DEFAULT_BK) not in K.TILINGS[route]
+    assert ops.REFERENCE_BLOCKS == (JK.DEFAULT_BM, JK.DEFAULT_BN, JK.DEFAULT_BK)
     for m, n, k in SHAPES:   # the defaults divide the reference's shapes
         assert not (m % K.DEFAULTS[route][0] or n % K.DEFAULTS[route][1]
                     or k % K.DEFAULTS[route][2])
@@ -216,22 +218,119 @@ def test_launch_counts_by_route():
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + [(192, 192, 192)], ids=str)
 def test_matmul_at_the_route_default_matches_reference(shape, dtype):
-    """The op at its default blocks (the route's, clamped) within the
-    reference's tolerance of its Pallas kernel at the same blocks, and of
-    its oracle."""
+    """The op on the CPU with its blocks left at None takes the
+    reference's defaults (256/256/512, clamped): within the reference's
+    tolerance of its Pallas kernel at its defaults, and of its oracle,
+    where the reference accepts the shape; where the reference refuses it
+    (its 256-row block does not divide n = 384), the op refuses it too."""
     tdt, jdt = DTYPES[dtype]
     (jx, jy), (tx, ty) = _pair(*shape, jdt, seed=3)
-    bm, bn, bk = (min(b, d) for b, d in zip(K.DEFAULTS[K.route_of(tdt)],
-                                             (shape[0], shape[1], shape[2])))
+    if shape[1] % 256 and shape[1] > 256:
+        with pytest.raises(AssertionError):
+            jops.matmul(jx, jy, interpret=True)
+        with pytest.raises(ValueError, match="do not divide"):
+            ops.matmul(tx, ty)
+        return
     got = ops.matmul(tx, ty)
     assert got.dtype == tdt and tuple(got.shape) == shape[:2]
-    for want in (jops.matmul(jx, jy, bm=bm, bn=bn, bk=bk, interpret=True),
-                 jref.matmul(jx, jy)):
+    for want in (jops.matmul(jx, jy, interpret=True), jref.matmul(jx, jy)):
         (w,) = streams_from_numpy([np.asarray(want)], device="cpu")
         ok, err, tol = compare(got, w, tol=ref.TOLERANCE[tdt])
         assert ok, (err, tol)
+
+
+#: (dtype, asked (bm, bn, bk), the depth that runs): a compiled depth
+#: stays; an uncompiled one runs at the largest compiled depth of the
+#: route that divides it (the reference's test call, 128 x 128 x 128,
+#: among them); one that none divides, or an uncompiled (bm, bn), stays
+#: as asked for check_tiling to refuse
+DEPTHS = [("f32", (128, 128, 16), 16), ("f32", (128, 256, 32), 32),
+          ("f32", (128, 128, 128), 32), ("f32", (64, 64, 48), 16),
+          ("f32", (128, 128, 8), 8), ("f32", (96, 128, 128), 128),
+          ("bf16", (128, 128, 64), 64), ("bf16", (128, 128, 128), 64),
+          ("bf16", (128, 256, 4096), 64), ("bf16", (128, 128, 32), 32),
+          ("bf16", (256, 256, 128), 128)]
+
+
+@pytest.mark.parametrize("dtype,asked,runs", DEPTHS, ids=str)
+def test_compiled_depth(dtype, asked, runs):
+    tdt, _ = DTYPES[dtype]
+    assert K.compiled_depth(*asked, tdt) == runs
+    if runs != asked[2]:
+        assert asked[:2] + (runs,) in K.TILINGS[K.route_of(tdt)]
+
+
+class _Recorder:
+    """Stands in for the kernel wrapper on tensors without storage (the
+    ``meta`` device, which takes the op's card path): records the call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, x, y, **kw):
+        self.calls.append((x, y, kw))
+        return torch.empty((x.shape[0], y.shape[1]), dtype=kw["out_dtype"],
+                           device=x.device)
+
+
+#: (shape, dtype, asked blocks, the blocks the wrapper receives; None: the
+#: model's pick, tuned_blocks)
+CARD_CALLS = [((192, 192, 192), "f32", (None, None, None), None),
+              ((256, 384, 192), "bf16", (None, None, None), None),
+              ((256, 256, 256), "f32", (128, 128, 128), (128, 128, 32)),
+              ((512, 384, 640), "bf16", (128, 128, 128), (128, 128, 64)),
+              ((256, 256, 256), "bf16", (64, None, None), (64, 128, 64)),
+              ((256, 256, 256), "f32", (None, None, 128), (128, 256, 32)),
+              ((256, 256, 256), "f32", (1024, 1024, 1024), (256, 256, 256))]
+
+
+@pytest.mark.parametrize("shape,dtype,asked,gets", CARD_CALLS, ids=str)
+def test_card_path_takes_a_compiled_tiling(shape, dtype, asked, gets,
+                                           monkeypatch):
+    """On the card, blocks left at None take the first ranked compiled
+    tiling that agrees with the blocks given, and a requested depth runs
+    at the compiled one that divides it; the blocks a caller passes are
+    clamped and handed on (the wrapper then refuses what is not
+    compiled: 256^3 is over shared memory at f32)."""
+    tdt, _ = DTYPES[dtype]
+    m, n, k = shape
+    rec = _Recorder()
+    monkeypatch.setattr(K, "matmul_tiled", rec)
+    x = torch.empty((m, k), dtype=tdt, device="meta")
+    y = torch.empty((k, n), dtype=tdt, device="meta")
+    bm, bn, bk = asked
+    out = ops.matmul(x, y, bm=bm, bn=bn, bk=bk)
+    assert tuple(out.shape) == (m, n) and out.dtype == tdt
+    ((gx, gy, kw),) = rec.calls
+    assert gx is x and gy is y
+    got = (kw["bm"], kw["bn"], kw["bk"])
+    want = gets or ops.tuned_blocks(m, n, k, dtype=tdt)
+    assert got == want
+    if gets is None or asked[0] != 1024:
+        assert got in K.TILINGS[K.route_of(tdt)]
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            K.check_tiling(*got, SMEM, tdt)
+
+
+def test_card_path_raises_without_a_compiled_tiling(monkeypatch):
+    """No compiled tiling divides m = 96, nor n = 192 on the bf16 route
+    (its tiles are 128 or 256 wide), or agrees with bm = 256 there: the
+    op raises before any launch."""
+    monkeypatch.setattr(K, "matmul_tiled", _Recorder())
+    x = torch.empty((96, 128), device="meta")
+    with pytest.raises(ValueError, match="no compiled matmul tiling"):
+        ops.matmul(x, torch.empty((128, 128), device="meta"))
+    x = torch.empty((192, 192), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no compiled matmul tiling"):
+        ops.matmul(x, x)
+    xb = torch.empty((512, 512), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no compiled wgmma matmul tiling"):
+        ops.matmul(xb, xb, bm=256)
+    with pytest.raises(ValueError, match="do not divide"):
+        ops.matmul(xb, xb, bm=96)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
