@@ -33,11 +33,20 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    fewer than, as many as and many times the TMA ring's stages, and bf16
    in with f32 out; attention causal and not, GQA 2/1/8, and bf16 at one
    shape), the reference's decode case at ``bq = 1``, each within the
-   reference's tolerance of the plain version; a tiling a route is not
-   compiled for, a tile over shared memory, bf16 rows that are no
-   16-byte multiple, a misaligned view, an uncompiled head dim, ``causal``
-   with ``sq != sk`` and a non-dividing block raise; the registers,
-   shared memory and spills ``-Xptxas -v`` gave each matmul kernel;
+   reference's tolerance of the plain version; the reference's own
+   matmul call (128 x 128 x 128) on both routes, f32 bit-equal to the
+   compiled depth it runs at; blocks left at ``None`` (matmul and
+   attention at 192) and head dims 16 and 32; the split-KV decode in f32
+   and bf16 with Sk one tile, one split and many splits, causal ``bq = 1``
+   with wholly masked splits (their ``l`` exactly 0), GQA 1/2/4/8, d 16,
+   32, 64 and 128, its combine kernel against the plain combine, and a
+   strided cache view equal to the contiguous cache; a tiling a route is
+   not compiled for, a tile over shared memory, a product no compiled
+   tiling divides, bf16 rows that are no 16-byte multiple, misaligned
+   views, an uncompiled head dim, more than 16 query heads a KV head,
+   ``causal`` with ``sq != sk`` and a non-dividing block raise; the
+   registers, shared memory and spills ``-Xptxas -v`` gave each matmul
+   and attention kernel;
 6. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
    loop at its three full-size points, then the compute loop at its four
    points (f32 and bf16 4096^3 matmul, causal prefill and decode
@@ -45,9 +54,12 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    every kernel's launch count set to 0 just before and read just after;
    every kernel's share of its bound at most 1.0 (for matmul and
    attention at every tiling timed); the f32 matmul point launched the
-   FFMA route and the bf16 point the wgmma route;
-7. one JSON line with the nine kernels (the matmul row with its launches
-   per route), then the ``ok`` line.
+   FFMA route and the bf16 point the wgmma route, the decode point the
+   split route alone and at least one combine per split launch (the
+   combine is also timed alone);
+7. one JSON line with the ten kernels (the matmul and attention rows with
+   their launches per route, the combine's with the decode's split plan),
+   then the ``ok`` line.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
@@ -87,6 +99,8 @@ KERNEL_VIEW = {
     "matmul": ("matmul", "pick", "compute", ("matmul", "matmul_bf16")),
     "flash_attention": ("attention_prefill", "pick", "compute",
                         ("attention_prefill", "attention_decode")),
+    "flash_combine": ("attention_decode", "combine", "compute",
+                      ("attention_decode",)),
 }
 #: the reference's matmul and attention test shapes (tests/test_kernels.py):
 #: (m, n, k), and (b, sq, sk, h, hkv, d) with GQA 2, 1 and 8
@@ -100,6 +114,28 @@ ATTENTION_SHAPES = ((1, 256, 256, 4, 2, 64), (2, 512, 512, 8, 8, 64),
                     (2, 256, 256, 8, 1, 128))
 #: the reference's decode case: q (2, 1, 8, 64) against k, v (2, 1024, 2, 64)
 DECODE_SHAPE = (2, 1, 1024, 8, 2, 64)
+#: the split route (bq = 1) at small sizes, f32 and bf16:
+#: name -> ((b, sq, sk, h, hkv, d), bk, causal); the plan's split count
+#: each case stands for is checked (_SPLITS)
+DECODE_CASES = {
+    "one_tile": ((2, 1, 128, 8, 8, 64), 128, False),         # GQA 1
+    "one_split": ((72, 1, 512, 16, 8, 128), 128, False),     # GQA 2; 576 groups fill the card
+    "many_splits": ((2, 1, 4096, 8, 1, 128), 256, False),    # GQA 8
+    "causal_masked_splits": ((1, 256, 256, 4, 1, 64), 128, True),  # GQA 4, Sq = Sk
+    "d16": ((2, 1, 1024, 8, 2, 16), 256, False),             # padded to 64
+    "d32": ((2, 1, 1024, 8, 2, 32), 256, False),
+    "reference": (DECODE_SHAPE, 256, False),
+}
+_SPLITS = {"one_tile": lambda n, sk, bk: n == 1 and sk == bk,
+           "one_split": lambda n, sk, bk: n == 1 and sk > bk,
+           "many_splits": lambda n, sk, bk: n > 1,
+           "causal_masked_splits": lambda n, sk, bk: n >= 2}
+#: blocks left at None on the card, and head dims 16 and 32 on the tile
+#: route: (b, sq, sk, h, hkv, d), causal
+NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
+                        ((1, 192, 192, 4, 2, 64), False),
+                        ((2, 256, 256, 8, 2, 16), True),
+                        ((2, 256, 256, 8, 2, 32), False))
 #: which points of the stencil loop each stencil kernel serves
 STENCIL_POINTS = {"halo_pipeline": ("2d", "3d", "3d_lc_broken"),
                   "jacobi2d_grid": ("2d",),
@@ -242,17 +278,20 @@ def _stencil_refusals() -> dict:
     return out
 
 
-def _compute_small_checks() -> list[str]:
-    """Phase 5; returns what failed."""
+def _compute_small_checks() -> tuple[list[str], dict]:
+    """Phase 5; returns what failed, and what the decode plans and the
+    reference's own test calls gave."""
     from repro_torch import convert
     from repro_torch.benchmarks import gpu_compute_ecm as GC
     from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.attention import ops as AO
+    from repro_torch.kernels.attention import ref as AR
     from repro_torch.kernels.check import compare
     from repro_torch.kernels.matmul import kernel as MK
     from repro_torch.kernels.matmul import ops as MO
     from repro_torch.kernels.matmul import ref as MR
 
-    failures = []
+    failures, info = [], {"decode": {}, "matmul_bk_128": {}}
     rng = np.random.default_rng(SEED)
 
     def check(point, arrays, block):
@@ -301,8 +340,98 @@ def _compute_small_checks() -> list[str]:
                           [t for t in AK.TILINGS if not (sq % t[0] or sk % t[1])])
                 for block in blocks:
                     check(point, arrays, block)
+
+    # the reference's own matmul call (tests/test_kernels.py:78): 128^3
+    # blocks run at the compiled depth that divides 128, the same product
+    for m, n, k in MATMUL_SHAPES:
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((m, k), (k, n))]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = convert.streams_from_numpy(arrays, device="cuda", dtype=dtype)
+            got = MO.matmul(x, y, bm=128, bn=128, bk=128)
+            depth = MK.compiled_depth(128, 128, 128, dtype)
+            equal = torch.equal(got, MO.matmul(x, y, bm=128, bn=128, bk=depth))
+            ok, err, tol = compare(got, MR.matmul(x, y), tol=MR.TOLERANCE[dtype])
+            where = f"matmul {(m, n, k)} {dtype} at 128 x 128 x 128"
+            info["matmul_bk_128"][f"{(m, n, k)} {dtype}"] = {
+                "runs_at_bk": depth, "equal_to_that_depth": equal, "err": err}
+            if not ok:
+                failures.append(f"{where}: err {err} tol {tol}")
+            if dtype == torch.float32 and not equal:
+                failures.append(f"{where}: differs from bk = {depth}")
+    # blocks left at None: a compiled tiling that divides the problem
+    arrays = [rng.standard_normal((192, 192)).astype(np.float32) for _ in range(2)]
+    x, y = convert.streams_from_numpy(arrays, device="cuda")
+    ok, err, tol = compare(MO.matmul(x, y), MR.matmul(x, y),
+                           tol=MR.TOLERANCE[torch.float32])
+    if not ok:
+        failures.append(f"matmul (192, 192, 192) f32, blocks None: err {err}")
+    for dims, causal in NONE_BLOCK_ATTENTION:
+        b, sq, sk, h, hkv, d = dims
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        inputs = convert.streams_from_numpy(arrays, device="cuda")
+        point = GC.Point("attention", dims, torch.float32, causal)
+        with GC.full_f32():
+            want = GC.plain_op(point, inputs)
+        ok, err, tol = compare(AO.flash_attention(*inputs, causal=causal), want,
+                               tol=GC.TOLERANCE["attention"][torch.float32])
+        if not ok:
+            failures.append(f"attention {dims} causal={causal}, blocks None: "
+                            f"err {err} tol {tol}")
+
+    # the split route: plans, partials, combine, and the op
+    for name, (dims, bk, causal) in DECODE_CASES.items():
+        b, sq, sk, h, hkv, d = dims
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            where = f"decode {name} {dims} {dtype}"
+            inputs = convert.streams_from_numpy(arrays, device="cuda", dtype=dtype)
+            point = GC.Point("attention", dims, dtype, causal)
+            tol = GC.TOLERANCE["attention"][dtype]
+            with GC.full_f32():
+                want = GC.plain_op(point, inputs)
+            ok, err, bound = compare(AO.flash_attention(*inputs, causal=causal,
+                                                        bq=1, bk=bk), want, tol=tol)
+            if not ok:
+                failures.append(f"{where}: err {err} tol {bound}")
+            if d not in AK.HEAD_DIMS:
+                continue
+            m, l, acc, plan = AK.split_partials(*inputs, causal=causal, bk=bk,
+                                                scale=d ** -0.5)
+            info["decode"][f"{name} {dtype}"] = {"n_split": plan.n_split,
+                                                 "split_keys": plan.split_keys,
+                                                 "ctas_per_sm": plan.ctas_per_sm}
+            if name in _SPLITS and not _SPLITS[name](plan.n_split, sk, bk):
+                failures.append(f"{where}: {plan} is not the case's split count")
+            ok, err, bound = compare(
+                AK.combine(m, l, acc, shape=tuple(inputs[0].shape), dtype=dtype),
+                AR.combine(m, l, acc).reshape(inputs[0].shape).to(dtype), tol=tol)
+            if not ok:
+                failures.append(f"{where}: combine err {err} tol {bound}")
+            if causal:  # split s is empty for the rows before its first key
+                rows = torch.arange(sq, device="cuda")[None, :, None]
+                lv = l.view(b, sq, h, plan.n_split)
+                for sp in range(plan.n_split):
+                    empty = (rows < sp * plan.split_keys).expand(b, sq, h)
+                    if not (bool((lv[..., sp][empty] == 0).all())
+                            and bool((lv[..., sp][~empty] > 0).all())):
+                        failures.append(f"{where}: split {sp} is not empty "
+                                        f"exactly for the rows before it")
+            if name == "reference":  # a cache slice: its own strides, no copy
+                caches = [torch.zeros((b, 2 * sk, hkv, d), device="cuda",
+                                      dtype=dtype) for _ in range(2)]
+                for c, t in zip(caches, inputs[1:]):
+                    c[:, :sk] = t
+                sliced = AO.flash_attention(inputs[0], caches[0][:, :sk],
+                                            caches[1][:, :sk], causal=False,
+                                            bq=1, bk=bk)
+                if not torch.equal(sliced, AO.flash_attention(
+                        *inputs, causal=False, bq=1, bk=bk)):
+                    failures.append(f"{where}: a strided cache view differs")
     torch.cuda.synchronize()
-    return failures
+    return failures, info
 
 
 def _compute_refusals() -> dict:
@@ -318,6 +447,7 @@ def _compute_refusals() -> dict:
     shifted = torch.zeros(256 * 256 + 1, device="cuda",
                           dtype=torch.bfloat16)[1:].view(256, 256)
     q = torch.zeros((1, 256, 2, 128), device="cuda")
+    shifted_kv = torch.zeros(256 * 2 * 128 + 1, device="cuda")[1:].view(1, 256, 2, 128)
     calls = {
         "matmul_uncompiled_tiling": lambda: MO.matmul(x, x, bm=128, bn=128, bk=8),
         "matmul_over_shared_memory": lambda: MO.matmul(x, x, bm=256, bn=256, bk=64),
@@ -335,6 +465,11 @@ def _compute_refusals() -> dict:
             q[..., :96].contiguous()),
         "attention_causal_sq_ne_sk": lambda: AO.flash_attention(
             q[:, :128], q, q, causal=True),
+        "attention_decode_over_16_query_heads_a_kv_head": lambda: AO.flash_attention(
+            torch.zeros((1, 1, 32, 64), device="cuda"), q[:, :, :1, :64].contiguous(),
+            q[:, :, :1, :64].contiguous(), causal=False, bq=1),
+        "attention_decode_misaligned_view": lambda: AO.flash_attention(
+            q[:, :1], shifted_kv, shifted_kv, causal=False, bq=1, bk=128),
     }
     out = {}
     for name, call in calls.items():
@@ -361,6 +496,14 @@ def _check_compute_report(report: dict) -> list[str]:
     failures += [f"{where} block {b}: {v} of the bound, above 1.0"
                  for b, v in report["timings"]["bound_share"].items()
                  if not v <= 1.0]
+    combine = report["timings"].get("combine")
+    if combine is not None:
+        ok, err, tol = combine["check"]
+        if not ok:
+            failures.append(f"{where}: combine err {err} tol {tol}")
+        if not combine["bound_ms"] <= combine["ms"]:
+            failures.append(f"{where}: combine {combine['ms']} ms under its "
+                            f"bound {combine['bound_ms']} ms")
     return failures
 
 
@@ -448,15 +591,17 @@ def main() -> int:
         _fail(f"{len(failures)} small-size stencil checks failed")
 
     # 5. matmul and attention at small sizes
-    failures = _compute_small_checks()
+    failures, info = _compute_small_checks()
     print(json.dumps({"phase": "compute_small",
                       "matmul_shapes": [list(s) for s in MATMUL_SHAPES],
                       "attention_shapes": [list(s) for s in ATTENTION_SHAPES
                                            + (DECODE_SHAPE,)],
-                      "failures": failures}))
+                      "decode_cases": {n: list(c[0]) for n, c in DECODE_CASES.items()},
+                      **info, "failures": failures}))
     print(json.dumps(_compute_refusals()))
     print(json.dumps({"matmul_ptxas": [e for e in _build.ptxas_report("matmul")
                                        if e["kernel"].startswith("void matmul_")]}))
+    print(json.dumps({"attention_ptxas": _build.ptxas_report("attention")}))
     if failures:
         _fail(f"{len(failures)} small-size matmul and attention checks failed")
 
@@ -497,24 +642,36 @@ def main() -> int:
     kernels.reset_launches()
     compute = {}
     for point_name, point in GC.POINTS.items():
-        before = dict(kernels.MATMUL.launches_by_route)
+        before = {k.name: (dict(k.launches_by_route), k.launches)
+                  for k in (kernels.MATMUL, kernels.FLASH_ATTENTION,
+                            kernels.FLASH_COMBINE)}
         report = GC.run(point=point)
         failures += _check_compute_report(report)
         report.pop("output")
-        report["matmul_launches_by_route"] = {
-            r: n - before[r] for r, n in kernels.MATMUL.launches_by_route.items()}
+        for k in (kernels.MATMUL, kernels.FLASH_ATTENTION):
+            report[f"{k.name}_launches_by_route"] = {
+                r: n - before[k.name][0][r] for r, n in k.launches_by_route.items()}
+        report["flash_combine_launches"] = (kernels.FLASH_COMBINE.launches
+                                            - before["flash_combine"][1])
         if point.op == "matmul":
             route = kernels.matmul.kernel.route_of(point.dtype)
             if {r: n > 0 for r, n in report["matmul_launches_by_route"].items()} \
-                    != {r: r == route for r in before}:
+                    != {r: r == route for r in kernels.MATMUL.routes}:
                 failures.append(f"{point_name} launched the matmul routes "
                                 f"{report['matmul_launches_by_route']}, not "
                                 f"{route} alone")
+        elif point.dims[1] == 1:  # decode: the split route and its combine alone
+            by_route = report["flash_attention_launches_by_route"]
+            if by_route["tile"] or not by_route["split"] or \
+                    report["flash_combine_launches"] < by_route["split"]:
+                failures.append(f"{point_name} launched {by_route} and "
+                                f"{report['flash_combine_launches']} combines")
         compute[point_name] = report
         torch.cuda.empty_cache()
     launches |= {k.name: k.launches for k in kernels.KERNELS
                  if KERNEL_VIEW[k.name][2] == "compute"}
     matmul_routes = dict(kernels.MATMUL.launches_by_route)
+    attention_routes = dict(kernels.FLASH_ATTENTION.launches_by_route)
     for report in compute.values():
         print(json.dumps({"device": report["device"]}))
         for rec in GC.summary(report):
@@ -530,7 +687,13 @@ def main() -> int:
     rows = []
     for k in kernels.KERNELS:
         op, path, family, served = KERNEL_VIEW[k.name]
-        if family == "compute":
+        if k is kernels.FLASH_COMBINE:
+            rec = compute[op]["timings"]["combine"]
+            checks = [rec["check"]]
+            rec = rec | {"ms": {path: rec["ms"]}}
+            where = {"op": op, "path": path, "dims": compute[op]["dims"],
+                     "split_plan": compute[op]["timings"]["split_plan"]}
+        elif family == "compute":
             checks = [compute[pt]["check"] for pt in served]
             tm = compute[op]["timings"]
             rec = tm | {"ms": {path: tm["ms"]}}
@@ -556,6 +719,17 @@ def main() -> int:
                     **{key: compute[pt]["timings"][key] for key in (
                         "ms", "plain_ms", "library_ms", "bound_ms")}}
                 for pt in served}
+        if k is kernels.FLASH_ATTENTION:
+            where["launches_by_route"] = attention_routes
+            where["by_route"] = {
+                kernels.attention.kernel.route_of(compute[pt]["block"][0]): {
+                    "point": pt, "block": compute[pt]["block"],
+                    "launches": compute[pt]["flash_attention_launches_by_route"],
+                    **{key: compute[pt]["timings"][key] for key in (
+                        "ms", "op_ms", "plain_ms", "library_ms", "bound_ms")}}
+                for pt in served}
+            where["by_route"]["split"]["split_plan"] = \
+                compute["attention_decode"]["timings"]["split_plan"]
         worst = max(checks, key=lambda c: c[1])
         rows.append({
             "name": k.name, "route": k.route, "source": k.source_path,

@@ -21,7 +21,13 @@ f32 runs in full f32: ``torch.backends.cuda.matmul.allow_tf32`` is off
 while the plain versions and the yardsticks run (:func:`full_f32`).  The
 matmul kernel takes f32 on its FFMA route and bf16 on its wgmma route
 (``kernels/matmul/kernel.py``); each matmul point ranks and times its
-route's tilings, and its report names the route.
+route's tilings, and its report names the route.  Attention's kernel is
+timed on the operands the op hands it, no KV head repeated: the decode
+route on q and the cache as they are, the tile route on heads fused at
+their own counts; its bound counts those bytes.  A decode pick also
+reports its split plan and times the combine kernel alone.  The plain
+version and the library call take the reference's operands, KV repeated
+to the query heads, prepared outside the timed call.
 
 Run ``PYTHONPATH=src python -m repro_torch.benchmarks.gpu_compute_ecm`` on
 a machine with the card; it prints JSON lines for each point in
@@ -31,7 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import json
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import torch
 import torch.nn.functional as F
@@ -162,48 +168,52 @@ def bound(point: Point, machine: GPUMachineModel) -> dict:
     its bytes (each operand as the kernel receives it read once, the
     output written once) over the HBM rate, and its products' FLOP over
     the peak rate of the operands' type (f32: FFMA; bf16: the tensor
-    cores).  Attention counts the exact causal work, ``S (S + 1) / 2``
-    scores a head, and gives beside it the bytes of the op's own
-    operands, each KV head read once (``op_bytes_ms``)."""
+    cores).  Attention's kernel receives K and V at their own Hkv heads,
+    each read once whatever the query heads sharing it, and does the
+    exact causal work, ``S (S + 1) / 2`` scores a head."""
     eb = _elem_bytes(point)
     peak = (machine.peak_bf16_tensor_flops if point.dtype == torch.bfloat16
             else machine.peak_f32_flops)
-    extra = {}
     if point.op == "matmul":
         m, n, k = point.dims
         nbytes = (m * k + k * n + m * n) * eb
         flops = 2.0 * m * n * k
     else:
         b, sq, sk, h, hkv, d = point.dims
-        nbytes = 2 * (sq + sk) * d * b * h * eb
+        nbytes = 2 * (sq * h + sk * hkv) * d * b * eb
         scores = sq * (sq + 1) / 2 if point.causal else sq * sk
         flops = 4.0 * scores * d * b * h
-        extra["op_bytes_ms"] = machine.hbm_seconds(
-            2 * (sq * h + sk * hkv) * d * b * eb) * 1e3
     bytes_ms = machine.hbm_seconds(nbytes) * 1e3
     ops_ms = flops / peak * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_ms": bytes_ms, "operations_ms": ops_ms, **extra}
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms}
 
 
-def _kernel_call(point: Point, operands, block):
-    """A call of the kernel wrapper at ``block`` on its own operands."""
+def _kernel_call(point: Point, inputs, tile_inputs, block):
+    """A call of the kernel wrapper at ``block`` on the operands it
+    receives from the op: matmul's as they are; attention's decode route
+    (``bq = 1``) q, k and v as they are, the cache unrepeated; its tile
+    route heads fused, KV at its own heads (``tile_inputs``)."""
     if point.op == "matmul":
-        x, y = operands
+        x, y = inputs
         bm, bn, bk = block
         return lambda: MK.matmul_tiled(x, y, bm=bm, bn=bn, bk=bk,
                                        out_dtype=x.dtype)
-    q, k, v = operands
     bq, bk = block
-    return lambda: AK.flash_attention_fused(q, k, v, causal=point.causal,
-                                            bq=bq, bk=bk,
-                                            scale=q.shape[-1] ** -0.5)
+    scale = point.dims[5] ** -0.5
+    if bq == 1:
+        return lambda: AK.flash_attention_split(*inputs, causal=point.causal,
+                                                bk=bk, scale=scale)
+    return lambda: AK.flash_attention_tile(*tile_inputs, causal=point.causal,
+                                           bq=bq, bk=bk, scale=scale)
 
 
 def _library(point: Point, operands):
     """``(name, call)`` of one PyTorch call computing the kernel's
-    function on its operands."""
+    function on the plain version's operands (attention: KV repeated to
+    the query heads, heads fused, so it reads twice the kernel's KV bytes
+    at GQA 2)."""
     if point.op == "matmul":
         x, y = operands
         return "torch.matmul (cuBLAS, TF32 off)", lambda: torch.matmul(x, y)
@@ -218,23 +228,53 @@ def _library(point: Point, operands):
     name = ("F.scaled_dot_product_attention, EFFICIENT_ATTENTION backend "
             "(CUTLASS; its f32 GEMMs run on the tensor cores as 3xTF32, "
             "OpMultiplyAddFastF32 in PyTorch's mem_eff_attention/"
-            "gemm_kernel_utils.h)")
+            "gemm_kernel_utils.h), on KV repeated to the query heads")
     return name, call
+
+
+def _combine_timings(point: Point, inputs, bk: int,
+                     machine: GPUMachineModel) -> dict:
+    """The decode route's plan, and its combine kernel alone on the
+    partials of one first pass: its time, its plain version's
+    (``ref.combine``), its bytes bound (the partials read once, the output
+    written once) and its check against the plain version."""
+    q, k, v = inputs
+    m, l, acc, plan = AK.split_partials(q, k, v, causal=point.causal, bk=bk,
+                                        scale=point.dims[5] ** -0.5)
+    shape, dtype = tuple(q.shape), q.dtype
+
+    def call():
+        return AK.combine(m, l, acc, shape=shape, dtype=dtype)
+
+    def plain():
+        return AR.combine(m, l, acc).reshape(shape).to(dtype)
+    nbytes = (m.numel() + l.numel() + acc.numel()) * 4 + q.numel() * q.element_size()
+    return {"split_plan": asdict(plan),
+            "combine": {"ms": time_call(call)[0],
+                        "plain_ms": time_call(plain)[0],
+                        "bound_ms": machine.hbm_seconds(nbytes) * 1e3,
+                        "bound_by": "bytes", "library_ms": None,
+                        "check": compare(call(), plain(),
+                                         tol=TOLERANCE["attention"][dtype])}}
 
 
 def timings(point: Point, inputs, ranked: list[dict],
             machine: GPUMachineModel) -> dict:
     """Time the kernel at every candidate tiling, the plain version and
     the library call; set the pick against the bound and the model."""
-    operands = (inputs if point.op == "matmul"
-                else AO.fused_inputs(*inputs))
+    if point.op == "matmul":
+        operands = tile_inputs = inputs
+        plain = lambda: MR.matmul(*inputs)  # noqa: E731
+    else:
+        operands = AO.fused_inputs(*inputs)
+        tile_inputs = AO.tile_operands(*inputs)
+        plain = lambda: AR.attention(*operands, causal=point.causal)  # noqa: E731
     blocks = [r["block"] for r in ranked]
-    measured = {b: time_call(_kernel_call(point, operands, b)) for b in blocks}
+    measured = {b: time_call(_kernel_call(point, inputs, tile_inputs, b))
+                for b in blocks}
     ms = {b: t for b, (t, _) in measured.items()}
     pick = blocks[0]
     fastest = sorted(blocks, key=ms.get)
-    plain = ((lambda: MR.matmul(*operands)) if point.op == "matmul"
-             else (lambda: AR.attention(*operands, causal=point.causal)))
     name, library = _library(point, operands)
     with full_f32():
         plain_ms = time_call(plain)[0]
@@ -243,6 +283,8 @@ def timings(point: Point, inputs, ranked: list[dict],
                                 tol=TOLERANCE[point.op][point.dtype])
     lim = bound(point, machine)
     predicted = {tuple(r["block"]): r["predicted_ms"] for r in ranked}
+    split = (_combine_timings(point, inputs, pick[1], machine)
+             if point.op == "attention" and pick[0] == 1 else {})
     return {
         "ms": ms[pick],
         "host_us": measured[pick][1],
@@ -259,6 +301,7 @@ def timings(point: Point, inputs, ranked: list[dict],
         "library_check": library_check,
         **lim,
         "bound_share": {str(list(b)): lim["bound_ms"] / t for b, t in ms.items()},
+        **split,
     }
 
 

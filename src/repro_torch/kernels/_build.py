@@ -125,12 +125,15 @@ class Kernel:
     ``argtypes`` must give ``ctypes.c_void_p`` for every pointer and for
     the stream, or ctypes would pass them as 32-bit ints.  An entry with
     several device routes behind it names them in ``routes``; each launch
-    then names its route, counted in ``launches_by_route``.
+    then names its route, counted in ``launches_by_route``.  Routes with
+    C entries of their own give ``symbol`` and ``argtypes`` as dicts by
+    route.
     """
 
     route = "cuda"
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes: list,
+    def __init__(self, name: str, source: str, symbol: str | dict[str, str],
+                 argtypes: list | dict[str, list],
                  replaces: str, routes: tuple[str, ...] = ()):
         self.name = name
         self.source = source
@@ -138,7 +141,7 @@ class Kernel:
         self.argtypes = argtypes
         self.replaces = replaces
         self.routes = routes
-        self._fn = None
+        self._fns = {}
         self.reset()
 
     def reset(self) -> None:
@@ -153,15 +156,18 @@ class Kernel:
         if route not in (self.routes or (None,)):
             raise ValueError(f"{self.symbol}: route {route!r}, not one of "
                              f"{self.routes}")
-        if self._fn is None:
-            fn = getattr(library(self.source), self.symbol)
-            fn.argtypes = self.argtypes
+        fn = self._fns.get(route)
+        if fn is None:
+            by_route = isinstance(self.symbol, dict)
+            fn = getattr(library(self.source),
+                         self.symbol[route] if by_route else self.symbol)
+            fn.argtypes = self.argtypes[route] if by_route else self.argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        rc = self._fn(*args)
+            self._fns[route] = fn
+        rc = fn(*args)
         if rc != 0:
             msg = library(self.source).rt_error_string(rc).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc}: {msg}")
+            raise RuntimeError(f"{fn.__name__}: CUDA error {rc}: {msg}")
         self.launches += 1
         if route is not None:
             self.launches_by_route[route] += 1

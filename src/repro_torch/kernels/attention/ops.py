@@ -15,7 +15,11 @@ is the reference's default 512, clamped.  Any other tensor launches the
 CUDA kernel, compiled for the tilings in ``kernel.TILINGS`` at the head
 dims in ``kernel.HEAD_DIMS``: blocks left at ``None`` take the first
 tiling of :func:`tuned_blocks`' ranking that agrees with the block given
-(raising only when no compiled tiling divides the problem).  Head dims
+(raising only when no compiled tiling divides the problem).  The kernel
+never sees a repeated KV head: ``bq = 1`` (decode) hands it q, k and v as
+they are, the cache in its own layout with no copy
+(``kernel.flash_attention_split``); ``bq >= 64`` (prefill) fuses heads as
+``(B, H, S, d)`` and ``(B, Hkv, S, d)`` (:func:`tile_operands`).  Head dims
 16 and 32 run at 64 (``kernel.PADDED_HEAD_DIMS``): q, k and v are padded
 with zeros, the scale stays ``d ** -0.5`` of the true d, and the padded
 output columns are dropped.  A zero column adds ``0 * 0`` to every score
@@ -55,10 +59,18 @@ def fused_inputs(q, k, v):
     return _fuse(q), _fuse(k), _fuse(v)
 
 
+def tile_operands(q, k, v):
+    """The tile route's operands of :func:`flash_attention`: each tensor
+    ``(B, S, heads, d)`` made a contiguous ``(B, heads, S, d)``, KV at its
+    own heads."""
+    return tuple(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int | None = None,
                     bk: int | None = None) -> torch.Tensor:
-    """Returns ``(B, Sq, H, d)`` (a permuted view of the fused output)."""
+    """Returns ``(B, Sq, H, d)`` (on the tile route a permuted view of
+    the kernel's ``(B, H, Sq, d)`` output)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if causal and sq != sk:
@@ -76,10 +88,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dk = K.PADDED_HEAD_DIMS.get(d, d)
     if dk != d:
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
-    qf, kf, vf = fused_inputs(q, k, v)
-    out = K.flash_attention_fused(qf, kf, vf, causal=causal, bq=bq, bk=bk,
-                                  scale=d ** -0.5)
-    return out.reshape(b, h, sq, dk).permute(0, 2, 1, 3)[..., :d]
+    if bq == 1:
+        out = K.flash_attention_split(q, k, v, causal=causal, bk=bk,
+                                      scale=d ** -0.5)
+    else:
+        out = K.flash_attention_tile(*tile_operands(q, k, v), causal=causal,
+                                     bq=bq, bk=bk,
+                                     scale=d ** -0.5).permute(0, 2, 1, 3)
+    return out[..., :d] if dk != d else out
 
 
 def _check_divides(blocks: tuple, dims: tuple) -> None:

@@ -1,17 +1,23 @@
-// Flash-attention forward (online softmax) on the SMs' FP32 units.
+// Flash-attention forward (online softmax) on the SMs' FP32 units, in two
+// routes: prefill tiles (flash_tile) and split-KV decode rows (flash_split,
+// merged by flash_combine).
 //
 // Replaces src/repro/kernels/attention/kernel.py:73 flash_attention_call
 // (pallas_call at :87, body _attn_kernel at :28): over fused batch x heads,
 // a q-block of bq rows walks the KV tiles of bk rows in order, with a
-// running max m, sum l and accumulator acc in f32; Q is scaled by d^-0.5
-// in f32 before Q K^T; a causal tile is skipped when
+// running max m, sum l and accumulator acc in f32; Q is scaled by the
+// scale in f32 before Q K^T; a causal tile is skipped when
 // qi*bq + bq - 1 < ki*bk and masked with -1e30 inside; l is clamped at
 // 1e-30 before the division.  Any of f32 and bf16 in (widened exactly to
-// f32 on load), q's type out (bf16 rounded to nearest even).
+// f32 on load), q's type out (bf16 rounded to nearest even).  The
+// reference repeats each KV head to its query heads before the kernel;
+// here both routes read the KV head of a query head, h / rep with rep =
+// H / Hkv, so no repeat is ever made.
 //
 // Bound.  Prefill (bq >= 64): operations, 4*d FLOP a score on FFMA
 // (67 TFLOP/s); each KV element is reused by bq query rows.  Decode
-// (bq = 1): bytes, every K and V element is read once for one query row.
+// (bq = 1): bytes, each K and V element of the cache read once for the
+// rep query heads that share it.
 //
 // Design, prefill (flash_tile): one CTA of 256 threads per (fused head,
 // q-block); the q-blocks with the longest causal rows are launched first.
@@ -24,17 +30,44 @@
 // over the 16 threads that share the rows.  One stage, no cp.async: at
 // d = 128 and bq = bk = 128 the tile takes 194 KiB of the 227 KB a block
 // may use, so one CTA runs on an SM and the next tile's loads wait for
-// the barrier.  Decode (flash_row): one CTA per (fused head, query row);
-// scores are one warp per key (the row split over the 32 lanes, 16-byte
-// loads for d = 128 f32), the tile's max and sum are block reductions,
-// and P V runs with threads over d, 256/d key groups summed at the end.
-// K and V are read straight from device memory: nothing is reused.
+// the barrier.
 //
-// Walk order: tiles are visited in ki order, as the reference does.  Tile 0
-// always holds column 0 <= row, so m is finite from the first tile on and a
-// row that a later tile masks whole contributes exp(-1e30 - m) = 0.  The
-// causal skip is the reference's rule, so the visited fraction is the
-// model's kv_fraction.  Math: expf (no fast-math), fma for the products.
+// Design, decode (flash_split, flash_combine): the reference's sequence-
+// parallel decode (src/repro/models/attention.py:229 _flash_decode) across
+// the SMs of one card.  One CTA of 128 threads per (batch, query row, KV
+// head, split) serves the rep query heads of its KV head, and reads the
+// keys of its split (a whole number of bk tiles) once for all of them,
+// straight from the cache's own (B, Sk, Hkv, d) layout through its strides.
+// K and V pass through a SPLIT_STAGES-deep cp.async ring of 32-key stages
+// (16-byte copies, rows padded by 16 bytes), so two stages of loads are in
+// flight while one is scored: the split count is chosen by the host so that
+// every CTA of the launch is resident at once, which keeps the bytes of
+// (SPLIT_STAGES - 1) stages in flight on every SM.  Per stage: lane j of a
+// warp scores key j against the warp's rows (q from shared memory, a
+// broadcast); the same warp takes the row's max and sum with butterflies
+// and writes P; then each thread accumulates P V for its (row, 16-byte
+// column chunk) pairs.  Each split writes its m, l and acc[rep][d] in f32;
+// flash_combine merges the splits of a query row in split order:
+// M = max m_s, L = sum l_s exp(m_s - M), O = sum acc_s exp(m_s - M) /
+// max(L, 1e-30).  No atomics, so results repeat bit for bit.
+//
+// Walk order and the finite running max: a walk visits its tiles in ki
+// order, as the reference does, and starts at a key <= its row (tile 0 of
+// a prefill walk; key 0 of decode split 0, and the first key of any causal
+// split that is not skipped), so m is finite from the first tile on and a
+// masked key contributes exp(-1e30 - m) = 0.  A causal split that lies
+// wholly past its row is skipped by the reference's rule (its bytes are
+// never read) and writes l = 0, which the combine leaves out of M, L and
+// O whatever its m.  Scored instead, it would carry m = -1e30 and l = its
+// key count (exp(-1e30 - (-1e30)) = 1 a key); split 0 holds key 0 <= row,
+// so M is finite and such a split would weigh exp(-1e30 - M) = 0 all the
+// same.  The causal skip is the reference's rule, so the visited fraction
+// is the model's kv_fraction.  Math: expf (no fast-math), fma for the
+// products.
+#include <limits.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace rt;
@@ -42,7 +75,6 @@ using namespace rt;
 namespace {
 
 constexpr int ATT_THREADS = 256;
-constexpr int ATT_WARPS = ATT_THREADS / 32;
 constexpr float NEG_INF = -1e30f;
 constexpr int PAD = 4;  // floats of padding per row of P
 
@@ -55,7 +87,8 @@ constexpr size_t tile_smem() {
 template <int BQ, int BK, int D>
 __global__ void __launch_bounds__(ATT_THREADS, 1)
     flash_tile(const void* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
-               void* __restrict__ o, int Sq, int Sk, float scale, int causal, int dtype) {
+               void* __restrict__ o, int H, int rep, int Sq, int Sk, float scale, int causal,
+               int dtype) {
   static_assert(BQ % 64 == 0 && BK % 64 == 0 && D % 64 == 0, "tile shape");
   constexpr int TM = BQ / 16, TN = BK / 16, TD = D / 16, PS = BK + PAD;
   constexpr int KP = D * BK > BQ * PS ? D * BK : BQ * PS;
@@ -65,6 +98,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
   float* Vs = KP_ + KP;                          // [BK][D]
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const long long bh = blockIdx.x;
+  const long long bkv = (bh / H) * (H / rep) + (bh % H) / rep;  // b * Hkv + h / rep
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const long long qbase = (bh * Sq + q0) * D;
 
@@ -88,7 +122,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
   const int n_kv = Sk / BK;
   for (int ki = 0; ki < n_kv; ++ki) {
     if (causal && q0 + BQ - 1 < ki * BK) break;  // the reference's skip; later tiles too
-    const long long kbase = (bh * Sk + static_cast<long long>(ki) * BK) * D;
+    const long long kbase = (bkv * Sk + static_cast<long long>(ki) * BK) * D;
     for (int u = tid; u < BK * D / 8; u += ATT_THREADS) {
       const int r = u % BK, c = (u / BK) * 8;
       float x[8];
@@ -208,117 +242,327 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
   }
 }
 
-// max (MAX) or sum of v over the block, in a fixed order, returned to every
-// thread; `red` holds ATT_WARPS floats
-template <bool MAX>
-__device__ __forceinline__ float block_all(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = MAX ? fmaxf(v, w) : __fadd_rn(v, w);
+// ------------------------------------------------------------ decode route
+
+constexpr int SPLIT_THREADS = 128;
+constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;
+constexpr int SPLIT_KEYS = 32;  // keys of one ring stage: one a lane when scored
+constexpr int SPLIT_STAGES = 3;
+constexpr int MAX_REP = 16;     // query heads a CTA serves (H / Hkv)
+constexpr int ROWS_PER_WARP = MAX_REP / SPLIT_WARPS;
+constexpr int COMBINE_THREADS = 256;
+
+// element strides of a (B, S, H, D) tensor whose last dimension is dense
+struct Strides {
+  long long b, s, h;
+};
+
+// 16 bytes of a row in shared memory, widened to float
+template <typename T>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float* x) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
   }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
+  __device__ static float one(float t) { return t; }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* x) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
 #pragma unroll
-  for (int w = 1; w < ATT_WARPS; ++w) r = MAX ? fmaxf(r, red[w]) : __fadd_rn(r, red[w]);
-  __syncthreads();  // red is reused by the next call
-  return r;
+    for (int e = 0; e < 8; ++e) x[e] = __bfloat162float(h[e]);
+  }
+  __device__ static float one(__nv_bfloat16 t) { return __bfloat162float(t); }
+};
+
+// elements of one K or V row in the ring: 16 bytes of padding keep the
+// 16-byte reads of 8 consecutive rows (one quarter-warp) on distinct banks
+template <typename T, int D>
+__host__ __device__ constexpr int split_row() {
+  return D + Chunk<T>::N;
 }
 
-template <int BK, int D>
-__global__ void __launch_bounds__(ATT_THREADS)
-    flash_row(const void* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
-              void* __restrict__ o, int Sq, int Sk, float scale, int causal, int dtype) {
-  static_assert(BK <= ATT_THREADS && D % 64 == 0 && ATT_THREADS % D == 0, "tile shape");
-  constexpr int E = D / 32;           // elements of a row per lane
-  constexpr int G = ATT_THREADS / D;  // key groups of P V
-  __shared__ float p[BK];
-  __shared__ float part[ATT_THREADS];
-  __shared__ float red[ATT_WARPS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, c = tid % D, g = tid / D;
-  const long long bh = blockIdx.x;
-  const int row = gridDim.y - 1 - blockIdx.y;
-  const long long qbase = (bh * Sq + row) * D;
+// dynamic shared memory of a launch: the ring, then in f32 the scaled q
+// rows (rep x D), P (rep x SPLIT_KEYS) and the rescale factors (rep);
+// kernels/attention/kernel.py split_smem_bytes computes the same
+template <typename T, int D>
+size_t split_smem(int rep) {
+  return static_cast<size_t>(SPLIT_STAGES) * 2 * SPLIT_KEYS * split_row<T, D>() * sizeof(T) +
+         static_cast<size_t>(rep) * (D + SPLIT_KEYS + 1) * sizeof(float);
+}
 
-  float qv[E];
-  load_vec<E>(q, qbase + lane * E, dtype, qv);
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int e = 0; e < E; ++e) qv[e] = __fmul_rn(qv[e], scale);
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
-  float m = NEG_INF, l = 0.f, acc = 0.f;
-  const int n_kv = Sk / BK;
-  for (int ki = 0; ki < n_kv; ++ki) {
-    if (causal && row < ki * BK) break;  // the reference's skip at bq = 1
-    const long long kbase = (bh * Sk + static_cast<long long>(ki) * BK) * D;
-#pragma unroll 4
-    for (int key = warp; key < BK; key += ATT_WARPS) {
-      float kv[E];
-      load_vec<E>(k, kbase + static_cast<long long>(key) * D + lane * E, dtype, kv);
-      float s = 0.f;
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) s = __fmaf_rn(qv[e], kv[e], s);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-      if (lane == 0) p[key] = causal && row < ki * BK + key ? NEG_INF : s;
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+    flash_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                float* __restrict__ part_m, float* __restrict__ part_l,
+                float* __restrict__ part_acc, int Sq, int Sk, int H, int Hkv, int n_split,
+                int split_keys, int bk, Strides qs, Strides ks, Strides vs, int causal,
+                float scale) {
+  constexpr int CH = Chunk<T>::N, NC = D / CH, ROW = split_row<T, D>();
+  constexpr int NP = (MAX_REP * NC + SPLIT_THREADS - 1) / SPLIT_THREADS;  // pairs a thread
+  static_assert(D % CH == 0 && CH % 4 == 0 && SPLIT_KEYS == 32, "tile shape");
+  extern __shared__ float4 smem4[];
+  const int rep = H / Hkv;
+  T* ring = reinterpret_cast<T*>(smem4);  // [stage][K, V][key][ROW]
+  float* Qs = reinterpret_cast<float*>(ring + SPLIT_STAGES * 2 * SPLIT_KEYS * ROW);  // [rep][D]
+  float* Ps = Qs + rep * D;           // [rep][SPLIT_KEYS]
+  float* As = Ps + rep * SPLIT_KEYS;  // [rep]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  long long idx = blockIdx.x;
+  const int split = static_cast<int>(idx % n_split);
+  idx /= n_split;
+  const int g = static_cast<int>(idx % Hkv);
+  idx /= Hkv;
+  const int row = Sq - 1 - static_cast<int>(idx % Sq);  // the longest causal rows first
+  const long long b = idx / Sq;
+  // the partial of query row (b, row, g * rep + r) is number prow + r * n_split
+  const long long prow = ((b * Sq + row) * H + static_cast<long long>(g) * rep) * n_split + split;
+
+  const int k0 = split * split_keys;
+  int k1 = min(k0 + split_keys, Sk);
+  if (causal) k1 = min(k1, (row / bk + 1) * bk);  // the reference's skip: no tile past the row
+  if (k1 <= k0) {  // wholly past the row: an empty partial
+    for (int r = tid; r < rep; r += SPLIT_THREADS) {
+      part_m[prow + r * n_split] = NEG_INF;
+      part_l[prow + r * n_split] = 0.f;
     }
-    __syncthreads();
-    const float sv = tid < BK ? p[tid] : NEG_INF;
-    const float m_new = fmaxf(m, block_all<true>(sv, red));
-    const float alpha = expf(m - m_new);
-    const float e = tid < BK ? expf(sv - m_new) : 0.f;
-    if (tid < BK) p[tid] = e;  // each thread rewrites only the score it read
-    l = __fmaf_rn(alpha, l, block_all<false>(e, red));  // its barrier publishes p
-    m = m_new;
-    acc = __fmul_rn(alpha, acc);
-#pragma unroll 8
-    for (int j = g; j < BK; j += G) acc = __fmaf_rn(p[j], load1(v, kbase + static_cast<long long>(j) * D + c, dtype), acc);
-    __syncthreads();  // p is rewritten by the next tile
+    for (int u = tid; u < rep * D; u += SPLIT_THREADS)
+      part_acc[(prow + static_cast<long long>(u / D) * n_split) * D + u % D] = 0.f;
+    return;
   }
-  part[tid] = acc;
-  __syncthreads();
-  if (g == 0) {
-    float t = part[c];
+
+  const T* kg = k + b * ks.b + static_cast<long long>(g) * ks.h;
+  const T* vg = v + b * vs.b + static_cast<long long>(g) * vs.h;
+  const int n_st = (k1 - k0) / SPLIT_KEYS;
+  // the copies of stage st into its slot; one commit group per call
+  auto issue = [&](int st) {
+    if (st < n_st) {
+      T* dk = ring + (st % SPLIT_STAGES) * 2 * SPLIT_KEYS * ROW;
+      T* dv = dk + SPLIT_KEYS * ROW;
+      const long long key0 = k0 + static_cast<long long>(st) * SPLIT_KEYS;
+      for (int u = tid; u < SPLIT_KEYS * NC; u += SPLIT_THREADS) {
+        const int j = u / NC, c = (u % NC) * CH;
+        cp_async16(dk + j * ROW + c, kg + (key0 + j) * ks.s + c);
+        cp_async16(dv + j * ROW + c, vg + (key0 + j) * vs.s + c);
+      }
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int h = 1; h < G; ++h) t = __fadd_rn(t, part[h * D + c]);
-    store1(o, qbase + c, dtype, __fdiv_rn(t, fmaxf(l, 1e-30f)));
+  for (int st = 0; st < SPLIT_STAGES - 1; ++st) issue(st);
+
+  const T* qg = q + b * qs.b + static_cast<long long>(row) * qs.s +
+                static_cast<long long>(g) * rep * qs.h;
+  for (int u = tid; u < rep * D; u += SPLIT_THREADS)
+    Qs[u] = __fmul_rn(Chunk<T>::one(qg[(u / D) * qs.h + u % D]), scale);
+
+  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], acc[NP][CH];
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
   }
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int e = 0; e < CH; ++e) acc[i][e] = 0.f;
+
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait(SPLIT_STAGES - 2);  // this thread's copies of stage st have landed
+    __syncthreads();  // everyone's have (and q); everyone is done with stage st - 1
+    issue(st + SPLIT_STAGES - 1);  // into the slot of stage st - 1
+    const T* Ks = ring + (st % SPLIT_STAGES) * 2 * SPLIT_KEYS * ROW;
+    const T* Vs = Ks + SPLIT_KEYS * ROW;
+
+    // lane j scores key j against the warp's rows warp, warp + SPLIT_WARPS, ...
+    float s[ROWS_PER_WARP];
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i) s[i] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; c += CH) {
+      float kx[CH];
+      Chunk<T>::load(Ks + lane * ROW + c, kx);
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        const int r = warp + i * SPLIT_WARPS;
+        if (r < rep) {
+          const float4* qr = reinterpret_cast<const float4*>(Qs + r * D + c);
+#pragma unroll
+          for (int e = 0; e < CH / 4; ++e) {
+            const float4 t = qr[e];
+            s[i] = __fmaf_rn(t.x, kx[4 * e], s[i]);
+            s[i] = __fmaf_rn(t.y, kx[4 * e + 1], s[i]);
+            s[i] = __fmaf_rn(t.z, kx[4 * e + 2], s[i]);
+            s[i] = __fmaf_rn(t.w, kx[4 * e + 3], s[i]);
+          }
+        }
+      }
+    }
+    const bool masked = causal && k0 + st * SPLIT_KEYS + lane > row;
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i) {
+      const int r = warp + i * SPLIT_WARPS;
+      if (r < rep) {  // the same for the whole warp
+        const float sv = masked ? NEG_INF : s[i];
+        const float m_new = fmaxf(m[i], warp_max(sv));
+        const float alpha = expf(m[i] - m_new);
+        const float p = expf(sv - m_new);
+        l[i] = __fmaf_rn(alpha, l[i], warp_sum(p));
+        m[i] = m_new;
+        Ps[r * SPLIT_KEYS + lane] = p;
+        if (lane == 0) As[r] = alpha;
+      }
+    }
+    __syncthreads();  // P and alpha are published
+
+    // P V: thread tid owns the (row, 16-byte column chunk) pairs tid,
+    // tid + SPLIT_THREADS, ...
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int pr = tid + i * SPLIT_THREADS;
+      if (pr < rep * NC) {
+        const int r = pr / NC, c = (pr % NC) * CH;
+        const float a = As[r];
+#pragma unroll
+        for (int e = 0; e < CH; ++e) acc[i][e] = __fmul_rn(a, acc[i][e]);
+        const float* pp = Ps + r * SPLIT_KEYS;
+#pragma unroll 8
+        for (int j = 0; j < SPLIT_KEYS; ++j) {
+          float vx[CH];
+          Chunk<T>::load(Vs + j * ROW + c, vx);
+          const float pj = pp[j];
+#pragma unroll
+          for (int e = 0; e < CH; ++e) acc[i][e] = __fmaf_rn(pj, vx[e], acc[i][e]);
+        }
+      }
+    }
+  }
+  cp_async_wait(0);  // the trailing empty groups
+
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    const int r = warp + i * SPLIT_WARPS;
+    if (r < rep && lane == 0) {
+      part_m[prow + r * n_split] = m[i];
+      part_l[prow + r * n_split] = l[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int pr = tid + i * SPLIT_THREADS;
+    if (pr < rep * NC) {
+      const int r = pr / NC, c = (pr % NC) * CH;
+      float4* dst = reinterpret_cast<float4*>(
+          part_acc + (prow + static_cast<long long>(r) * n_split) * D + c);
+#pragma unroll
+      for (int e = 0; e < CH / 4; ++e)
+        dst[e] = make_float4(acc[i][4 * e], acc[i][4 * e + 1], acc[i][4 * e + 2],
+                             acc[i][4 * e + 3]);
+    }
+  }
+}
+
+// out[i] for i < n_out = rows * D: the splits of row i / D merged in split
+// order; a split with l = 0 (empty) takes no part
+__global__ void __launch_bounds__(COMBINE_THREADS)
+    flash_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                  const float* __restrict__ part_acc, void* __restrict__ o, long long n_out,
+                  int n_split, int D, int dtype) {
+  const long long i = blockIdx.x * static_cast<long long>(COMBINE_THREADS) + threadIdx.x;
+  if (i >= n_out) return;
+  const long long r = i / D;
+  const float* m = part_m + r * n_split;
+  const float* l = part_l + r * n_split;
+  const float* acc = part_acc + r * n_split * D + i % D;
+  float M = __int_as_float(0xff800000);  // -inf
+  for (int s = 0; s < n_split; ++s)
+    if (l[s] > 0.f) M = fmaxf(M, m[s]);
+  float L = 0.f, O = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    if (l[s] > 0.f) {
+      const float w = expf(m[s] - M);
+      L = __fmaf_rn(l[s], w, L);
+      O = __fmaf_rn(acc[static_cast<long long>(s) * D], w, O);
+    }
+  }
+  store1(o, i, dtype, __fdiv_rn(O, fmaxf(L, 1e-30f)));
+}
+
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// f(Type<T>{}, std::integral_constant<int, D>{}) for a compiled (dtype, D)
+template <typename F>
+cudaError_t with_split(int dtype, int D, F&& f) {
+  if (dtype != F32 && dtype != BF16) return cudaErrorInvalidValue;
+  if (D == 64)
+    return dtype == F32 ? f(Type<float>{}, std::integral_constant<int, 64>{})
+                        : f(Type<__nv_bfloat16>{}, std::integral_constant<int, 64>{});
+  if (D == 128)
+    return dtype == F32 ? f(Type<float>{}, std::integral_constant<int, 128>{})
+                        : f(Type<__nv_bfloat16>{}, std::integral_constant<int, 128>{});
+  return cudaErrorInvalidValue;
 }
 
 template <int BQ, int BK, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk,
-                   float scale, int causal, int dtype, long long smem, cudaStream_t st) {
-  const dim3 grid(BH, Sq / BQ);
-  if constexpr (BQ == 1) {
-    if (smem != 0) return cudaErrorInvalidValue;
-    flash_row<BK, D><<<grid, ATT_THREADS, 0, st>>>(q, k, v, o, Sq, Sk, scale, causal, dtype);
-  } else {
-    if (smem != static_cast<long long>(tile_smem<BQ, BK, D>())) return cudaErrorInvalidValue;
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_tile<BQ, BK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    flash_tile<BQ, BK, D><<<grid, ATT_THREADS, smem, st>>>(q, k, v, o, Sq, Sk, scale, causal, dtype);
-  }
+cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int Hkv, int Sq, int Sk, float scale, int causal, int dtype,
+                        long long smem, cudaStream_t st) {
+  if (smem != static_cast<long long>(tile_smem<BQ, BK, D>())) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_tile<BQ, BK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  flash_tile<BQ, BK, D><<<dim3(B * H, Sq / BQ), ATT_THREADS, smem, st>>>(
+      q, k, v, o, H, H / Hkv, Sq, Sk, scale, causal, dtype);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// o = attention(q, k, v) over BH fused heads: q, o (BH, Sq, D), k, v
-// (BH, Sk, D), row-major, one dtype; tiles of bq query rows and bk keys.
-// The tilings compiled here are kernels/attention/kernel.py TILINGS x
-// HEAD_DIMS, and smem must be its smem_bytes of the tiling (checked: the
-// layout is this file's; 0 for bq = 1, whose buffers are static).
-extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int BH,
-                                  int Sq, int Sk, int D, int bq, int bk, int causal, float scale,
-                                  int dtype, long long smem, void* stream) {
+// Prefill route.  o = attention(q, k, v): q, o (B*H, Sq, D) and k, v
+// (B*Hkv, Sk, D) with heads fused, row-major, one dtype; query head h of
+// batch b reads KV head b*Hkv + h/(H/Hkv); tiles of bq query rows and bk
+// keys.  The tilings compiled here are kernels/attention/kernel.py
+// TILINGS with bq > 1 x HEAD_DIMS, and smem must be its smem_bytes of the
+// tiling (checked: the layout is this file's).
+extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
+                                  int H, int Hkv, int Sq, int Sk, int D, int bq, int bk,
+                                  int causal, float scale, int dtype, long long smem,
+                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype != F32 && dtype != BF16) || bq <= 0 || bk <= 0 || Sq % bq || Sk % bk ||
-      Sq / bq > 65535)
+  if ((dtype != F32 && dtype != BF16) || B <= 0 || Hkv <= 0 || H % Hkv || bq <= 0 || bk <= 0 ||
+      Sq % bq || Sk % bk || Sq / bq > 65535 || static_cast<long long>(B) * H > INT_MAX)
     return finish(cudaErrorInvalidValue);
-#define RT_ATT(BQ, BK, DD)                                                                  \
-  if (bq == BQ && bk == BK && D == DD)                                                      \
-    return finish(launch<BQ, BK, DD>(q, k, v, o, BH, Sq, Sk, scale, causal, dtype, smem, st));
+#define RT_ATT(BQ, BK, DD)                                                                 \
+  if (bq == BQ && bk == BK && D == DD)                                                     \
+    return finish(launch_tile<BQ, BK, DD>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, dtype, \
+                                          smem, st));
   RT_ATT(64, 64, 64)
   RT_ATT(64, 128, 64)
   RT_ATT(128, 64, 64)
@@ -327,10 +571,74 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   RT_ATT(64, 128, 128)
   RT_ATT(128, 64, 128)
   RT_ATT(128, 128, 128)
-  RT_ATT(1, 128, 64)
-  RT_ATT(1, 256, 64)
-  RT_ATT(1, 128, 128)
-  RT_ATT(1, 256, 128)
 #undef RT_ATT
   return finish(cudaErrorInvalidValue);
+}
+
+// Decode route, first pass.  The partials of every (query row, split):
+// q (B, Sq, H, D) and k, v (B, Sk, Hkv, D), each addressed through its
+// element strides (b, s, h) with the last dimension dense; n_split splits
+// of split_keys keys (a multiple of bk, bk a multiple of 32), the last one
+// shorter where Sk ends; part_m, part_l (B*Sq*H, n_split) and part_acc
+// (B*Sq*H, n_split, D) in f32, query rows in (b, s, h) order.  smem must
+// be kernel.py split_smem_bytes (checked against split_smem).
+extern "C" int rt_flash_decode(const void* q, const void* k, const void* v, float* part_m,
+                               float* part_l, float* part_acc, int B, int Sq, int Sk, int H,
+                               int Hkv, int D, int bk, int n_split, int split_keys,
+                               long long qsb, long long qss, long long qsh, long long ksb,
+                               long long kss, long long ksh, long long vsb, long long vss,
+                               long long vsh, int causal, float scale, int dtype, long long smem,
+                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ctas = static_cast<long long>(B) * Sq * (Hkv > 0 ? Hkv : 0) * n_split;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv || H / Hkv > MAX_REP || bk <= 0 ||
+      bk % SPLIT_KEYS || Sk % bk || split_keys <= 0 || split_keys % bk || n_split <= 0 ||
+      static_cast<long long>(n_split - 1) * split_keys >= Sk ||
+      static_cast<long long>(n_split) * split_keys < Sk || ctas > INT_MAX)
+    return finish(cudaErrorInvalidValue);
+  return finish(with_split(dtype, D, [&](auto t, auto d) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    constexpr int DD = decltype(d)::value;
+    if (smem != static_cast<long long>(split_smem<T, DD>(H / Hkv))) return cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_split<T, DD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    flash_split<T, DD><<<static_cast<unsigned>(ctas), SPLIT_THREADS, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part_m,
+        part_l, part_acc, Sq, Sk, H, Hkv, n_split, split_keys, bk, Strides{qsb, qss, qsh},
+        Strides{ksb, kss, ksh}, Strides{vsb, vss, vsh}, causal, scale);
+    return cudaSuccess;
+  }));
+}
+
+// CTAs of the decode route one SM holds at once, at a launch's shared
+// memory (smem as for rt_flash_decode, for H / Hkv = rep)
+extern "C" int rt_flash_decode_occupancy(int D, int dtype, int rep, long long smem,
+                                         int* ctas_per_sm) {
+  if (rep <= 0 || rep > MAX_REP) return finish(cudaErrorInvalidValue);
+  return finish(with_split(dtype, D, [&](auto t, auto d) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    constexpr int DD = decltype(d)::value;
+    if (smem != static_cast<long long>(split_smem<T, DD>(rep))) return cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_split<T, DD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, flash_split<T, DD>,
+                                                         SPLIT_THREADS, smem);
+  }));
+}
+
+// Decode route, second pass: o (rows, D) in dtype, rows = B*Sq*H in
+// q's (b, s, h) order, from rt_flash_decode's partials
+extern "C" int rt_flash_combine(const float* part_m, const float* part_l, const float* part_acc,
+                                void* o, long long rows, int n_split, int D, int dtype,
+                                void* stream) {
+  const long long n_out = rows * D;
+  const long long blocks = (n_out + COMBINE_THREADS - 1) / COMBINE_THREADS;
+  if ((dtype != F32 && dtype != BF16) || rows <= 0 || n_split <= 0 || D <= 0 || blocks > INT_MAX)
+    return finish(cudaErrorInvalidValue);
+  flash_combine<<<static_cast<unsigned>(blocks), COMBINE_THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(part_m, part_l, part_acc, o, n_out,
+                                                       n_split, D, dtype);
+  return finish(cudaSuccess);
 }

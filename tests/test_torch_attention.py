@@ -2,8 +2,12 @@
 (``repro/kernels/attention``): the same numpy inputs through the
 reference's Pallas kernel in interpret mode, its oracle, and the port's
 op on the CPU (its plain version), at the reference's shapes (causal and
-not, with GQA), its decode case and its tolerance; the op's contract; the
-kernel wrapper's refusals without the card."""
+not, with GQA), its decode case, blocks left at None, GQA 1/2/4/8 at head
+dims 16 to 128, and its tolerance; the op's contract; what the op hands
+the kernel wrappers on the card path (``meta`` tensors, the wrapper
+replaced by a recorder); the split route's plan, host checks and
+arithmetic (``ref.split_partials``, ``ref.combine``); the kernel
+wrappers' refusals without the card."""
 import numpy as np
 import pytest
 
@@ -180,7 +184,185 @@ def test_tiling_table_and_shared_memory():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    x = torch.zeros((2, 128, 64))
+    x = torch.zeros((2, 2, 128, 64))
     with pytest.raises(ValueError, match="CUDA"):
-        K.flash_attention_fused(x, x, x, causal=True, bq=128, bk=128,
-                                scale=0.125)
+        K.flash_attention_tile(x, x, x, causal=True, bq=128, bk=128,
+                               scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.flash_attention_split(x, x, x, causal=False, bk=128, scale=0.125)
+
+
+def test_split_route_shared_memory_and_routes():
+    """The bq = 1 tilings are the split route's: its ring of 3 stages of
+    32 K and V rows, each padded by 16 bytes, and per query head its
+    scaled q row, P and rescale factor; the table's figure is its largest
+    launch (f32, 16 query heads a KV head).  The attention kernel has one
+    C entry per route and checks the route before loading anything."""
+    assert K.split_smem_bytes(128, 2, 4) == 3 * 2 * 32 * 528 + 2 * 161 * 4
+    assert K.split_smem_bytes(64, 1, 2) == 3 * 2 * 32 * 144 + 97 * 4
+    for d in K.HEAD_DIMS:
+        assert K.smem_bytes(1, 256, d) == K.split_smem_bytes(d, K.MAX_REP, 4)
+    assert K.route_of(1) == "split" and K.route_of(64) == "tile"
+    assert K.FLASH_ATTENTION.routes == K.ROUTES == ("tile", "split")
+    assert set(K.FLASH_ATTENTION.symbol) == set(K.ROUTES)
+    for route in (None, "row"):
+        with pytest.raises(ValueError, match="route"):
+            K.FLASH_ATTENTION.launch(route=route)
+    assert K.FLASH_ATTENTION.launches_by_route == {"tile": 0, "split": 0}
+
+
+#: (groups, sk, bk, ctas an SM, n_split, split_keys): the timed decode
+#: point (64 groups, 2 CTAs on each of 132 SMs: 4 splits of 4 tiles); one
+#: tile; groups that fill the card; 5 splits wanted of 32 tiles, spread
+#: as 7 tiles (the last split 4); the smallest groups, one tile each
+PLANS = [(64, 4096, 256, 2, 4, 1024), (16, 128, 128, 4, 1, 128),
+         (576, 512, 128, 4, 1, 512), (52, 4096, 128, 2, 5, 896),
+         (1, 1024, 256, 4, 4, 256)]
+
+
+@pytest.mark.parametrize("groups,sk,bk,per_sm,n,keys", PLANS, ids=str)
+def test_split_plan(groups, sk, bk, per_sm, n, keys):
+    plan = K.split_plan(groups=groups, sk=sk, bk=bk, sms=132,
+                        ctas_per_sm=per_sm, smem_bytes=1)
+    assert (plan.n_split, plan.split_keys) == (n, keys)
+    assert plan.ctas == groups * n <= max(groups, 132 * per_sm)
+    assert keys % bk == 0 and (n - 1) * keys < sk <= n * keys
+
+
+def _strided(shape, dtype=torch.float32, cap=None, offset=0):
+    """A (B, S, H, d) CPU view; ``cap`` > S makes it a slice of a longer
+    cache, ``offset`` shifts its base by that many elements."""
+    b, s, h, d = shape
+    cap = cap or s
+    buf = torch.zeros(b * cap * h * d + offset, dtype=dtype)[offset:]
+    return buf.view(b, cap, h, d)[:, :s]
+
+
+@pytest.mark.parametrize("case", ["rep", "misaligned", "last_dim", "row_stride",
+                                  "sk", "tiling", "dtype", "causal", "head_dim"])
+def test_check_split_operands_refuses(case):
+    q = _strided((2, 1, 8, 64))
+    k = _strided((2, 256, 2, 64))
+    calls = {
+        "rep": ((_strided((1, 1, 34, 64)), _strided((1, 256, 2, 64)),
+                 _strided((1, 256, 2, 64))), {}, "over the 16"),
+        "misaligned": ((q, _strided((2, 256, 2, 64), offset=1), k), {}, "aligned"),
+        "last_dim": ((q, k.transpose(2, 3).contiguous().transpose(2, 3), k), {},
+                     "dense last"),
+        "row_stride": ((q, torch.zeros(2, 256, 2, 66)[..., :64], k), {}, "strides"),
+        "sk": ((q, k[:, :200], k[:, :200]), {}, "do not divide"),
+        "tiling": ((q, k, k), {"bk": 64}, "compiled"),
+        "dtype": ((q, k.bfloat16(), k), {}, "one dtype"),
+        "causal": ((q, k, k), {"causal": True}, "sq == sk"),
+        "head_dim": ((_strided((2, 1, 8, 96)), _strided((2, 256, 2, 96)),
+                      _strided((2, 256, 2, 96))), {}, "head dims"),
+    }
+    ops_, kw, msg = calls[case]
+    with pytest.raises(ValueError, match=msg):
+        K.check_split_operands(*ops_, **({"causal": False, "bk": 128} | kw),
+                               smem_limit=SMEM)
+
+
+def test_check_split_operands_takes_a_cache_slice():
+    """A slice of a longer cache is addressed through its strides, with
+    no copy; bf16 at GQA 4 takes its own ring."""
+    q = _strided((2, 1, 8, 128), torch.bfloat16)
+    k = _strided((2, 512, 2, 128), torch.bfloat16, cap=4096)
+    assert not k.is_contiguous()
+    assert K.check_split_operands(q, k, k, causal=False, bk=256,
+                                  smem_limit=SMEM) == \
+        K.split_smem_bytes(128, 4, 2)
+
+
+class _Recorder:
+    """Stands in for a kernel wrapper on tensors without storage (the
+    ``meta`` device, which takes the op's card path): records the call
+    and returns an output of the shape the wrapper would."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, q, k, v, **kw):
+        self.calls.append((q, k, v, kw))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@pytest.mark.parametrize("d", [128, 64, 32, 16])
+def test_decode_op_hands_the_kernel_the_callers_cache(d, monkeypatch):
+    """The decode op passes q, k and v to the split route as the caller
+    holds them: the same tensors (so no repeat and no copy of the cache),
+    unrepeated at Hkv heads, with blocks left at None taking the model's
+    one-row pick.  Head dims 16 and 32 reach it zero-padded to 64, with
+    the scale of the true d, and come back cut to d."""
+    rec = _Recorder()
+    monkeypatch.setattr(K, "flash_attention_split", rec)
+    q = torch.empty((8, 1, 16, d), device="meta")
+    k = torch.empty((8, 4096, 8, d), device="meta")
+    v = torch.empty((8, 4096, 8, d), device="meta")
+    out = ops.flash_attention(q, k, v, causal=False)
+    assert tuple(out.shape) == (8, 1, 16, d)
+    ((gq, gk, gv, kw),) = rec.calls
+    assert kw == {"causal": False, "bk": 256, "scale": d ** -0.5}
+    if d in K.HEAD_DIMS:
+        assert gq is q and gk is k and gv is v
+    else:
+        assert tuple(gk.shape) == (8, 4096, 8, 64)
+
+
+def test_prefill_op_hands_the_kernel_kv_at_its_own_heads(monkeypatch):
+    """The prefill op fuses heads as (B, H, S, d) for q and (B, Hkv, S, d)
+    for K and V: the KV heads are not repeated."""
+    rec = _Recorder()
+    monkeypatch.setattr(K, "flash_attention_tile", rec)
+    _, (q, k, v) = _qkv(1, 256, 256, 16, 8, 128)
+    shapes = [t.to("meta") for t in (q, k, v)]
+    out = ops.flash_attention(*shapes, causal=True)
+    assert tuple(out.shape) == (1, 256, 16, 128)
+    ((gq, gk, gv, kw),) = rec.calls
+    assert tuple(gq.shape) == (1, 16, 256, 128)
+    assert tuple(gk.shape) == tuple(gv.shape) == (1, 8, 256, 128)
+    assert (kw["bq"], kw["bk"]) == ops.tuned_blocks(256, 256, 128)
+    # the operands are the op's heads-first copies, KV at its own heads
+    tq, tk, _ = ops.tile_operands(q, k, v)
+    assert torch.equal(tk, k.permute(0, 2, 1, 3)) and tk.is_contiguous()
+    assert torch.equal(tq, q.permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("causal,split_keys", [(False, 32), (False, 96),
+                                               (True, 32), (True, 64)])
+def test_split_combine_arithmetic(causal, split_keys):
+    """The split route's arithmetic in plain form (ref.split_partials,
+    ref.combine) equals the oracle within 1e-5, GQA expanded, Sq = Sk = 96.
+    Causal, the rows before a split's first key find it empty (l = 0, m =
+    -1e30), and no value of an empty split changes the result: the
+    combine leaves it out of the max whatever its m (even one above every
+    score), and had its keys been scored as masked ones (m = -1e30, l =
+    its key count, acc = the sum of its V rows, exp(-1e30 - (-1e30)) = 1
+    a key), the finite max of split 0, which always holds key 0 <= row,
+    weighs it by exp(-1e30 - M) = 0."""
+    rng = np.random.default_rng(7)
+    q, k, v = streams_from_numpy(
+        [rng.standard_normal((3, 96, 16)).astype(np.float32) for _ in range(3)],
+        device="cpu")
+    m, l, acc = ref.split_partials(q, k, v, split_keys=split_keys, causal=causal)
+    n = -(-96 // split_keys)
+    assert m.shape == l.shape == (3, 96, n) and acc.shape == (3, 96, n, 16)
+    want = ref.attention(q, k, v, causal=causal)
+    assert (ref.combine(m, l, acc) - want).abs().max() <= 1e-5
+    jwant = jref.attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                           jnp.asarray(v.numpy()), causal=causal)
+    assert np.abs(ref.combine(m, l, acc).numpy() - np.asarray(jwant)).max() <= 1e-5
+    if not causal:
+        assert bool((l > 0).all())
+        return
+    rows = torch.arange(96)[:, None]
+    empty = rows < torch.arange(n)[None, :] * split_keys
+    assert empty.any() and bool((l[:, empty] == 0).all())
+    assert bool((l[:, ~empty] > 0).all()) and bool((m[:, empty] == ref.NEG_INF).all())
+    got = ref.combine(m, l, acc)
+    assert torch.equal(ref.combine(m.masked_fill(empty, 1e30), l, acc), got)
+    vsum = torch.stack([v[:, k0:k0 + split_keys].sum(1)
+                        for k0 in range(0, 96, split_keys)], 1)   # (3, n, 16)
+    scored_l = l.masked_fill(empty, float(split_keys))
+    scored_acc = torch.where(empty[None, :, :, None], vsum[:, None], acc)
+    assert torch.equal(ref.combine(m, scored_l, scored_acc), got)

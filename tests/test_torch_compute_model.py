@@ -110,8 +110,10 @@ def test_kv_fraction_is_the_kernels_skip_rule(sq, bq, bkv):
 
 def test_step_models_at_the_full_size_points():
     """The hand-reckoned figures: 2mnk at 67 TFLOP/s (2.051 ms); bf16's
-    bound and model at 989 TFLOP/s (0.139 ms); decode's KV bytes, repeated, at
-    3.35 TB/s (0.160 ms); exact causal prefill work (1.026 ms)."""
+    bound and model at 989 TFLOP/s (0.139 ms); the decode model's KV bytes,
+    repeated per query head, at 3.35 TB/s (0.160 ms), and the decode
+    kernel's bound, the bytes of the operands it receives, each KV head
+    read once (0.080 ms); exact causal prefill work (1.026 ms)."""
     mm = gpu_matmul_ecm(MO.matmul_workload(4096, 4096, 4096), H100_SXM)
     assert mm.t_comp == pytest.approx(2.0513e-3, rel=1e-4)
     assert mm.t_ecm == mm.t_comp           # compute-bound: T_OL hides HBM
@@ -126,8 +128,9 @@ def test_step_models_at_the_full_size_points():
                             H100_SXM, batch_heads=8 * 16)
     assert dec.t_hbm == pytest.approx(0.16030e-3, rel=1e-4)
     lim = GC.bound(GC.POINTS["attention_decode"], H100_SXM)
-    assert lim["bound_ms"] == pytest.approx(0.16030, rel=1e-4)
-    assert lim["op_bytes_ms"] == pytest.approx(0.080169, rel=1e-4)
+    assert lim["bound_ms"] == pytest.approx(0.080169, rel=1e-4)
+    assert lim["bound_by"] == "bytes"
+    assert lim["bound_ms"] == pytest.approx(dec.t_hbm * 1e3 / 2, rel=1e-3)
     pre = GC.bound(GC.POINTS["attention_prefill"], H100_SXM)
     assert pre["bound_ms"] == pytest.approx(4 * 4096 * 4097 / 2 * 128 * 16
                                             / 67e12 * 1e3)

@@ -2,8 +2,10 @@
 (``repro/kernels/matmul``): the same numpy inputs through the reference's
 Pallas kernel in interpret mode, its oracle, and the port's op on the CPU
 (its plain version), at the reference's shapes and tolerances; the op's
-contract; the kernel wrapper's refusals without the card; and the
-``(rtol, atol)`` mode of ``compare``."""
+contract, blocks left at None included; the depth a requested ``bk`` runs
+at; the tiling the op hands the kernel wrapper on the card path (``meta``
+tensors, the wrapper replaced by a recorder); the kernel wrapper's
+refusals without the card; and the ``(rtol, atol)`` mode of ``compare``."""
 import numpy as np
 import pytest
 
