@@ -31,12 +31,17 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    every compiled tiling that divides them (matmul in f32 on the FFMA
    route and bf16 on the wgmma route, plus bf16 shapes whose K steps are
    fewer than, as many as and many times the TMA ring's stages, and bf16
-   in with f32 out; attention causal and not, GQA 2/1/8, and bf16 at one
-   shape), the reference's decode case at ``bq = 1``, each within the
-   reference's tolerance of the plain version; the reference's own
-   matmul call (128 x 128 x 128) on both routes, f32 bit-equal to the
-   compiled depth it runs at; blocks left at ``None`` (matmul and
-   attention at 192) and head dims 16 and 32; the split-KV decode in f32
+   in with f32 out; attention causal and not, GQA 2/1/8, f32 and bf16),
+   the reference's decode case at ``bq = 1``, each within the reference's
+   tolerance of the plain version; the reference's own matmul call (128 x
+   128 x 128) on both routes, f32 bit-equal to the compiled depth it runs
+   at; blocks left at ``None`` (matmul and attention at 192) and head dims
+   16 and 32; the prefill tile route on ragged shapes (sq = sk of 48, 100
+   and 200, GQA 2 and 1, d 64; causal and not; f32 and bf16) through the
+   op with blocks ``None`` and given and through its wrapper at every
+   compiled tiling, on walks of one KV tile, of fewer ring panels than
+   stages and of many tiles, and on strided q/k/v views, bit-equal to
+   their contiguous copies; the split-KV decode in f32
    and bf16 with Sk one tile, one split and many splits, causal ``bq = 1``
    with wholly masked splits (their ``l`` exactly 0), GQA 1/2/4/8, d 16,
    32, 64 and 128, its combine kernel against the plain combine, and a
@@ -44,7 +49,8 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    not compiled for, a tile over shared memory, a product no compiled
    tiling divides, bf16 rows that are no 16-byte multiple, misaligned
    views, an uncompiled head dim, more than 16 query heads a KV head,
-   ``causal`` with ``sq != sk`` and a non-dividing block raise; the
+   ``causal`` with ``sq != sk``, a non-dividing block and blocks left at
+   ``None`` that the reference refuses raise; the
    registers, shared memory and spills ``-Xptxas -v`` gave each matmul
    and attention kernel;
 6. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
@@ -54,9 +60,10 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    every kernel's launch count set to 0 just before and read just after;
    every kernel's share of its bound at most 1.0 (for matmul and
    attention at every tiling timed); the f32 matmul point launched the
-   FFMA route and the bf16 point the wgmma route, the decode point the
-   split route alone and at least one combine per split launch (the
-   combine is also timed alone);
+   FFMA route and the bf16 point the wgmma route, the prefill point the
+   tile route alone at every compiled prefill tiling (the pick's rank
+   among them reported), the decode point the split route alone and at
+   least one combine per split launch (the combine is also timed alone);
 7. one JSON line with the ten kernels (the matmul and attention rows with
    their launches per route, the combine's with the decode's split plan),
    then the ``ok`` line.
@@ -130,6 +137,18 @@ _SPLITS = {"one_tile": lambda n, sk, bk: n == 1 and sk == bk,
            "one_split": lambda n, sk, bk: n == 1 and sk > bk,
            "many_splits": lambda n, sk, bk: n > 1,
            "causal_masked_splits": lambda n, sk, bk: n >= 2}
+#: ragged prefill (sq = sk no multiple of 64, GQA 2 and 1, d 64): the op
+#: with blocks left at None and given as (sq, sk), and the tile wrapper at
+#: every compiled tiling, causal and not, f32 and bf16
+RAGGED_ATTENTION = tuple((1, s, s, 4, hkv, 64) for s in (48, 100, 200)
+                         for hkv in (2, 4))
+#: the tile route's walks over the KV tiles, at every compiled tiling, f32
+#: and bf16: name -> ((b, sq, sk, h, hkv, d), causal); at d = 64 a 128 x 64
+#: tile is two ring panels, so one KV tile is fewer panels than stages
+TILE_WALKS = {"one_kv_tile": ((1, 64, 64, 2, 1, 128), True),
+              "fewer_panels_than_stages": ((2, 64, 64, 4, 2, 64), True),
+              "many_kv_tiles": ((1, 128, 2048, 4, 2, 128), False),
+              "ragged_many_tiles": ((1, 300, 1000, 2, 1, 128), False)}
 #: blocks left at None on the card, and head dims 16 and 32 on the tile
 #: route: (b, sq, sk, h, hkv, d), causal
 NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
@@ -331,9 +350,7 @@ def _compute_small_checks() -> tuple[list[str], dict]:
         b, sq, sk, h, hkv, d = dims
         arrays = [rng.standard_normal(s).astype(np.float32)
                   for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
-        dtypes = ((torch.float32, torch.bfloat16) if dims == ATTENTION_SHAPES[0]
-                  else (torch.float32,))
-        for dtype in dtypes:
+        for dtype in (torch.float32, torch.bfloat16):
             for causal in ((False,) if dims == DECODE_SHAPE else (True, False)):
                 point = GC.Point("attention", dims, dtype, causal)
                 blocks = ([(1, 256)] if dims == DECODE_SHAPE else
@@ -379,6 +396,73 @@ def _compute_small_checks() -> tuple[list[str], dict]:
         if not ok:
             failures.append(f"attention {dims} causal={causal}, blocks None: "
                             f"err {err} tol {tol}")
+
+    # the tile route: the ragged edge, its walks over the KV tiles, views
+    prefill = [t for t in AK.TILINGS if t[0] > 1]
+
+    def tile_check(where, dims, causal, inputs, dtype, calls):
+        point = GC.Point("attention", dims, dtype, causal)
+        with GC.full_f32():
+            want = GC.plain_op(point, inputs)
+        for name, call in calls.items():
+            ok, err, tol = compare(call(), want,
+                                   tol=GC.TOLERANCE["attention"][dtype])
+            if not ok:
+                failures.append(f"{where} {dtype} causal={causal} {name}: "
+                                f"err {err} tol {tol}")
+
+    def wrapper_calls(inputs, causal, d):
+        return {f"tile {t}": (lambda t=t: AK.flash_attention_tile(
+            *inputs, causal=causal, bq=t[0], bk=t[1], scale=d ** -0.5))
+            for t in prefill}
+
+    for dims in RAGGED_ATTENTION:
+        b, sq, sk, h, hkv, d = dims
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = convert.streams_from_numpy(arrays, device="cuda", dtype=dtype)
+            for causal in (True, False):
+                tile_check(f"ragged {dims}", dims, causal, inputs, dtype, {
+                    "op, blocks None": lambda: AO.flash_attention(
+                        *inputs, causal=causal),
+                    "op, blocks (sq, sk)": lambda: AO.flash_attention(
+                        *inputs, causal=causal, bq=sq, bk=sk),
+                    **wrapper_calls(inputs, causal, d)})
+    info["tile_walk_panels"] = {}
+    for name, (dims, causal) in TILE_WALKS.items():
+        b, sq, sk, h, hkv, d = dims
+        arrays = [rng.standard_normal(s).astype(np.float32)
+                  for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = convert.streams_from_numpy(arrays, device="cuda", dtype=dtype)
+            tile_check(f"walk {name} {dims}", dims, causal, inputs, dtype,
+                       wrapper_calls(inputs, causal, d))
+        # panels the longest q-block walks at each tiling
+        info["tile_walk_panels"][name] = {
+            str(t): -(-sk // t[1]) * (d // kc + t[1] // vc)
+            for t in prefill for _, kc, vc in [AK.tile_panels(*t, d)]}
+    walks = info["tile_walk_panels"]
+    if not (min(walks["fewer_panels_than_stages"].values()) < AK.TILE_STAGES
+            and max(walks["one_kv_tile"].values()) > AK.TILE_STAGES
+            and min(walks["many_kv_tiles"].values()) > 8 * AK.TILE_STAGES):
+        failures.append(f"the tile walks do not cover their cases: {walks}")
+    # strided views (q a slice of wider heads, K and V of a longer cache)
+    # give what their contiguous copies give, bit for bit
+    b, sq, sk, h, hkv, d = 2, 200, 200, 4, 2, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = torch.randn((b, sq, 2 * h, d), device="cuda").to(dtype)
+        caches = [torch.randn((b, 2 * sk, hkv, d), device="cuda").to(dtype)
+                  for _ in range(2)]
+        views = (wide[:, :, :h], caches[0][:, :sk], caches[1][:, :sk])
+        copies = [t.contiguous() for t in views]
+        for causal in (True, False):
+            if not torch.equal(AO.flash_attention(*views, causal=causal),
+                               AO.flash_attention(*copies, causal=causal)):
+                failures.append(f"tile route {dtype} causal={causal}: a strided "
+                                f"view differs from its contiguous copy")
+        tile_check("strided views", (b, sq, sk, h, hkv, d), False, views, dtype,
+                   {"op": lambda: AO.flash_attention(*views, causal=False)})
 
     # the split route: plans, partials, combine, and the op
     for name, (dims, bk, causal) in DECODE_CASES.items():
@@ -436,6 +520,7 @@ def _compute_small_checks() -> tuple[list[str], dict]:
 
 def _compute_refusals() -> dict:
     """What the matmul and attention ops refuse, each with its message."""
+    from repro_torch.kernels.attention import kernel as AK
     from repro_torch.kernels.attention import ops as AO
     from repro_torch.kernels.matmul import kernel as MK
     from repro_torch.kernels.matmul import ops as MO
@@ -459,7 +544,14 @@ def _compute_refusals() -> dict:
             k100, k100.T.contiguous(), bm=128, bn=128, bk=100,
             out_dtype=torch.bfloat16),
         "matmul_bf16_misaligned_view": lambda: MO.matmul(shifted, xb),
-        "attention_over_shared_memory": lambda: AO.flash_attention(q, q, q, bq=128, bk=256),
+        "attention_over_shared_memory": lambda: AK.flash_attention_tile(
+            q, q, q, causal=True, bq=128, bk=256, scale=0.125),
+        "attention_none_blocks_the_reference_refuses": lambda: AO.flash_attention(
+            *(torch.zeros((1, 600, 2, 64), device="cuda"),) * 3),
+        "attention_block_does_not_divide": lambda: AO.flash_attention(
+            *(torch.zeros((1, 100, 2, 64), device="cuda"),) * 3, bq=64),
+        "attention_tile_misaligned_view": lambda: AO.flash_attention(
+            shifted_kv, shifted_kv, shifted_kv, causal=True),
         "attention_uncompiled_head_dim": lambda: AO.flash_attention(
             q[..., :96].contiguous(), q[..., :96].contiguous(),
             q[..., :96].contiguous()),
@@ -666,6 +758,13 @@ def main() -> int:
                     report["flash_combine_launches"] < by_route["split"]:
                 failures.append(f"{point_name} launched {by_route} and "
                                 f"{report['flash_combine_launches']} combines")
+        else:  # prefill: the tile route alone, at every compiled tiling
+            by_route = report["flash_attention_launches_by_route"]
+            timed = {tuple(json.loads(b)) for b in report["timings"]["measured_ms"]}
+            if by_route["split"] or not by_route["tile"] or \
+                    timed != {t for t in kernels.attention.kernel.TILINGS if t[0] > 1}:
+                failures.append(f"{point_name} launched {by_route} and timed "
+                                f"{sorted(timed)}")
         compute[point_name] = report
         torch.cuda.empty_cache()
     launches |= {k.name: k.launches for k in kernels.KERNELS

@@ -10,8 +10,9 @@ card that validates the ranking.  For one point:
   (``core.autotune.rank``) and take the first;
 * run the op at that tiling and hold its output against the plain version
   through ``kernels.check.compare`` at the reference's tolerances;
-* on the card, time the kernel at every candidate tiling (is the model's
-  pick the measured fastest, and if not, where does it rank?), the plain
+* on the card, time the kernel at every candidate tiling of the pick's
+  route (is the model's pick the measured fastest, and if not, where does
+  it rank?), the plain
   version, one library call that computes the same function (a yardstick
   the port never calls, with its own error against the plain version),
   and set the pick against the model and the card's least time for the
@@ -22,9 +23,9 @@ while the plain versions and the yardsticks run (:func:`full_f32`).  The
 matmul kernel takes f32 on its FFMA route and bf16 on its wgmma route
 (``kernels/matmul/kernel.py``); each matmul point ranks and times its
 route's tilings, and its report names the route.  Attention's kernel is
-timed on the operands the op hands it, no KV head repeated: the decode
-route on q and the cache as they are, the tile route on heads fused at
-their own counts; its bound counts those bytes.  A decode pick also
+timed on the operands the op hands it, q, k and v as they are, no KV
+head repeated; its bound counts those bytes.  The prefill point times
+the tile route's tilings, the decode point the split route's.  A decode pick also
 reports its split plan and times the combine kernel alone.  The plain
 version and the library call take the reference's operands, KV repeated
 to the query heads, prepared outside the timed call.
@@ -190,11 +191,10 @@ def bound(point: Point, machine: GPUMachineModel) -> dict:
             "bytes_ms": bytes_ms, "operations_ms": ops_ms}
 
 
-def _kernel_call(point: Point, inputs, tile_inputs, block):
-    """A call of the kernel wrapper at ``block`` on the operands it
-    receives from the op: matmul's as they are; attention's decode route
-    (``bq = 1``) q, k and v as they are, the cache unrepeated; its tile
-    route heads fused, KV at its own heads (``tile_inputs``)."""
+def _kernel_call(point: Point, inputs, block):
+    """A call of the kernel wrapper at ``block`` on the operands the op
+    hands it: matmul's as they are; attention's q, k and v as they are,
+    the KV heads unrepeated, on the route of ``bq``."""
     if point.op == "matmul":
         x, y = inputs
         bm, bn, bk = block
@@ -205,7 +205,7 @@ def _kernel_call(point: Point, inputs, tile_inputs, block):
     if bq == 1:
         return lambda: AK.flash_attention_split(*inputs, causal=point.causal,
                                                 bk=bk, scale=scale)
-    return lambda: AK.flash_attention_tile(*tile_inputs, causal=point.causal,
+    return lambda: AK.flash_attention_tile(*inputs, causal=point.causal,
                                            bq=bq, bk=bk, scale=scale)
 
 
@@ -260,20 +260,21 @@ def _combine_timings(point: Point, inputs, bk: int,
 
 def timings(point: Point, inputs, ranked: list[dict],
             machine: GPUMachineModel) -> dict:
-    """Time the kernel at every candidate tiling, the plain version and
-    the library call; set the pick against the bound and the model."""
+    """Time the kernel at every candidate tiling of the pick's route, the
+    plain version and the library call; set the pick against the bound
+    and the model."""
+    pick = ranked[0]["block"]
     if point.op == "matmul":
-        operands = tile_inputs = inputs
+        operands = inputs
         plain = lambda: MR.matmul(*inputs)  # noqa: E731
+        blocks = [r["block"] for r in ranked]
     else:
         operands = AO.fused_inputs(*inputs)
-        tile_inputs = AO.tile_operands(*inputs)
         plain = lambda: AR.attention(*operands, causal=point.causal)  # noqa: E731
-    blocks = [r["block"] for r in ranked]
-    measured = {b: time_call(_kernel_call(point, inputs, tile_inputs, b))
-                for b in blocks}
+        blocks = [r["block"] for r in ranked
+                  if AK.route_of(r["block"][0]) == AK.route_of(pick[0])]
+    measured = {b: time_call(_kernel_call(point, inputs, b)) for b in blocks}
     ms = {b: t for b, (t, _) in measured.items()}
-    pick = blocks[0]
     fastest = sorted(blocks, key=ms.get)
     name, library = _library(point, operands)
     with full_f32():

@@ -4,19 +4,25 @@ The port's copy of the two compute objectives of the reference's
 ``repro/core/autotune.py`` ``rank`` (``objective="matmul"`` and
 ``"attention"``).  Candidates are the tilings the CUDA kernels are
 compiled for (``kernels/matmul/kernel.py`` ``TILINGS`` of the operands'
-route, and ``kernels/attention/kernel.py`` ``TILINGS``) that divide the
-problem, so nothing a kernel would refuse is offered; the reference's
-enumeration of power-of-two divisors has no counterpart.  On this card a
+route, and ``kernels/attention/kernel.py`` ``TILINGS``) that the kernel
+takes for the problem, so nothing it would refuse is offered: matmul
+tilings and attention's one-row (split-route) tilings that divide it, and
+every attention prefill tiling, whose kernel masks the ragged edge; the
+reference's enumeration of power-of-two divisors has no counterpart.  On this card a
 tile lives in shared memory and registers, not in the reference's largest
 cache level (``max(capacities)``), so a tiling whose shared memory
 exceeds the card's ``smem_per_block_optin`` is no candidate at all, where
 the reference ranks a tile that overflows its reuse level last.
 
 Tilings are ranked by the ``t_ecm`` of their ``StepECM``
-(``core/gpu_ecm.py``), with the reference's tie-break: at equal
-predictions the largest output tile first (fewer grid steps and less
-re-streaming than the light-speed model charges for), and among equal
-tiles the order of the kernel's ``TILINGS``.
+(``core/gpu_ecm.py``; an attention tile is modelled at its blocks clamped
+to the sequence lengths, as the op clamps them), then at equal
+predictions by the scores a ragged attention tiling computes and masks
+(``ceil(sq / bq) bq x ceil(skv / bkv) bkv``: the one-row tiling first for
+a single query row), then by the reference's tie-break: the largest
+output tile first (fewer grid steps and less re-streaming than the
+light-speed model charges for), and among equal tiles the order of the
+kernel's ``TILINGS``.
 """
 from __future__ import annotations
 
@@ -44,16 +50,17 @@ def matmul_block_candidates(m: int, n: int, k: int, machine, *,
 
 def attention_block_candidates(sq: int, skv: int, d: int, machine
                                ) -> list[tuple[int, int]]:
-    """The compiled ``(bq, bkv)`` that divide ``(sq, skv)``, at the
-    compiled head dim that runs ``d`` (``d`` itself, or the one the op pads
-    it to), whose buffers fit the card's shared memory."""
+    """The compiled ``(bq, bkv)`` at the compiled head dim that runs ``d``
+    (``d`` itself, or the one the op pads it to) whose buffers fit the
+    card's shared memory: every prefill tiling (the kernel masks the ragged
+    edge), the one-row tilings only where they divide ``skv``."""
     from ..kernels.attention import kernel as K
 
     d = K.PADDED_HEAD_DIMS.get(d, d)
     if d not in K.HEAD_DIMS:
         return []
     return [t for t in K.TILINGS
-            if sq % t[0] == 0 and skv % t[1] == 0
+            if (t[0] > 1 or skv % t[1] == 0)
             and K.smem_bytes(*t, d) <= machine.smem_per_block_optin]
 
 
@@ -78,6 +85,7 @@ def rank(dims: tuple[int, int, int], machine, *, objective: str,
         steps = [gpu_matmul_ecm(MatmulWorkload(m, n, k, bm, bn, elem_bytes),
                                 machine) for bm, bn, _ in cands]
         smem = [smem_bytes(*b, _MATMUL_DTYPES[elem_bytes]) for b in cands]
+        computed = [0] * len(cands)  # every matmul candidate divides
     elif objective == "attention":
         from ..kernels.attention import kernel as K
         from ..kernels.attention.kernel import smem_bytes
@@ -85,15 +93,18 @@ def rank(dims: tuple[int, int, int], machine, *, objective: str,
         sq, skv, d = dims
         cands = attention_block_candidates(sq, skv, d, machine)
         steps = [gpu_attention_ecm(
-            AttentionWorkload(sq, skv, d, bq, bkv, causal, elem_bytes),
+            AttentionWorkload(sq, skv, d, min(bq, sq), min(bkv, skv), causal,
+                              elem_bytes),
             machine, batch_heads=1) for bq, bkv in cands]
         smem = [smem_bytes(*b, K.PADDED_HEAD_DIMS.get(d, d)) for b in cands]
+        computed = [-(-sq // bq) * bq * -(-skv // bkv) * bkv for bq, bkv in cands]
     else:
         raise ValueError(f"objective must be 'matmul' or 'attention', got "
                          f"{objective!r}")
     if not cands:
         raise ValueError(f"no compiled {objective} tiling fits {tuple(dims)}")
     order = sorted(range(len(cands)),
-                   key=lambda i: (steps[i].t_ecm, -cands[i][0] * cands[i][1]))
+                   key=lambda i: (steps[i].t_ecm, computed[i],
+                                  -cands[i][0] * cands[i][1]))
     return [{"block": cands[i], "t_ecm": steps[i].t_ecm,
              "smem_bytes": smem[i]} for i in order]

@@ -1,26 +1,28 @@
 """Wrappers of the flash-attention kernels (``csrc/attention.cu``).
 
 The counterpart of the reference's ``flash_attention_call``
-(``repro/kernels/attention/kernel.py``), in two routes of one kernel:
+(``repro/kernels/attention/kernel.py``), in two routes of one kernel.
+Both read q ``(B, Sq, H, d)`` and k, v ``(B, Sk, Hkv, d)`` as the op
+receives them, through their strides (views the 16-byte copies can
+address; :func:`check_views`), and neither repeats a KV head:
 
-* ``"tile"`` (``bq >= 64``, ``rt_flash_attention``): prefill.  Heads fused
-  as ``(B, H, Sq, d)`` and ``(B, Hkv, Sk, d)``; one CTA per (head, q-block
-  of ``bq`` rows) walks the KV tiles of ``bk`` rows of its KV head in
-  order (:func:`flash_attention_tile`).
+* ``"tile"`` (``bq > 1``, ``rt_flash_attention``): prefill.  One CTA per
+  (batch, query head, q-block of ``bq`` rows) walks the KV tiles of ``bk``
+  keys of its KV head in order, K and V streamed through a ``cp.async``
+  ring of panels; ``ceil(Sq / bq)`` q-blocks and ``ceil(Sk / bk)`` tiles,
+  the ragged edge masked (:func:`flash_attention_tile`).
 * ``"split"`` (``bq = 1``, ``rt_flash_decode``): one query row at a time,
-  split-KV.  q ``(B, Sq, H, d)`` and the cache ``(B, Sk, Hkv, d)`` as the
-  op receives them, read through their strides; one CTA per (batch,
-  query row, KV head, split of whole ``bk`` tiles) serves the ``H / Hkv``
-  query heads of its KV head, and :data:`FLASH_COMBINE`
-  (``rt_flash_combine``) merges the splits (:func:`flash_attention_split`).
-  The split count is not an argument: :func:`split_plan` derives it from
-  the card's SMs and how many CTAs of the kernel one SM holds.
+  split-KV.  One CTA per (batch, query row, KV head, split of whole
+  ``bk`` tiles) serves the ``H / Hkv`` query heads of its KV head, and
+  :data:`FLASH_COMBINE` (``rt_flash_combine``) merges the splits
+  (:func:`flash_attention_split`).  The split count is not an argument:
+  :func:`split_plan` derives it from the card's SMs and how many CTAs of
+  the kernel one SM holds.
 
-Neither route repeats a KV head.  The kernel is compiled for the tilings
-in :data:`TILINGS` at the head dims in :data:`HEAD_DIMS`; any other
-raises, as does a tile whose buffers exceed the card's shared memory.
-The wrappers take CUDA tensors only; CPU tensors take the plain version
-in ``ref.py``, chosen in ``ops.py``.
+The kernel is compiled for the tilings in :data:`TILINGS` at the head
+dims in :data:`HEAD_DIMS`; any other raises, as does a tile whose buffers
+exceed the card's shared memory.  The wrappers take CUDA tensors only;
+CPU tensors take the plain version in ``ref.py``, chosen in ``ops.py``.
 """
 from __future__ import annotations
 
@@ -30,21 +32,23 @@ from dataclasses import dataclass
 import torch
 
 from .. import _build
-from ..pipeline import DTYPES, check_dense
+from ..pipeline import DTYPES
 
 #: (bq, bk) the kernel is compiled for, in the order ``rank`` breaks ties
 #: in; each at every head dim of HEAD_DIMS (csrc/attention.cu
 #: rt_flash_attention holds the tile route's, rt_flash_decode takes any
 #: bk that is a multiple of SPLIT_KEYS)
-TILINGS = ((64, 64), (64, 128), (128, 64), (128, 128), (1, 128), (1, 256))
+TILINGS = ((128, 64), (128, 128), (1, 128), (1, 256))
 HEAD_DIMS = (64, 128)
 #: head dims the op runs at a compiled one, zero-padded (ops.py)
 PADDED_HEAD_DIMS = {16: 64, 32: 64}
 DEFAULT_BQ = 128
 DEFAULT_BK = 128
 ROUTES = ("tile", "split")
-#: floats of padding per row of P (csrc/attention.cu PAD)
-_PAD = 4
+#: the tile route (csrc/attention.cu): query rows a thread holds, and the
+#: stages of its ring of K and V panels
+TILE_ROWS = 8
+TILE_STAGES = 3
 #: the split route (csrc/attention.cu): threads of a CTA, keys of one ring
 #: stage, stages, and the most query heads one KV head may serve
 SPLIT_THREADS = 128
@@ -62,7 +66,7 @@ _F = ctypes.c_float
 FLASH_ATTENTION = _build.Kernel(
     "flash_attention", "attention",
     {"tile": "rt_flash_attention", "split": "rt_flash_decode"},
-    {"tile": [_P] * 4 + [_I] * 9 + [_F, _I, _LL, _P],
+    {"tile": [_P] * 4 + [_I] * 8 + [_LL] * 12 + [_I, _F, _I, _LL, _P],
      "split": [_P] * 6 + [_I] * 9 + [_LL] * 9 + [_I, _F, _I, _LL, _P]},
     replaces="src/repro/kernels/attention/kernel.py:73", routes=ROUTES)
 FLASH_COMBINE = _build.Kernel(
@@ -84,14 +88,24 @@ def split_smem_bytes(d: int, rep: int, elem_bytes: int) -> int:
     return ring + rep * (d + SPLIT_KEYS + 1) * 4
 
 
+def tile_panels(bq: int, bk: int, d: int) -> tuple[int, int, int]:
+    """The tile route's ring (csrc/attention.cu): ``(threads, kc, vc)``,
+    a CTA's threads (16 for every TILE_ROWS query rows) and the shape of
+    its panels of ``16 x threads`` elements, K ``bk x kc`` and V
+    ``vc x d``, each at most the tile."""
+    threads = bq // TILE_ROWS * 16
+    return threads, min(16 * threads // bk, d), min(16 * threads // d, bk)
+
+
 def smem_bytes(bq: int, bk: int, d: int) -> int:
-    """Shared memory of one CTA.  ``bq >= 2``: Q^T, K^T (later P, rows
-    padded by 4 floats) and V of one tile, in f32 whatever the input
-    dtype.  ``bq = 1``: the split route's largest launch (f32, MAX_REP
-    query heads)."""
+    """Shared memory of one CTA.  ``bq >= 2``: the scaled Q and P of one
+    tile and TILE_STAGES ring slots, each the larger panel (K rows padded
+    by 4 floats), in f32 whatever the input dtype.  ``bq = 1``: the split
+    route's largest launch (f32, MAX_REP query heads)."""
     if bq == 1:
         return split_smem_bytes(d, MAX_REP, 4)
-    return (d * bq + max(d * bk, bq * (bk + _PAD)) + bk * d) * 4
+    _, kc, vc = tile_panels(bq, bk, d)
+    return (bq * d + bq * bk + TILE_STAGES * max(bk * (kc + 4), vc * d)) * 4
 
 
 def check_tiling(bq: int, bk: int, d: int, smem_limit: int) -> int:
@@ -118,48 +132,12 @@ def _check_heads(h: int, hkv: int) -> int:
     return h // hkv
 
 
-def flash_attention_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, bq: int, bk: int,
-                         scale: float) -> torch.Tensor:
-    """The tile route on CUDA tensors, q ``(B, H, Sq, d)``, k and v
-    ``(B, Hkv, Sk, d)``, the scores scaled by ``scale``; returns a new
-    ``(B, H, Sq, d)`` tensor of q's dtype."""
-    check_dense(q, k, v)
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or (
-            q.shape[0], q.shape[3]) != (k.shape[0], k.shape[3]):
-        raise ValueError(f"expected q (B, H, Sq, d), k and v (B, Hkv, Sk, d), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    _check_heads(h, hkv)
-    if bq == 1:
-        raise ValueError("bq = 1 is the split route (flash_attention_split)")
-    if causal and sq != sk:
-        raise ValueError("causal masking assumes aligned q/k positions "
-                         f"(sq == sk), got sq={sq}, sk={sk}")
-    if sq % bq or sk % bk:
-        raise ValueError(f"blocks {(bq, bk)} do not divide {(sq, sk)}")
-    if sq // bq > _GRID_MAX or b * h > _INT_MAX:
-        raise ValueError(f"{(b * h, sq // bq)} tiles exceed the launch grid")
-    props = torch.cuda.get_device_properties(q.device)
-    smem = check_tiling(bq, bk, d, props.shared_memory_per_block_optin)
-    out = torch.empty_like(q)
-    FLASH_ATTENTION.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-        sq, sk, d, bq, bk, int(causal), scale, DTYPES[q.dtype], smem,
-        torch.cuda.current_stream(q.device).cuda_stream, route="tile")
-    return out
-
-
-def check_split_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, bk: int, smem_limit: int) -> int:
-    """Everything the split route requires of its operands, short of the
-    device: q ``(B, Sq, H, d)``, k and v ``(B, Sk, Hkv, d)`` of one dtype,
-    each a view the kernel can address (the last dimension dense, 16-byte
-    aligned base and strides, as its 16-byte copies need), at most MAX_REP
-    query heads a KV head, a compiled ``(1, bk)`` tiling that divides Sk.
-    Returns the launch's shared memory."""
+def check_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Both routes' demands on their operands, short of the device: q
+    ``(B, Sq, H, d)``, k and v ``(B, Sk, Hkv, d)`` of one dtype, each a view
+    the kernel can address (the last dimension dense, 16-byte aligned base
+    and strides, as its 16-byte copies need), the query heads a multiple of
+    the KV heads."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or (
             q.shape[0], q.shape[3]) != (k.shape[0], k.shape[3]):
         raise ValueError(f"expected q (B, Sq, H, d), k and v (B, Sk, Hkv, d), "
@@ -175,14 +153,75 @@ def check_split_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"expected views with a dense last dimension, "
                              f"16-byte aligned base and strides, got "
                              f"{tuple(t.shape)} with strides {t.stride()}")
-    (b, sq, h, d), (sk, hkv) = q.shape, k.shape[1:3]
-    rep = _check_heads(h, hkv)
-    if rep > MAX_REP:
-        raise ValueError(f"{rep} query heads a KV head, over the {MAX_REP} "
-                         f"the split route serves")
+    _check_heads(q.shape[2], k.shape[2])
+
+
+def _check_causal(causal: bool, sq: int, sk: int) -> None:
     if causal and sq != sk:
         raise ValueError("causal masking assumes aligned q/k positions "
                          f"(sq == sk), got sq={sq}, sk={sk}")
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels take CUDA tensors, got {t.device}")
+
+
+def check_tile_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, bq: int, bk: int,
+                        smem_limit: int) -> int:
+    """Everything the tile route requires of its operands, short of the
+    device: views as :func:`check_views` allows, a compiled ``(bq, bk)``
+    tiling with ``bq > 1`` (any sequence lengths: the kernel masks the
+    ragged edge), and a grid the card launches.  Returns the launch's
+    shared memory."""
+    check_views(q, k, v)
+    (b, sq, h, d), sk = q.shape, k.shape[1]
+    if bq == 1:
+        raise ValueError("bq = 1 is the split route (flash_attention_split)")
+    _check_causal(causal, sq, sk)
+    if min(sq, sk) < 1:
+        raise ValueError(f"empty sequences {(sq, sk)}")
+    if -(-sq // bq) > _GRID_MAX or b * h > _INT_MAX:
+        raise ValueError(f"{(b * h, -(-sq // bq))} tiles exceed the launch grid")
+    return check_tiling(bq, bk, d, smem_limit)
+
+
+def flash_attention_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, bq: int, bk: int,
+                         scale: float) -> torch.Tensor:
+    """The tile route on CUDA tensors, q ``(B, Sq, H, d)``, k and v
+    ``(B, Sk, Hkv, d)`` (views as :func:`check_tile_operands` allows, read
+    in place), the scores scaled by ``scale``; returns a new contiguous
+    ``(B, Sq, H, d)`` tensor of q's dtype."""
+    _check_cuda(q, k, v)
+    props = torch.cuda.get_device_properties(q.device)
+    smem = check_tile_operands(q, k, v, causal=causal, bq=bq, bk=bk,
+                               smem_limit=props.shared_memory_per_block_optin)
+    (b, sq, h, d), (sk, hkv) = q.shape, k.shape[1:3]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    FLASH_ATTENTION.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
+        sq, sk, d, bq, bk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], int(causal), scale, DTYPES[q.dtype], smem,
+        torch.cuda.current_stream(q.device).cuda_stream, route="tile")
+    return out
+
+
+def check_split_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, bk: int, smem_limit: int) -> int:
+    """Everything the split route requires of its operands, short of the
+    device: views as :func:`check_views` allows, at most MAX_REP query
+    heads a KV head, a compiled ``(1, bk)`` tiling that divides Sk.
+    Returns the launch's shared memory."""
+    check_views(q, k, v)
+    (b, sq, h, d), (sk, hkv) = q.shape, k.shape[1:3]
+    rep = h // hkv
+    if rep > MAX_REP:
+        raise ValueError(f"{rep} query heads a KV head, over the {MAX_REP} "
+                         f"the split route serves")
+    _check_causal(causal, sq, sk)
     if sk % bk:
         raise ValueError(f"blocks {(1, bk)} do not divide {(sq, sk)}")
     check_tiling(1, bk, d, smem_limit)
@@ -244,9 +283,7 @@ def split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B*Sq*H, n_split)`` and ``acc`` ``(B*Sq*H, n_split, d)`` in f32, query
     rows in q's (b, s, h) order; a causal split wholly past its row has
     ``l = 0``."""
-    for t in (q, k, v):
-        if t.device.type != "cuda":
-            raise ValueError(f"the CUDA kernels take CUDA tensors, got {t.device}")
+    _check_cuda(q, k, v)
     props = torch.cuda.get_device_properties(q.device)
     smem = check_split_operands(q, k, v, causal=causal, bk=bk,
                                 smem_limit=props.shared_memory_per_block_optin)

@@ -6,25 +6,28 @@ asks ``core.autotune.rank`` for the tiling to pass back into
 :func:`flash_attention`.
 
 q is ``(B, Sq, H, d)``, k and v ``(B, Sk, Hkv, d)``; ``causal`` with
-``sq != sk`` raises; the output is in q's dtype.  Blocks the caller
-passes are clamped to the sequence lengths and must then divide them.  A
-CPU tensor takes the plain version in :mod:`.ref` on the reference's
-operands (KV heads repeated to q's, ``repeat_interleave`` on dim 2, the
-order of ``jnp.repeat``; heads fused), and a block left at ``None`` there
-is the reference's default 512, clamped.  Any other tensor launches the
-CUDA kernel, compiled for the tilings in ``kernel.TILINGS`` at the head
-dims in ``kernel.HEAD_DIMS``: blocks left at ``None`` take the first
-tiling of :func:`tuned_blocks`' ranking that agrees with the block given
-(raising only when no compiled tiling divides the problem).  The kernel
-never sees a repeated KV head: ``bq = 1`` (decode) hands it q, k and v as
-they are, the cache in its own layout with no copy
-(``kernel.flash_attention_split``); ``bq >= 64`` (prefill) fuses heads as
-``(B, H, S, d)`` and ``(B, Hkv, S, d)`` (:func:`tile_operands`).  Head dims
-16 and 32 run at 64 (``kernel.PADDED_HEAD_DIMS``): q, k and v are padded
-with zeros, the scale stays ``d ** -0.5`` of the true d, and the padded
-output columns are dropped.  A zero column adds ``0 * 0`` to every score
-and feeds only the output columns that are dropped, so the result is the
-unpadded one.  Any other head dim or tiling raises.
+``sq != sk`` raises; the output is in q's dtype.  The reference's rule
+decides what is accepted, on both devices: blocks are clamped to the
+sequence lengths and must then divide them, a block left at ``None``
+being the reference's default 512, clamped.  A CPU tensor takes the
+plain version in :mod:`.ref` on the reference's operands (KV heads
+repeated to q's, ``repeat_interleave`` on dim 2, the order of
+``jnp.repeat``; heads fused).  Any other tensor launches the CUDA kernel,
+compiled for the tilings in ``kernel.TILINGS`` at the head dims in
+``kernel.HEAD_DIMS``, at the tiling :func:`card_blocks` chooses from
+:func:`tuned_blocks`' ranking: the blocks given where they are a compiled
+tiling, else the first ranked tiling that agrees with most of the blocks
+given (with none given, or none agreeing, the first ranked).  The result
+does not depend on the tiling, within tolerance: the tile route masks the
+ragged edge.  The kernel gets q, k and v as the caller holds them, read
+through their strides, with no repeat and no copy: ``bq = 1`` (decode)
+on the split route (``kernel.flash_attention_split``), ``bq > 1``
+(prefill) on the tile route (``kernel.flash_attention_tile``).  Head
+dims 16 and 32 run at 64 (``kernel.PADDED_HEAD_DIMS``): q, k and v are
+padded with zeros, the scale stays ``d ** -0.5`` of the true d, and the
+padded output columns are dropped.  A zero column adds ``0 * 0`` to every
+score and feeds only the output columns that are dropped, so the result
+is the unpadded one.  Any other head dim raises.
 """
 from __future__ import annotations
 
@@ -59,18 +62,11 @@ def fused_inputs(q, k, v):
     return _fuse(q), _fuse(k), _fuse(v)
 
 
-def tile_operands(q, k, v):
-    """The tile route's operands of :func:`flash_attention`: each tensor
-    ``(B, S, heads, d)`` made a contiguous ``(B, heads, S, d)``, KV at its
-    own heads."""
-    return tuple(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int | None = None,
                     bk: int | None = None) -> torch.Tensor:
-    """Returns ``(B, Sq, H, d)`` (on the tile route a permuted view of
-    the kernel's ``(B, H, Sq, d)`` output)."""
+    """Returns ``(B, Sq, H, d)`` (on the CPU a permuted view of the plain
+    version's ``(B, H, Sq, d)`` output)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if causal and sq != sk:
@@ -78,13 +74,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(sq == sk), got sq={sq}, sk={sk}")
     dims = (sq, sk)
     asked = tuple(None if x is None else min(x, s) for x, s in zip((bq, bk), dims))
+    blocks = tuple(min(r, s) if a is None else a
+                   for a, r, s in zip(asked, REFERENCE_BLOCKS, dims))
+    if any(s % x for x, s in zip(blocks, dims)):
+        raise ValueError(f"blocks {blocks} do not divide {dims}")
     if q.device.type == "cpu":
-        _check_divides(tuple(min(r, s) if a is None else a for a, r, s
-                             in zip(asked, REFERENCE_BLOCKS, dims)), dims)
         out = ref.attention(*fused_inputs(q, k, v), causal=causal)
         return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
-    _check_divides(asked, dims)
-    bq, bk = _card_blocks(sq, sk, d, causal, asked)
+    from ...core.autotune import rank
+
+    ranked = rank((sq, sk, d), H100_SXM, objective="attention", causal=causal)
+    bq, bk = card_blocks(asked, [r["block"] for r in ranked])
     dk = K.PADDED_HEAD_DIMS.get(d, d)
     if dk != d:
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
@@ -92,29 +92,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = K.flash_attention_split(q, k, v, causal=causal, bk=bk,
                                       scale=d ** -0.5)
     else:
-        out = K.flash_attention_tile(*tile_operands(q, k, v), causal=causal,
-                                     bq=bq, bk=bk,
-                                     scale=d ** -0.5).permute(0, 2, 1, 3)
+        out = K.flash_attention_tile(q, k, v, causal=causal, bq=bq, bk=bk,
+                                     scale=d ** -0.5)
     return out[..., :d] if dk != d else out
 
 
-def _check_divides(blocks: tuple, dims: tuple) -> None:
-    if any(x is not None and s % x for x, s in zip(blocks, dims)):
-        raise ValueError(f"blocks {blocks} do not divide {dims}")
-
-
-def _card_blocks(sq: int, sk: int, d: int, causal: bool, asked: tuple) -> tuple:
-    """The caller's blocks, with one left at ``None`` taken from the first
-    ranked compiled tiling that agrees with the one given."""
-    if None not in asked:
-        return asked
-    from ...core.autotune import rank
-
-    for r in rank((sq, sk, d), H100_SXM, objective="attention", causal=causal):
-        if all(a is None or a == x for a, x in zip(asked, r["block"])):
-            return r["block"]
-    raise ValueError(f"no compiled attention tiling of {(sq, sk)} has the "
-                     f"blocks {asked}")
+def card_blocks(asked: tuple, ranked: list[tuple]) -> tuple:
+    """The tiling the card runs for the clamped blocks ``asked`` (``None``
+    where not given), from the compiled tilings ``ranked`` best first: the
+    first that agrees with the most given blocks, so the blocks themselves
+    where they are a compiled tiling, and the first ranked where no tiling
+    agrees with any."""
+    return max(ranked, key=lambda t: sum(a == x for a, x in zip(asked, t)))
 
 
 def attention_workload(sq: int, sk: int, d: int, *, bq: int = K.DEFAULT_BQ,
@@ -130,9 +119,9 @@ def attention_workload(sq: int, sk: int, d: int, *, bq: int = K.DEFAULT_BQ,
 def tuned_blocks(sq: int, sk: int, d: int, *, causal: bool = True,
                  machine: GPUMachineModel = H100_SXM) -> tuple[int, int]:
     """The ``(bq, bk)`` that ``rank`` puts first for f32 attention on
-    ``machine`` (candidates: the compiled tilings that divide the sequence
-    lengths, at the compiled head dim that runs ``d``, that fit the card's
-    shared memory).  The reference's on-disk cache of this pick is not
+    ``machine`` (candidates: the compiled tilings at the compiled head dim
+    that runs ``d`` that fit the card's shared memory, the one-row tilings
+    only where they divide ``sk``).  The reference's on-disk cache of this pick is not
     ported."""
     from ...core.autotune import rank
 

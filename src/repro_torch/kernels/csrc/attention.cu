@@ -14,23 +14,60 @@
 // here both routes read the KV head of a query head, h / rep with rep =
 // H / Hkv, so no repeat is ever made.
 //
-// Bound.  Prefill (bq >= 64): operations, 4*d FLOP a score on FFMA
+// Bound.  Prefill (bq > 1): operations, 4*d FLOP a score on FFMA
 // (67 TFLOP/s); each KV element is reused by bq query rows.  Decode
 // (bq = 1): bytes, each K and V element of the cache read once for the
 // rep query heads that share it.
 //
-// Design, prefill (flash_tile): one CTA of 256 threads per (fused head,
-// q-block); the q-blocks with the longest causal rows are launched first.
-// Shared memory holds Q^T (scaled), K^T and V for one tile; S = Q K^T
-// stays in registers, a (bq/16) x (bk/16) tile a thread, and P is written
-// over K^T (row-major, rows padded by 4 floats so the float4 stores of a
-// quarter-warp fall in distinct banks) once every thread has read K^T.
-// A thread holds the same bq/16 rows in S and in O, so its m, l and the
-// rescale of acc stay in registers; the row max and sum are butterflies
-// over the 16 threads that share the rows.  One stage, no cp.async: at
-// d = 128 and bq = bk = 128 the tile takes 194 KiB of the 227 KB a block
-// may use, so one CTA runs on an SM and the next tile's loads wait for
-// the barrier.
+// Design, prefill (flash_tile): one CTA of 2 bq threads per (batch, query
+// head, q-block of bq rows), the q-blocks with the longest causal rows
+// launched first.  q (B, Sq, H, d), k and v (B, Sk, Hkv, d) and the output
+// (B, Sq, H, d) are addressed through their element strides, so the op
+// hands the caller's tensors over with no copy.  Thread (ty, tx) of
+// (bq / 8) x 16 holds rows 8 ty .. 8 ty + 7 of S and of O (TILE_ROWS), so
+// its m, l and the rescale of O stay in registers, and the row max and sum
+// are butterflies over the 16 threads that share the rows; its S columns
+// are keys tx + 16 j (j < bk / 16), its O columns 4 tx + 64 h .. + 3.
+//  * Q is loaded once, through registers, scaled with __fmul_rn into f32
+//    shared memory (bq x d, row-major); rows past Sq are zero.
+//  * K and V never pass through registers on their way to shared memory:
+//    a TILE_STAGES-deep cp.async ring in dynamic shared memory carries, for
+//    each KV tile in turn, d / KC K panels (bk keys x KC dims, rows padded
+//    by 16 bytes so the 16-byte reads of 8 consecutive keys fall in distinct
+//    banks) and then bk / VC V panels (VC keys x d), in the input dtype,
+//    widened on read.  A stage is one panel of 16 elements a thread (4096
+//    at bq = 128): KC = min(16 threads / bk, d), VC = min(16 threads / d,
+//    bk).  Panels are filled while the FMAs of earlier ones run, with one
+//    barrier a panel; keys past Sk land as zeros (cp.async with a source
+//    size of 0), so a masked key adds 0 * 0.
+//  * S = Q K^T as inner products over 4-element d chunks: per chunk a
+//    thread reads its bk / 16 keys (16 bytes each in f32) and, row by row,
+//    one Q float4 (a broadcast to the 16 threads of the rows): 8 (bk / 16) 4
+//    FMAs for 8 + bk / 16 shared loads.  After a tile's last K panel, keys
+//    past Sk and, causal, keys past the row score -1e30; then the online
+//    softmax, and P goes to shared memory (bq x bk, f32).  The next panel's
+//    barrier publishes it; P is rewritten only after the next tile's first
+//    K panel barrier, when every thread is done reading it.
+//  * O += P V: per 4 keys a thread reads 4 V rows at its d / 16 columns
+//    and, row by row, one P float4 (a broadcast): 8 (d / 16) 4 FMAs for
+//    d / 16 + 8 loads.  Every O element adds its products in key order.
+//  * Rows past Sq are computed on zero Q and never stored; a causal walk
+//    ends at the tile of the block's last real row (the reference's skip,
+//    qi bq + bq - 1 < ki bk, with the block cut at Sq).
+// Shared memory (kernels/attention/kernel.py smem_bytes computes the
+// same): 4 (bq d + bq bk + TILE_STAGES max(bk (KC + 4), VC d)) bytes; at
+// d = 128, 128 x 64 takes 150,528 B and 128 x 128 186,368 B (one CTA an
+// SM).  f32 and bf16 share the layout (a bf16 panel fills half its slot;
+// its K rows, padded by 16 bytes, make its 8-byte reads 2-way conflicted;
+// the timed point is f32).  Why these shapes: 8 rows a thread is the
+// least the design allows, so bq = 128 gives 256 threads, and at bk = 128
+// a thread's S tile is 8 x 8, the f32 matmul's 128 x 128 tile (16 FMAs a
+// 16-byte load); a panel of 16 elements a thread keeps each copy pass at
+// four 16-byte copies and each barrier at 2048 FMAs a thread.  q-blocks of
+// 64 rows (128 threads, two CTAs an SM) ran slower than both 128-row
+// tilings on the causal S = 4096 point, so they are not compiled; nor did
+// conflict-free Q and P rows, panels twice as large or less unrolling
+// make the 128-row tiles faster.
 //
 // Design, decode (flash_split, flash_combine): the reference's sequence-
 // parallel decode (src/repro/models/attention.py:229 _flash_decode) across
@@ -74,43 +111,127 @@ using namespace rt;
 
 namespace {
 
-constexpr int ATT_THREADS = 256;
 constexpr float NEG_INF = -1e30f;
-constexpr int PAD = 4;  // floats of padding per row of P
 
-template <int BQ, int BK, int D>
-constexpr size_t tile_smem() {
-  constexpr size_t kp = D * BK > BQ * (BK + PAD) ? D * BK : BQ * (BK + PAD);
-  return (static_cast<size_t>(D) * BQ + kp + static_cast<size_t>(BK) * D) * sizeof(float);
+// element strides of a (B, S, H, D) tensor whose last dimension is dense
+struct Strides {
+  long long b, s, h;
+};
+
+// ------------------------------------------------------------ prefill route
+
+constexpr int TILE_ROWS = 8;    // query rows a thread holds in S and in O
+constexpr int TILE_STAGES = 3;  // panels in the ring
+
+__host__ __device__ constexpr int tile_threads(int bq) { return bq / TILE_ROWS * 16; }
+// elements one ring stage carries: 16 a thread
+__host__ __device__ constexpr int tile_panel(int bq) { return 16 * tile_threads(bq); }
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+// dims of a K panel (bk keys x KC) and keys of a V panel (VC x d)
+__host__ __device__ constexpr int tile_kc(int bq, int bk, int d) { return cmin(tile_panel(bq) / bk, d); }
+__host__ __device__ constexpr int tile_vc(int bq, int bk, int d) { return cmin(tile_panel(bq) / d, bk); }
+// floats of one ring slot: the larger panel in f32, K rows padded by 4 floats
+__host__ __device__ constexpr int tile_slot(int bq, int bk, int d) {
+  return bk * (tile_kc(bq, bk, d) + 4) > tile_vc(bq, bk, d) * d ? bk * (tile_kc(bq, bk, d) + 4)
+                                                                  : tile_vc(bq, bk, d) * d;
 }
 
 template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(ATT_THREADS, 1)
-    flash_tile(const void* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
-               void* __restrict__ o, int H, int rep, int Sq, int Sk, float scale, int causal,
-               int dtype) {
-  static_assert(BQ % 64 == 0 && BK % 64 == 0 && D % 64 == 0, "tile shape");
-  constexpr int TM = BQ / 16, TN = BK / 16, TD = D / 16, PS = BK + PAD;
-  constexpr int KP = D * BK > BQ * PS ? D * BK : BQ * PS;
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][BQ]: Q^T, scaled
-  float* KP_ = Qt + D * BQ;                      // [D][BK]: K^T, then [BQ][PS]: P
-  float* Vs = KP_ + KP;                          // [BK][D]
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long bh = blockIdx.x;
-  const long long bkv = (bh / H) * (H / rep) + (bh % H) / rep;  // b * Hkv + h / rep
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const long long qbase = (bh * Sq + q0) * D;
+constexpr size_t tile_smem() {
+  return (static_cast<size_t>(BQ) * D + static_cast<size_t>(BQ) * BK +
+          static_cast<size_t>(TILE_STAGES) * tile_slot(BQ, BK, D)) * sizeof(float);
+}
 
-  for (int u = tid; u < BQ * D / 8; u += ATT_THREADS) {
-    const int r = u % BQ, c = (u / BQ) * 8;
-    float x[8];
-    load_vec<8>(q, qbase + static_cast<long long>(r) * D + c, dtype, x);
+// four elements of T widened to float (exact for bf16): one 16-byte (f32)
+// or 8-byte (bf16) load, shared or global
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(t.x << 16), __uint_as_float(t.x & 0xffff0000u),
+                     __uint_as_float(t.y << 16), __uint_as_float(t.y & 0xffff0000u));
+}
+
+// four floats to T (bf16 rounded to nearest even): one 16- or 8-byte store
+__device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
+
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y), b = __floats2bfloat162_rn(x.z, x.w);
+  uint2 t;
+  t.x = *reinterpret_cast<const unsigned*>(&a);
+  t.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+template <typename T, int BQ, int BK, int D>
+__global__ void __launch_bounds__(tile_threads(BQ))
+    flash_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, int H, int rep, int Sq, int Sk, Strides qs, Strides ks,
+               Strides vs, Strides os, float scale, int causal) {
+  constexpr int NT = tile_threads(BQ), TM = TILE_ROWS, TN = BK / 16, TD = D / 16;
+  constexpr int KC = tile_kc(BQ, BK, D), VC = tile_vc(BQ, BK, D);
+  constexpr int NKP = D / KC, NP = NKP + BK / VC;  // K panels, all panels of a KV tile
+  constexpr int CH = 16 / sizeof(T);               // elements of one 16-byte copy
+  constexpr int KROW = KC + CH;                    // a K panel row, padded by 16 bytes
+  constexpr int SLOT = tile_slot(BQ, BK, D) * sizeof(float) / sizeof(T);
+  static_assert(BQ % 64 == 0 && BK % 64 == 0 && D % 64 == 0 && D % KC == 0 && BK % VC == 0 &&
+                    KC % CH == 0 && VC % 4 == 0 && (BK * KC / CH) % NT == 0 &&
+                    (VC * D / CH) % NT == 0, "tile shape");
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [BQ][D], scaled
+  float* Ps = Qs + BQ * D;                       // [BQ][BK]
+  T* ring = reinterpret_cast<T*>(Ps + BQ * BK);  // [TILE_STAGES][SLOT]
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const T* kg = k + b * ks.b + static_cast<long long>(h / rep) * ks.h;
+  const T* vg = v + b * vs.b + static_cast<long long>(h / rep) * vs.h;
+  int n_kv = (Sk + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (min(q0 + BQ, Sq) - 1) / BK + 1);  // the reference's skip
+  const int steps = n_kv * NP;
+
+  // the copies of step `step` (panel p of KV tile t) into its slot; one
+  // commit group per call, empty past the last step
+  auto issue = [&](int step) {
+    if (step < steps) {
+      T* dst = ring + (step % TILE_STAGES) * SLOT;
+      const int t = step / NP, p = step % NP;
+      if (p < NKP) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) Qt[(c + e) * BQ + r] = __fmul_rn(x[e], scale);
+        for (int it = 0; it < BK * KC / CH / NT; ++it) {
+          const int u = tid + it * NT;
+          const int r = u / (KC / CH), c = (u % (KC / CH)) * CH, key = t * BK + r;
+          const bool in = key < Sk;
+          cp_async16_zfill(dst + r * KROW + c, in ? kg + key * ks.s + p * KC + c : kg, in);
+        }
+      } else {
+#pragma unroll
+        for (int it = 0; it < VC * D / CH / NT; ++it) {
+          const int u = tid + it * NT;
+          const int r = u / (D / CH), c = (u % (D / CH)) * CH, key = t * BK + (p - NKP) * VC + r;
+          const bool in = key < Sk;
+          cp_async16_zfill(dst + r * D + c, in ? vg + key * vs.s + c : vg, in);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < TILE_STAGES - 1; ++st) issue(st);
+
+  const T* qg = q + b * qs.b + static_cast<long long>(h) * qs.h;
+  for (int u = tid; u < BQ * D / 4; u += NT) {
+    const int r = u / (D / 4), c = (u % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq) {
+      x = ld4(qg + static_cast<long long>(q0 + r) * qs.s + c);
+      x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale), __fmul_rn(x.z, scale),
+                      __fmul_rn(x.w, scale));
+    }
+    *reinterpret_cast<float4*>(Qs + r * D + c) = x;
   }
 
-  float acc[TM][TD], m[TM], l[TM];
+  float s[TM][TN], acc[TM][TD], m[TM], l[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     m[i] = NEG_INF;
@@ -118,126 +239,110 @@ __global__ void __launch_bounds__(ATT_THREADS, 1)
 #pragma unroll
     for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
   }
+  const float* Qr = Qs + ty * TM * D;   // this thread's rows of Q
+  float* Pr = Ps + ty * TM * BK;        // and of P
 
-  const int n_kv = Sk / BK;
-  for (int ki = 0; ki < n_kv; ++ki) {
-    if (causal && q0 + BQ - 1 < ki * BK) break;  // the reference's skip; later tiles too
-    const long long kbase = (bkv * Sk + static_cast<long long>(ki) * BK) * D;
-    for (int u = tid; u < BK * D / 8; u += ATT_THREADS) {
-      const int r = u % BK, c = (u / BK) * 8;
-      float x[8];
-      load_vec<8>(k, kbase + static_cast<long long>(r) * D + c, dtype, x);
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait(TILE_STAGES - 2);  // this thread's copies of `step` have landed
+    __syncthreads();  // everyone's have (and Q, and P); everyone is done with step - 1's slot
+    issue(step + TILE_STAGES - 1);   // into step - 1's slot
+    const T* pan = ring + (step % TILE_STAGES) * SLOT;
+    const int t = step / NP, p = step % NP;
+    if (p < NKP) {  // S += Q[:, p KC : (p + 1) KC] K^T
+      if (p == 0) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) KP_[(c + e) * BK + r] = x[e];
-    }
-    for (int u = tid; u < BK * D / 8; u += ATT_THREADS) {
-      const int r = u / (D / 8), c = (u % (D / 8)) * 8;
-      float x[8];
-      load_vec<8>(v, kbase + static_cast<long long>(r) * D + c, dtype, x);
-      float4* dst = reinterpret_cast<float4*>(Vs + r * D + c);
-      dst[0] = make_float4(x[0], x[1], x[2], x[3]);
-      dst[1] = make_float4(x[4], x[5], x[6], x[7]);
-    }
-    __syncthreads();
-
-    float s[TM][TN];
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int h = 0; h < TM / 4; ++h) {
-        const float4 t = *reinterpret_cast<const float4*>(Qt + c * BQ + h * 64 + ty * 4);
-        av[4 * h] = t.x;
-        av[4 * h + 1] = t.y;
-        av[4 * h + 2] = t.z;
-        av[4 * h + 3] = t.w;
+          for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
       }
 #pragma unroll
-      for (int h = 0; h < TN / 4; ++h) {
-        const float4 t = *reinterpret_cast<const float4*>(KP_ + c * BK + h * 64 + tx * 4);
-        bv[4 * h] = t.x;
-        bv[4 * h + 1] = t.y;
-        bv[4 * h + 2] = t.z;
-        bv[4 * h + 3] = t.w;
+      for (int c = 0; c < KC; c += 4) {
+        float4 kv[TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) kv[j] = ld4(pan + (tx + 16 * j) * KROW + c);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(Qr + i * D + p * KC + c);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            s[i][j] = __fmaf_rn(qv.x, kv[j].x, s[i][j]);
+            s[i][j] = __fmaf_rn(qv.y, kv[j].y, s[i][j]);
+            s[i][j] = __fmaf_rn(qv.z, kv[j].z, s[i][j]);
+            s[i][j] = __fmaf_rn(qv.w, kv[j].w, s[i][j]);
+          }
+        }
       }
+      if (p == NKP - 1) {  // the tile's scores are complete: online softmax, P out
+        const int k0 = t * BK;
+        const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < TM; ++i) {
+          const int row = q0 + ty * TM + i;
+          float mx = NEG_INF;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = __fmaf_rn(av[i], bv[j], s[i][j]);
-    }
-
+          for (int j = 0; j < TN; ++j) {
+            const int col = k0 + tx + 16 * j;
+            if (edge && (col >= Sk || (causal && col > row))) s[i][j] = NEG_INF;
+            mx = fmaxf(mx, s[i][j]);
+          }
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = q0 + (i / 4) * 64 + ty * 4 + i % 4;
-      float mx = NEG_INF;
+          for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+          const float m_new = fmaxf(m[i], mx);
+          const float alpha = expf(m[i] - m_new);
+          float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = ki * BK + (j / 4) * 64 + tx * 4 + j % 4;
-        if (causal && row < col) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+          for (int j = 0; j < TN; ++j) {
+            s[i][j] = expf(s[i][j] - m_new);
+            rs = __fadd_rn(rs, s[i][j]);
+            Pr[i * BK + tx + 16 * j] = s[i][j];
+          }
+#pragma unroll
+          for (int w = 8; w > 0; w >>= 1) rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, w));
+          l[i] = __fmaf_rn(alpha, l[i], rs);
+          m[i] = m_new;
+#pragma unroll
+          for (int j = 0; j < TD; ++j) acc[i][j] = __fmul_rn(alpha, acc[i][j]);
+        }
       }
+    } else {  // O += P[:, j0 : j0 + VC] V[j0 : j0 + VC]
+      const int j0 = (p - NKP) * VC;
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
+      for (int j = 0; j < VC; j += 4) {
+        float4 vv[4][TD / 4];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs = __fadd_rn(rs, s[i][j]);
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int c = 0; c < TD / 4; ++c) vv[e][c] = ld4(pan + (j + e) * D + c * 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 pv = *reinterpret_cast<const float4*>(Pr + i * BK + j0 + j);
+          const float pe[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int c = 0; c < TD / 4; ++c) {
+              acc[i][4 * c] = __fmaf_rn(pe[e], vv[e][c].x, acc[i][4 * c]);
+              acc[i][4 * c + 1] = __fmaf_rn(pe[e], vv[e][c].y, acc[i][4 * c + 1]);
+              acc[i][4 * c + 2] = __fmaf_rn(pe[e], vv[e][c].z, acc[i][4 * c + 2]);
+              acc[i][4 * c + 3] = __fmaf_rn(pe[e], vv[e][c].w, acc[i][4 * c + 3]);
+            }
+        }
       }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, o));
-      l[i] = __fmaf_rn(alpha, l[i], rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] = __fmul_rn(alpha, acc[i][j]);
     }
-    __syncthreads();  // every thread has read K^T: P goes over it
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = (i / 4) * 64 + ty * 4 + i % 4;
-#pragma unroll
-      for (int h = 0; h < TN / 4; ++h)
-        *reinterpret_cast<float4*>(KP_ + r * PS + h * 64 + tx * 4) =
-            make_float4(s[i][4 * h], s[i][4 * h + 1], s[i][4 * h + 2], s[i][4 * h + 3]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[TM], vv[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) pv[i] = KP_[((i / 4) * 64 + ty * 4 + i % 4) * PS + j];
-#pragma unroll
-      for (int h = 0; h < TD / 4; ++h) {
-        const float4 t = *reinterpret_cast<const float4*>(Vs + j * D + h * 64 + tx * 4);
-        vv[4 * h] = t.x;
-        vv[4 * h + 1] = t.y;
-        vv[4 * h + 2] = t.z;
-        vv[4 * h + 3] = t.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int dd = 0; dd < TD; ++dd) acc[i][dd] = __fmaf_rn(pv[i], vv[dd], acc[i][dd]);
-    }
-    __syncthreads();  // K^T/P and V are overwritten by the next tile
   }
+  cp_async_wait(0);  // the trailing empty groups
 
+  T* og = o + b * os.b + static_cast<long long>(h) * os.h;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const long long row = (i / 4) * 64 + ty * 4 + i % 4;
-    const float den = fmaxf(l[i], 1e-30f);
+    const int row = q0 + ty * TM + i;
+    if (row < Sq) {
+      const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int h = 0; h < TD / 4; ++h) {
-      float out[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[e] = __fdiv_rn(acc[i][4 * h + e], den);
-      store4(o, qbase + row * D + h * 64 + tx * 4, dtype, out);
+      for (int c = 0; c < TD / 4; ++c)
+        st4(og + static_cast<long long>(row) * os.s + c * 64 + tx * 4,
+            make_float4(__fdiv_rn(acc[i][4 * c], den), __fdiv_rn(acc[i][4 * c + 1], den),
+                        __fdiv_rn(acc[i][4 * c + 2], den), __fdiv_rn(acc[i][4 * c + 3], den)));
     }
   }
 }
@@ -251,11 +356,6 @@ constexpr int SPLIT_STAGES = 3;
 constexpr int MAX_REP = 16;     // query heads a CTA serves (H / Hkv)
 constexpr int ROWS_PER_WARP = MAX_REP / SPLIT_WARPS;
 constexpr int COMBINE_THREADS = 256;
-
-// element strides of a (B, S, H, D) tensor whose last dimension is dense
-struct Strides {
-  long long b, s, h;
-};
 
 // 16 bytes of a row in shared memory, widened to float
 template <typename T>
@@ -519,7 +619,7 @@ struct Type {
 
 // f(Type<T>{}, std::integral_constant<int, D>{}) for a compiled (dtype, D)
 template <typename F>
-cudaError_t with_split(int dtype, int D, F&& f) {
+cudaError_t with_type(int dtype, int D, F&& f) {
   if (dtype != F32 && dtype != BF16) return cudaErrorInvalidValue;
   if (D == 64)
     return dtype == F32 ? f(Type<float>{}, std::integral_constant<int, 64>{})
@@ -530,49 +630,55 @@ cudaError_t with_split(int dtype, int D, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <int BQ, int BK, int D>
+template <typename T, int BQ, int BK, int D>
 cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int Hkv, int Sq, int Sk, float scale, int causal, int dtype,
-                        long long smem, cudaStream_t st) {
+                        int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+                        float scale, int causal, long long smem, cudaStream_t st) {
   if (smem != static_cast<long long>(tile_smem<BQ, BK, D>())) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_tile<BQ, BK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t e = cudaFuncSetAttribute(flash_tile<T, BQ, BK, D>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_tile<BQ, BK, D><<<dim3(B * H, Sq / BQ), ATT_THREADS, smem, st>>>(
-      q, k, v, o, H, H / Hkv, Sq, Sk, scale, causal, dtype);
+  flash_tile<T, BQ, BK, D><<<dim3(B * H, (Sq + BQ - 1) / BQ), tile_threads(BQ), smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, H / Hkv, Sq, Sk, qs, ks, vs, os, scale, causal);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// Prefill route.  o = attention(q, k, v): q, o (B*H, Sq, D) and k, v
-// (B*Hkv, Sk, D) with heads fused, row-major, one dtype; query head h of
-// batch b reads KV head b*Hkv + h/(H/Hkv); tiles of bq query rows and bk
-// keys.  The tilings compiled here are kernels/attention/kernel.py
-// TILINGS with bq > 1 x HEAD_DIMS, and smem must be its smem_bytes of the
-// tiling (checked: the layout is this file's).
+// Prefill route.  o = attention(q, k, v): q and o (B, Sq, H, D), k and v
+// (B, Sk, Hkv, D), one dtype, each addressed through its element strides
+// (b, s, h) with the last dimension dense, 16-byte aligned; query head h
+// reads KV head h / (H / Hkv); ceil(Sq / bq) q-blocks of bq rows walk
+// ceil(Sk / bk) KV tiles of bk keys, the ragged edge masked.  The tilings
+// compiled here are kernels/attention/kernel.py TILINGS with bq > 1 x
+// HEAD_DIMS, and smem must be its smem_bytes of the tiling (checked: the
+// layout is this file's).
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                   int H, int Hkv, int Sq, int Sk, int D, int bq, int bk,
+                                  long long qsb, long long qss, long long qsh, long long ksb,
+                                  long long kss, long long ksh, long long vsb, long long vss,
+                                  long long vsh, long long osb, long long oss, long long osh,
                                   int causal, float scale, int dtype, long long smem,
                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype != F32 && dtype != BF16) || B <= 0 || Hkv <= 0 || H % Hkv || bq <= 0 || bk <= 0 ||
-      Sq % bq || Sk % bk || Sq / bq > 65535 || static_cast<long long>(B) * H > INT_MAX)
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0 || bq <= 0 || bk <= 0 ||
+      (Sq + bq - 1) / bq > 65535 || static_cast<long long>(B) * H > INT_MAX)
     return finish(cudaErrorInvalidValue);
-#define RT_ATT(BQ, BK, DD)                                                                 \
-  if (bq == BQ && bk == BK && D == DD)                                                     \
-    return finish(launch_tile<BQ, BK, DD>(q, k, v, o, B, H, Hkv, Sq, Sk, scale, causal, dtype, \
-                                          smem, st));
-  RT_ATT(64, 64, 64)
-  RT_ATT(64, 128, 64)
-  RT_ATT(128, 64, 64)
-  RT_ATT(128, 128, 64)
-  RT_ATT(64, 64, 128)
-  RT_ATT(64, 128, 128)
-  RT_ATT(128, 64, 128)
-  RT_ATT(128, 128, 128)
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
+  return finish(with_type(dtype, D, [&](auto t, auto d) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    constexpr int DD = decltype(d)::value;
+#define RT_ATT(BQ, BK)                                                                      \
+  if (bq == BQ && bk == BK)                                                                 \
+    return launch_tile<T, BQ, BK, DD>(q, k, v, o, B, H, Hkv, Sq, Sk, qs, ks, vs, os, scale, \
+                                      causal, smem, st);
+    RT_ATT(128, 64)
+    RT_ATT(128, 128)
 #undef RT_ATT
-  return finish(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
+  }));
 }
 
 // Decode route, first pass.  The partials of every (query row, split):
@@ -596,7 +702,7 @@ extern "C" int rt_flash_decode(const void* q, const void* k, const void* v, floa
       static_cast<long long>(n_split - 1) * split_keys >= Sk ||
       static_cast<long long>(n_split) * split_keys < Sk || ctas > INT_MAX)
     return finish(cudaErrorInvalidValue);
-  return finish(with_split(dtype, D, [&](auto t, auto d) -> cudaError_t {
+  return finish(with_type(dtype, D, [&](auto t, auto d) -> cudaError_t {
     using T = typename decltype(t)::type;
     constexpr int DD = decltype(d)::value;
     if (smem != static_cast<long long>(split_smem<T, DD>(H / Hkv))) return cudaErrorInvalidValue;
@@ -616,7 +722,7 @@ extern "C" int rt_flash_decode(const void* q, const void* k, const void* v, floa
 extern "C" int rt_flash_decode_occupancy(int D, int dtype, int rep, long long smem,
                                          int* ctas_per_sm) {
   if (rep <= 0 || rep > MAX_REP) return finish(cudaErrorInvalidValue);
-  return finish(with_split(dtype, D, [&](auto t, auto d) -> cudaError_t {
+  return finish(with_type(dtype, D, [&](auto t, auto d) -> cudaError_t {
     using T = typename decltype(t)::type;
     constexpr int DD = decltype(d)::value;
     if (smem != static_cast<long long>(split_smem<T, DD>(rep))) return cudaErrorInvalidValue;

@@ -171,6 +171,15 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   cp_async4(static_cast<unsigned>(__cvta_generic_to_shared(smem)), gmem);
 }
 
+// 16 bytes, or 16 zero bytes where !valid (a source size of 0 reads
+// nothing; gmem must still be an address in the tensor)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -2,12 +2,15 @@
 (``repro/kernels/attention``): the same numpy inputs through the
 reference's Pallas kernel in interpret mode, its oracle, and the port's
 op on the CPU (its plain version), at the reference's shapes (causal and
-not, with GQA), its decode case, blocks left at None, GQA 1/2/4/8 at head
-dims 16 to 128, and its tolerance; the op's contract; what the op hands
+not, with GQA), its decode case, blocks left at None, ragged lengths (sq
+= sk of 48, 100, 200), GQA 1/2/4/8 at head dims 16 to 128, and its
+tolerance; the op's contract, which accepts and refuses what the
+reference does on both devices; the card's choice of tiling
+(``ops.card_blocks``, ``attention_block_candidates``); what the op hands
 the kernel wrappers on the card path (``meta`` tensors, the wrapper
-replaced by a recorder); the split route's plan, host checks and
-arithmetic (``ref.split_partials``, ``ref.combine``); the kernel
-wrappers' refusals without the card."""
+replaced by a recorder); each compiled tile's shared memory; the split
+route's plan and arithmetic (``ref.split_partials``, ``ref.combine``);
+both wrappers' host checks and refusals without the card."""
 import numpy as np
 import pytest
 
@@ -18,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.attention import ops as jops  # noqa: E402
 from repro.kernels.attention import ref as jref  # noqa: E402
 from repro_torch.convert import streams_from_numpy  # noqa: E402
+from repro_torch.core.autotune import attention_block_candidates, rank  # noqa: E402
 from repro_torch.core.machine import H100_SXM  # noqa: E402
 from repro_torch.kernels.attention import kernel as K  # noqa: E402
 from repro_torch.kernels.attention import ops, ref  # noqa: E402
@@ -173,14 +177,40 @@ def test_tiling_table_and_shared_memory():
     for d in K.HEAD_DIMS:
         for bq, bk in K.TILINGS:
             assert K.check_tiling(bq, bk, d, SMEM) == K.smem_bytes(bq, bk, d)
-    # Q^T 64 KiB, K^T/P 66 KiB (P's rows padded by 4 floats), V 64 KiB
-    assert K.smem_bytes(128, 128, 128) == (16384 + 128 * 132 + 16384) * 4
+    # Q 64 KiB, P 64 KiB, three ring slots of 128 K rows of 32 + 4 floats
+    assert K.smem_bytes(128, 128, 128) == (16384 + 16384 + 3 * 128 * 36) * 4
+    # 128 x 256 at d = 128: P alone is 128 KiB; 258,048 B in all
     with pytest.raises(ValueError, match="shared memory"):
         K.check_tiling(128, 256, 128, SMEM)
     with pytest.raises(ValueError, match="compiled"):
         K.check_tiling(32, 32, 64, SMEM)
     with pytest.raises(ValueError, match="head dims"):
         K.check_tiling(128, 128, 96, SMEM)
+
+
+#: csrc/attention.cu's shared memory of each compiled prefill tiling,
+#: 4 (bq d + bq bk + TILE_STAGES max(bk (KC + 4), VC d)) bytes with KC =
+#: min(16 threads / bk, d), VC = min(16 threads / d, bk), threads = 2 bq;
+#: the d = 128 figures are the ones its header lists
+TILE_SMEM = {(128, 64, 128): (16384 + 8192 + 3 * max(64 * 68, 32 * 128)) * 4,
+             (128, 128, 128): (16384 + 16384 + 3 * max(128 * 36, 32 * 128)) * 4,
+             (128, 64, 64): (8192 + 8192 + 3 * max(64 * 68, 64 * 64)) * 4,
+             (128, 128, 64): (8192 + 16384 + 3 * max(128 * 36, 64 * 64)) * 4}
+
+
+@pytest.mark.parametrize("tiling", list(TILE_SMEM), ids=str)
+def test_tile_shared_memory_is_the_kernels(tiling):
+    """Each compiled prefill tiling's shared memory is the kernel's
+    formula and at most the 232,448 B a block may use."""
+    bq, bk, d = tiling
+    assert (bq, bk) in K.TILINGS and d in K.HEAD_DIMS
+    assert {(t[0], t[1]) for t in TILE_SMEM} == {t for t in K.TILINGS if t[0] > 1}
+    assert K.smem_bytes(bq, bk, d) == TILE_SMEM[tiling] <= 232_448
+    threads, kc, vc = K.tile_panels(bq, bk, d)
+    assert threads == 2 * bq and d % kc == 0 and bk % vc == 0
+    assert bk * kc <= 16 * threads and vc * d <= 16 * threads
+    assert {K.smem_bytes(*t[:2], 128) for t in TILE_SMEM if t[2] == 128} == \
+        {150_528, 186_368}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -310,22 +340,149 @@ def test_decode_op_hands_the_kernel_the_callers_cache(d, monkeypatch):
 
 
 def test_prefill_op_hands_the_kernel_kv_at_its_own_heads(monkeypatch):
-    """The prefill op fuses heads as (B, H, S, d) for q and (B, Hkv, S, d)
-    for K and V: the KV heads are not repeated."""
+    """The prefill op passes q, k and v to the tile route as the caller
+    holds them: the same tensors, in (B, S, heads, d), the KV heads not
+    repeated, at the model's pick."""
     rec = _Recorder()
     monkeypatch.setattr(K, "flash_attention_tile", rec)
     _, (q, k, v) = _qkv(1, 256, 256, 16, 8, 128)
-    shapes = [t.to("meta") for t in (q, k, v)]
-    out = ops.flash_attention(*shapes, causal=True)
+    q, k, v = (t.to("meta") for t in (q, k, v))
+    out = ops.flash_attention(q, k, v, causal=True)
     assert tuple(out.shape) == (1, 256, 16, 128)
     ((gq, gk, gv, kw),) = rec.calls
-    assert tuple(gq.shape) == (1, 16, 256, 128)
-    assert tuple(gk.shape) == tuple(gv.shape) == (1, 8, 256, 128)
+    assert gq is q and gk is k and gv is v
+    assert tuple(gk.shape) == tuple(gv.shape) == (1, 256, 8, 128)
+    assert kw == {"causal": True, "bq": 128, "bk": 128, "scale": 128 ** -0.5}
     assert (kw["bq"], kw["bk"]) == ops.tuned_blocks(256, 256, 128)
-    # the operands are the op's heads-first copies, KV at its own heads
-    tq, tk, _ = ops.tile_operands(q, k, v)
-    assert torch.equal(tk, k.permute(0, 2, 1, 3)) and tk.is_contiguous()
-    assert torch.equal(tq, q.permute(0, 2, 1, 3))
+    assert not hasattr(ops, "tile_operands")
+
+
+#: ragged prefill shapes, blocks left at None: (b, sq, sk, h, hkv, d)
+RAGGED = [(1, s, s, 4, hkv, 64) for s in (48, 100, 200) for hkv in (2, 4)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dims", RAGGED, ids=str)
+def test_ragged_shapes_match_reference(dims, causal):
+    """sq = sk of 48, 100 and 200, no multiple of 64, at GQA 2 and 1 with
+    blocks left at None: the reference clamps its 512 and runs; so does
+    the op, within 2e-3 of the reference's Pallas kernel and of its
+    oracle."""
+    (jq, jk, jv), (q, k, v) = _qkv(*dims, seed=dims[1] + dims[4])
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert tuple(got.shape) == (1, dims[1], 4, 64)
+    pallas = jops.flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    for want in (pallas, _oracle(jq, jk, jv, causal)):
+        ok, err, tol = _close(got, want)
+        assert ok, (err, tol)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("sq,blocks", [(600, {}), (100, {"bq": 64}),
+                                       (200, {"bk": 128}), (48, {"bq": 32})],
+                         ids=str)
+def test_ragged_refused_where_the_reference_refuses(sq, blocks, device,
+                                                    monkeypatch):
+    """What the reference refuses (its default 512 clamped, or a given
+    block, that does not divide the sequence) is refused on the CPU and on
+    the card path (``meta`` tensors, the kernel never reached)."""
+    monkeypatch.setattr(K, "flash_attention_tile", _Recorder())
+    (jq, jk, jv), (q, k, v) = _qkv(1, sq, sq, 2, 1, 64)
+    with pytest.raises(AssertionError):
+        jops.flash_attention(jq, jk, jv, causal=True, interpret=True, **blocks)
+    q, k, v = (t.to(device) for t in (q, k, v))
+    with pytest.raises(ValueError, match="do not divide"):
+        ops.flash_attention(q, k, v, causal=True, **blocks)
+    assert not K.flash_attention_tile.calls
+
+
+@pytest.mark.parametrize("sq,blocks,want", [
+    (100, {}, (128, 128)), (100, {"bq": 100, "bk": 100}, (128, 128)),
+    (48, {"bq": 48}, (128, 64)), (4096, {"bq": 128}, (128, 128)),
+    (4096, {"bq": 128, "bk": 64}, (128, 64)), (4096, {"bk": 256}, (1, 256)),
+    (200, {"bq": 1}, (128, 128))], ids=str)
+def test_card_path_accepts_what_the_reference_accepts(sq, blocks, want,
+                                                      monkeypatch):
+    """On the card path (``meta`` tensors, the wrappers replaced) a ragged
+    call the reference accepts reaches a kernel at the tiling card_blocks
+    chooses: the blocks given where compiled, else the first ranked that
+    agrees with a given block, else the first ranked."""
+    rec = _Recorder()
+    monkeypatch.setattr(K, "flash_attention_tile", rec)
+    monkeypatch.setattr(K, "flash_attention_split", rec)
+    q = torch.empty((1, sq, 4, 64), device="meta")
+    k = torch.empty((1, sq, 2, 64), device="meta")
+    out = ops.flash_attention(q, k, k, causal=True, **blocks)
+    assert tuple(out.shape) == (1, sq, 4, 64)
+    ((_, _, _, kw),) = rec.calls
+    assert (kw.get("bq", 1), kw["bk"]) == want
+
+
+def test_block_candidates_and_card_blocks_on_ragged_lengths():
+    """Every compiled prefill tiling is a candidate whether or not it
+    divides the sequence; the one-row tilings only where they divide Sk.
+    card_blocks is a pure function of the clamped blocks and the ranking."""
+    prefill = [t for t in K.TILINGS if t[0] > 1]
+    assert attention_block_candidates(100, 100, 64, H100_SXM) == prefill
+    assert attention_block_candidates(1, 1000, 128, H100_SXM) == prefill
+    assert attention_block_candidates(1, 384, 64, H100_SXM) == prefill + [(1, 128)]
+    assert attention_block_candidates(4096, 4096, 16, H100_SXM) == list(K.TILINGS)
+    ranked = [r["block"] for r in rank((100, 100, 64), H100_SXM,
+                                       objective="attention")]
+    assert sorted(ranked) == sorted(prefill) and ranked[0] == (128, 128)
+    # at sq = 48 both tiles model alike; the smaller computes fewer masked keys
+    assert rank((48, 48, 64), H100_SXM, objective="attention")[0]["block"] == (128, 64)
+    # a single query row: the one-row tilings first, on equal predictions
+    dec = [r["block"] for r in rank((1, 4096, 128), H100_SXM,
+                                    objective="attention", causal=False)]
+    assert dec[:2] == [(1, 256), (1, 128)]
+    order = [(128, 128), (1, 256), (128, 64), (1, 128)]
+    assert ops.card_blocks((None, None), order) == (128, 128)
+    assert ops.card_blocks((48, None), order) == (128, 128)
+    assert ops.card_blocks((None, 64), order) == (128, 64)
+    assert ops.card_blocks((128, 64), order) == (128, 64)
+    assert ops.card_blocks((1, None), order) == (1, 256)
+    assert ops.card_blocks((100, 100), order) == (128, 128)
+
+
+@pytest.mark.parametrize("case", ["misaligned", "last_dim", "row_stride", "dtype",
+                                  "causal", "head_dim", "tiling", "one_row",
+                                  "heads", "shape"])
+def test_check_tile_operands_refuses(case):
+    """The tile wrapper's host checks, on CPU tensors before any launch:
+    views its 16-byte copies cannot address, and every other refusal."""
+    q = _strided((2, 100, 8, 64))
+    k = _strided((2, 100, 2, 64))
+    calls = {
+        "misaligned": ((q, _strided((2, 100, 2, 64), offset=2), k), {}, "aligned"),
+        "last_dim": ((q, k.transpose(2, 3).contiguous().transpose(2, 3), k), {},
+                     "dense last"),
+        "row_stride": ((torch.zeros(2, 100, 8, 66)[..., :64], k, k), {}, "strides"),
+        "dtype": ((q, k.bfloat16(), k), {}, "one dtype"),
+        "causal": ((q[:, :64], k, k), {"causal": True}, "sq == sk"),
+        "head_dim": ((_strided((2, 100, 8, 96)), _strided((2, 100, 2, 96)),
+                      _strided((2, 100, 2, 96))), {}, "head dims"),
+        "tiling": ((q, k, k), {"bq": 128, "bk": 32}, "compiled"),
+        "one_row": ((q, k, k), {"bq": 1}, "split route"),
+        "heads": ((_strided((2, 100, 6, 64)), _strided((2, 100, 4, 64)),
+                   _strided((2, 100, 4, 64))), {}, "multiple"),
+        "shape": ((q, k, k[:, :50]), {}, "expected q"),
+    }
+    ops_, kw, msg = calls[case]
+    with pytest.raises(ValueError, match=msg):
+        K.check_tile_operands(*ops_, **({"causal": False, "bq": 64, "bk": 64}
+                                        | kw), smem_limit=SMEM)
+
+
+def test_check_tile_operands_takes_strided_views():
+    """A q that is a slice of wider heads and k, v slices of a longer
+    cache are addressed through their strides, with no copy, at any
+    sequence length; bf16 shares the f32 layout."""
+    q = _strided((2, 8, 100, 128), torch.bfloat16).transpose(1, 2)[:, :, :4]
+    k = _strided((2, 200, 2, 128), torch.bfloat16, cap=4096)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    assert K.check_tile_operands(q, k, k, causal=False, bq=128, bk=128,
+                                 smem_limit=SMEM) == K.smem_bytes(128, 128, 128)
 
 
 @pytest.mark.parametrize("causal,split_keys", [(False, 32), (False, 96),

@@ -197,15 +197,21 @@ def test_rank_breaks_ties_and_orders_by_the_model():
 
 def test_rank_attention():
     ranked = rank((4096, 4096, 128), H100_SXM, objective="attention")
-    # causal: the smallest tiles visit the fewest scores
-    assert ranked[0]["block"] == (64, 64)
+    # causal: both prefill tiles visit the same scores (their larger block
+    # is 128) and tie; the larger tile first, then the one-row tilings
+    assert [r["block"] for r in ranked[:2]] == [(128, 128), (128, 64)]
+    assert ranked[0]["t_ecm"] == ranked[1]["t_ecm"] < ranked[-1]["t_ecm"]
     assert _keys_sorted(ranked)
     assert sorted(r["block"] for r in ranked) == sorted(AK.TILINGS)
-    assert AO.tuned_blocks(4096, 4096, 128) == (64, 64)
+    assert AO.tuned_blocks(4096, 4096, 128) == (128, 128)
     assert AO.tuned_blocks(4096, 4096, 128, causal=False) == (128, 128)
-    # decode: only the one-row tilings divide sq = 1; they tie on bytes
+    # decode: every tiling ties on bytes (each clamped to the one row);
+    # the one-row tilings compute no masked rows, so they rank first
     dec = rank((1, 4096, 128), H100_SXM, objective="attention", causal=False)
-    assert [r["block"] for r in dec] == [(1, 256), (1, 128)]
+    assert [r["block"] for r in dec][:2] == [(1, 256), (1, 128)]
+    assert sorted(r["block"] for r in dec[2:]) == sorted(
+        t for t in AK.TILINGS if t[0] > 1)
+    assert len({r["t_ecm"] for r in dec}) == 1
     with pytest.raises(ValueError, match="no compiled"):
         rank((256, 256, 96), H100_SXM, objective="attention")
     with pytest.raises(ValueError, match="objective"):
