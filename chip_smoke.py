@@ -19,8 +19,14 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    kernel and at pipeline depths 1/2/3, in f32 and bf16, through the one
    NaN-safe comparison (``kernels.check.compare``); sums bit-identical
    across depths, the pipeline bit-identical to the grid kernels, the
-   fused chain equal to the unfused one; a 64-row depth-3 ring that does
-   not fit shared memory raises;
+   fused chain equal to the unfused one; rings that wrap: every map op
+   through the pipeline at 512 rows (16 chunks) on 1 and 3 CTAs at
+   depths 1/2/3, and the grid map at blocks of 64, 33 and 7 rows, f32
+   and bf16, bit-equal to the plain version and the grid path; a 64-row
+   depth-3 ring that does not fit shared memory raises, and so do the
+   map and reduce ops on a view at an odd element offset, the context
+   usable afterwards; the registers ``-Xptxas -v`` gave the stream and
+   pipeline kernels;
 4. the stencils at small sizes: the reference's test shapes and one 2D
    shape of three trailing-dim strips, whole-array and at depths 1/2/3,
    f32 and bf16, two or three coefficient pairs, bit for bit against the
@@ -83,6 +89,11 @@ import torch
 
 SRC = Path(__file__).resolve().parent / "src"
 SMALL_ROWS = (512, 64, 33, 7)
+#: rows of the ring checks: 16 chunks of the pipeline's 32-row block
+RING_ROWS = 512
+#: the grid map's blocks in the ring checks, on rows they all divide
+GRID_BLOCKS = (64, 33, 7)
+GRID_ROWS = 64 * 33 * 7
 SEED = 0
 #: the reference's stencil test shapes (tests/test_stencil.py), and a 2D
 #: shape of three 1024-column strips, the last one ragged
@@ -213,6 +224,85 @@ def _small_checks() -> list[str]:
                 failures.append(f"fused != unfused at {where}")
     torch.cuda.synchronize()
     return failures
+
+
+def _ring_checks() -> list[str]:
+    """Phase 3: rings that wrap.  The map pipeline at RING_ROWS rows in
+    blocks of the benchmark's pipeline block (16 chunks) on 1 and 3 CTAs,
+    so a 1-3 slot input ring and the output ring are reused many times,
+    every map op at depths 1/2/3, f32 and bf16, bit-equal to the plain
+    version and to the grid path; the grid map at blocks of GRID_BLOCKS
+    rows (33 and 7 take the predicated pass) on GRID_ROWS rows."""
+    from repro_torch.benchmarks import gpu_stream_ecm as G
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels.check import compare
+    from repro_torch.kernels.stream import kernel as K
+
+    failures = []
+    rng = np.random.default_rng(SEED + 1)
+    pb = G.pipeline_block(G.GPUMachineModel.from_device(torch.device("cuda")))
+    for rows, blocks in ((RING_ROWS, None), (GRID_ROWS, GRID_BLOCKS)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y, z = (torch.from_numpy(rng.standard_normal((rows, 128))
+                                        .astype(np.float32)).cuda().to(dtype)
+                       for _ in range(3))
+            kw = dict(rows=rows, dtype=dtype, device=x.device)
+            for op, (_, n_scalars, n_in) in P.MAP_OPS.items():
+                scalars, ins = (G.S, G.T)[:n_scalars], (x, y, z)[:n_in]
+                want = _plain_map(op, scalars, ins, rows, dtype)
+                grid = K.grid_map(op, scalars, ins, block_rows=64, **kw)
+                got = {"grid": grid}
+                if blocks is None:
+                    for ctas in (1, 3):
+                        for d in (1, 2, 3):
+                            got[f"depth {d} ctas {ctas}"] = P.map_pipeline(
+                                op, scalars, ins, num_stages=d, block_rows=pb,
+                                ctas=ctas, **kw)
+                else:
+                    for b in blocks:
+                        got[f"grid block {b}"] = K.grid_map(
+                            op, scalars, ins, block_rows=b, **kw)
+                for path, out in got.items():
+                    if not compare(out, want)[0] or not torch.equal(out, grid):
+                        failures.append(f"{op} rows={rows} {dtype} {path}: "
+                                        f"not bit-equal to the plain version "
+                                        f"and the grid path")
+    torch.cuda.synchronize()
+    return failures
+
+
+def _plain_map(op, scalars, ins, rows, dtype):
+    from repro_torch.kernels.stream import ref
+
+    if op == "store":
+        return ref.store(scalars[0], (rows, 128), dtype, device="cuda")
+    return getattr(ref, op)(*scalars, *ins)
+
+
+def _alignment_refusal() -> dict:
+    """A flat view at an odd element offset is refused by the map and the
+    reduce kernels alike, and the CUDA context is usable afterwards."""
+    from repro_torch.benchmarks import gpu_stream_ecm as G
+    from repro_torch.kernels.stream import ops, ref
+
+    x = torch.randn(8 + 128 * 64, device="cuda")
+    view = x[1:1 + 128 * 64]
+    out = {}
+    for name, call in {"striad": lambda: ops.striad(G.S, view, view),
+                       "ddot": lambda: ops.ddot(view, view)}.items():
+        try:
+            call()
+        except ValueError as e:
+            out[f"misaligned_{name}_raises"] = str(e)
+            continue
+        _fail(f"{name} on a view at element offset 1 did not raise")
+    aligned = x[4:4 + 128 * 64]
+    if not torch.equal(ops.striad(G.S, aligned, aligned),
+                       ref.striad(G.S, aligned, aligned)):
+        _fail("striad after the refusals differs from its plain version")
+    torch.cuda.synchronize()
+    out["context_usable_after"] = True
+    return out
 
 
 def _shared_memory_refusal() -> str:
@@ -667,9 +757,14 @@ def main() -> int:
 
     # 3. correctness at small sizes
     failures = _small_checks()
+    failures += _ring_checks()
     print(json.dumps({"phase": "small", "rows": SMALL_ROWS,
+                      "ring_rows": RING_ROWS, "grid_blocks": GRID_BLOCKS,
                       "failures": failures}))
     print(json.dumps({"ring_64_rows_depth_3_raises": _shared_memory_refusal()}))
+    print(json.dumps(_alignment_refusal()))
+    print(json.dumps({"stream_ptxas": _build.ptxas_report("stream"),
+                      "pipeline_ptxas": _build.ptxas_report("pipeline")}))
     if failures:
         _fail(f"{len(failures)} small-size checks failed")
 

@@ -81,11 +81,13 @@ def _flops_per_elem(name: str) -> int:
 
 def pipeline_block(machine: GPUMachineModel) -> int:
     """Largest power-of-two block <= the reference's 64 rows whose
-    deepest ring fits every op (3 input streams, f32) in one block's
-    shared memory: 32 rows on an H100 (3 x 3 x 16 KiB = 144 KiB)."""
+    deepest ring fits every op (3 input streams, f32, with two output
+    slots) in one block's shared memory: 32 rows on an H100 (3 x 3 + 2
+    slots of 16 KiB = 176 KiB, and the mbarriers)."""
     n_in = max(n for _, _, n in P.MAP_OPS.values())
     b = K.BLOCK_ROWS
-    while P.PipelineConfig(max(DEPTHS), b).vmem_bytes(n_in) > machine.smem_per_block_optin:
+    while P.PipelineConfig(max(DEPTHS), b).ring_bytes(n_in, out_slots=2) \
+            > machine.smem_per_block_optin:
         b //= 2
     if b < 1:
         raise ValueError(f"no ring fits {machine.smem_per_block_optin} B")

@@ -1,6 +1,7 @@
 // Hopper building blocks in inline PTX (sm_90a): mbarriers, TMA tensor
-// loads, warpgroup matrix products (wgmma) with shared-memory descriptors,
-// and register rebalancing between warpgroups.  Used by matmul.cu.
+// loads, bulk copies of contiguous bytes in both directions, warpgroup
+// matrix products (wgmma) with shared-memory descriptors, and register
+// rebalancing between warpgroups.  Used by matmul.cu and pipeline.cu.
 //
 // Conventions:
 //  * shared addresses are 32-bit shared-window addresses (smem_u32);
@@ -74,6 +75,50 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory at dst.  Completes on
+// `bar` with `bytes` transactions.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from shared memory at src to device memory, in
+// the issuing thread's current bulk group (bulk_commit closes it)
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most PENDING of this thread's bulk groups still read their
+// shared-memory source (the source may then be rewritten)
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// wait until at most PENDING of this thread's bulk groups are incomplete
+// (their writes to device memory done)
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// order this thread's ordinary writes to shared memory before later reads
+// of it by the async proxy (a bulk store issued after a barrier)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <uint32_t REGS>

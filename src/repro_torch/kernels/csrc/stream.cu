@@ -23,23 +23,91 @@
 // (sum_partials) adds the partials in index order: deterministic, and no
 // atomics.
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace rt;
 
 namespace {
 
+// Vectors a thread holds per input: the reference's 64-row block over
+// 256 threads (64 x 32 / 256 = 8 in f32, 64 x 16 / 256 = 4 in bf16).
+// Blocks of other sizes run in passes of U vectors a thread, the last one
+// predicated.
+template <int DT>
+__host__ __device__ constexpr int grid_unroll() {
+  return DT == BF16 ? 4 : 8;
+}
+
+// One (block_rows, 128) block a CTA.  Each thread issues every load of a
+// pass (U vectors per input, at most 24 for schoenauer) before any
+// arithmetic, with the streaming hints: loads evict-first and not kept in
+// L1 (ld.global.cs), stores evict-first (st.global.cs).
 template <int OP, int DT>
 __global__ void __launch_bounds__(THREADS)
     grid_map(const uint4* __restrict__ x, const uint4* __restrict__ y, const uint4* __restrict__ z,
              uint4* __restrict__ out, float s, float t, int block_vectors) {
   constexpr int N = map_inputs(OP);
+  constexpr int U = grid_unroll<DT>();
   const long long base = static_cast<long long>(blockIdx.x) * block_vectors;
-  for (int u = threadIdx.x; u < block_vectors; u += THREADS) {
-    const long long i = base + u;
-    const uint4 a = N > 0 ? x[i] : uint4{};
-    const uint4 b = N > 1 ? y[i] : uint4{};
-    const uint4 c = N > 2 ? z[i] : uint4{};
-    out[i] = apply<OP, DT>(s, t, a, b, c);
+  for (int v0 = 0; v0 < block_vectors; v0 += U * THREADS) {
+    uint4 a[U], b[U], c[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = v0 + i * THREADS + static_cast<int>(threadIdx.x);
+      a[i] = b[i] = c[i] = uint4{};
+      if (u < block_vectors) {
+        if (N > 0) a[i] = __ldcs(x + base + u);
+        if (N > 1) b[i] = __ldcs(y + base + u);
+        if (N > 2) c[i] = __ldcs(z + base + u);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = v0 + i * THREADS + static_cast<int>(threadIdx.x);
+      if (u < block_vectors) __stcs(out + base + u, apply<OP, DT>(s, t, a[i], b[i], c[i]));
+    }
+  }
+}
+
+// The alternative timed against grid_map: the block's inputs into shared
+// memory with bulk copies on one mbarrier, computed in place in the first
+// input's slot, and written back with one bulk store.
+template <int OP, int DT>
+__global__ void __launch_bounds__(THREADS)
+    grid_map_bulk(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
+                  const uint8_t* __restrict__ z, uint8_t* __restrict__ out, float s, float t,
+                  uint32_t block_bytes) {
+  extern __shared__ __align__(128) uint8_t bulk_smem[];
+  __shared__ uint64_t full;
+  constexpr int N = map_inputs(OP);
+  const long long base = static_cast<long long>(blockIdx.x) * block_bytes;
+  const int bv = static_cast<int>(block_bytes / sizeof(uint4));
+  uint4* a = reinterpret_cast<uint4*>(bulk_smem);
+  if constexpr (N > 0) {
+    const uint32_t bar = smem_u32(&full);
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      fence_barrier_init();
+      mbar_arrive_expect_tx(bar, N * block_bytes);
+      const uint8_t* in[3] = {x, y, z};
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        bulk_load(smem_u32(bulk_smem + j * block_bytes), in[j] + base, block_bytes, bar);
+    }
+    __syncthreads();
+    mbar_wait(bar, 0);
+  }
+  const uint4* b = a + bv;
+  const uint4* c = a + 2 * bv;
+  for (int u = threadIdx.x; u < bv; u += THREADS)
+    a[u] = apply<OP, DT>(s, t, N > 0 ? a[u] : uint4{}, N > 1 ? b[u] : uint4{},
+                         N > 2 ? c[u] : uint4{});
+  fence_proxy_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bulk_store(out + base, smem_u32(a), block_bytes);
+    bulk_commit();
+    bulk_wait<0>();
   }
 }
 
@@ -71,15 +139,28 @@ cudaError_t launch_map(const MapArgs& a) {
   return cudaSuccess;
 }
 
-template <int DT>
+template <int OP, int DT>
+cudaError_t launch_map_bulk(const MapArgs& a) {
+  const uint32_t bytes = static_cast<uint32_t>(a.block_vectors * sizeof(uint4));
+  const size_t smem = static_cast<size_t>(map_inputs(OP) > 0 ? map_inputs(OP) : 1) * bytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      grid_map_bulk<OP, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  grid_map_bulk<OP, DT><<<static_cast<unsigned>(a.n_blocks), THREADS, smem, a.stream>>>(
+      reinterpret_cast<const uint8_t*>(a.x), reinterpret_cast<const uint8_t*>(a.y),
+      reinterpret_cast<const uint8_t*>(a.z), reinterpret_cast<uint8_t*>(a.out), a.s, a.t, bytes);
+  return cudaSuccess;
+}
+
+template <int DT, bool BULK>
 cudaError_t dispatch_map(int op, const MapArgs& a) {
   switch (op) {
-    case COPY: return launch_map<COPY, DT>(a);
-    case STORE: return launch_map<STORE, DT>(a);
-    case UPDATE: return launch_map<UPDATE, DT>(a);
-    case STRIAD: return launch_map<STRIAD, DT>(a);
-    case SCHOENAUER: return launch_map<SCHOENAUER, DT>(a);
-    case TRIAD_UPDATE: return launch_map<TRIAD_UPDATE, DT>(a);
+    case COPY: return BULK ? launch_map_bulk<COPY, DT>(a) : launch_map<COPY, DT>(a);
+    case STORE: return BULK ? launch_map_bulk<STORE, DT>(a) : launch_map<STORE, DT>(a);
+    case UPDATE: return BULK ? launch_map_bulk<UPDATE, DT>(a) : launch_map<UPDATE, DT>(a);
+    case STRIAD: return BULK ? launch_map_bulk<STRIAD, DT>(a) : launch_map<STRIAD, DT>(a);
+    case SCHOENAUER: return BULK ? launch_map_bulk<SCHOENAUER, DT>(a) : launch_map<SCHOENAUER, DT>(a);
+    case TRIAD_UPDATE: return BULK ? launch_map_bulk<TRIAD_UPDATE, DT>(a) : launch_map<TRIAD_UPDATE, DT>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -102,8 +183,22 @@ extern "C" int rt_grid_map(int op, int dtype, const void* x, const void* y, cons
                   static_cast<int>(block_rows * row_vectors(dtype)),
                   static_cast<cudaStream_t>(stream)};
   cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == F32) e = dispatch_map<F32>(op, a);
-  else if (dtype == BF16) e = dispatch_map<BF16>(op, a);
+  if (dtype == F32) e = dispatch_map<F32, false>(op, a);
+  else if (dtype == BF16) e = dispatch_map<BF16, false>(op, a);
+  return finish(e);
+}
+
+// rt_grid_map through grid_map_bulk
+extern "C" int rt_grid_map_bulk(int op, int dtype, const void* x, const void* y, const void* z,
+                                void* out, float s, float t, long long n_blocks, int block_rows,
+                                void* stream) {
+  const MapArgs a{static_cast<const uint4*>(x), static_cast<const uint4*>(y),
+                  static_cast<const uint4*>(z), static_cast<uint4*>(out), s, t, n_blocks,
+                  static_cast<int>(block_rows * row_vectors(dtype)),
+                  static_cast<cudaStream_t>(stream)};
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == F32) e = dispatch_map<F32, true>(op, a);
+  else if (dtype == BF16) e = dispatch_map<BF16, true>(op, a);
   return finish(e);
 }
 

@@ -16,6 +16,10 @@ A copy of the reference's host contract (``repro/kernels/pipeline.py``):
 On the card the ring lives in shared memory, so its size is checked
 against the card's per-block limit (:meth:`PipelineConfig.smem_bytes`):
 a ring that does not fit raises, the block is never shrunk silently.
+The map pipeline adds an output ring and one mbarrier per stage
+(:meth:`PipelineConfig.map_out_slots`): two output slots where they fit
+beside the input ring, else one; a ring with one output slot that does
+not fit raises.
 
 The wrappers :func:`map_pipeline` and :func:`reduce_pipeline` launch the
 CUDA kernels of ``csrc/pipeline.cu`` on CUDA tensors; CPU tensors take
@@ -39,12 +43,15 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 LANES = 128
+#: bytes of one mbarrier in the map pipeline's shared memory
+MBARRIER_BYTES = 8
 
 #: elementwise ops the kernels compute: name -> (op code in
 #: csrc/common.cuh, scalars, input streams)
@@ -78,19 +85,41 @@ class PipelineConfig:
         return (self.num_stages * n_streams
                 * self.block_rows * LANES * elem_bytes)
 
+    def ring_bytes(self, n_streams: int, elem_bytes: int = 4,
+                   out_slots: int = 0) -> int:
+        """Shared memory of one CTA: a slot per stage per input stream,
+        then, for a kernel with an output ring (``out_slots > 0``, the map
+        pipeline), ``out_slots`` output slots and one 8-byte mbarrier per
+        stage (``csrc/pipeline.cu`` ``make_args``)."""
+        slot = self.block_rows * LANES * elem_bytes
+        extra = out_slots * slot + MBARRIER_BYTES * self.num_stages if out_slots else 0
+        return self.vmem_bytes(n_streams, elem_bytes) + extra
+
     def smem_bytes(self, n_streams: int, elem_bytes: int = 4, *,
-                   limit: int) -> int:
-        """Shared memory of the ring (one slot per stage per input
-        stream); raises ``ValueError`` when it exceeds ``limit``, the
-        card's per-block opt-in maximum."""
-        nbytes = self.vmem_bytes(n_streams, elem_bytes)
+                   limit: int, out_slots: int = 0) -> int:
+        """:meth:`ring_bytes`; raises ``ValueError`` when it exceeds
+        ``limit``, the card's per-block opt-in maximum."""
+        nbytes = self.ring_bytes(n_streams, elem_bytes, out_slots)
         if nbytes > limit:
+            ring = f" and {out_slots} output slot(s)" if out_slots else ""
             raise ValueError(
                 f"a {self.num_stages}-deep ring of {self.block_rows}-row "
-                f"blocks for {n_streams} streams needs {nbytes} B of shared "
-                f"memory, over the {limit} B a block may use; pass a "
+                f"blocks for {n_streams} streams{ring} needs {nbytes} B of "
+                f"shared memory, over the {limit} B a block may use; pass a "
                 f"smaller block_rows or num_stages")
         return nbytes
+
+    def map_out_slots(self, n_streams: int, elem_bytes: int = 4, *,
+                      limit: int) -> int:
+        """Output slots of the map pipeline: 1 for a generator (``store``
+        fills its one slot once), else 2 where two fit beside the input
+        ring, else 1.  Two let one barrier a chunk publish a slot while
+        the other is still read by its bulk store; one costs a second
+        barrier.  Schoenauer's 64-row depth-2 ring (192 KiB) leaves room
+        for one 32 KiB slot only."""
+        if n_streams == 0 or self.ring_bytes(n_streams, elem_bytes, 2) > limit:
+            return 1
+        return 2
 
 
 def _fit_block(n_rows: int, block_rows: int) -> int:
@@ -110,11 +139,25 @@ def _ptr(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
+def check_aligned(ins, nbytes: int = 16) -> None:
+    """Raise ``ValueError`` unless every tensor starts on an ``nbytes``
+    boundary.  The stream kernels read 16-byte vectors and the map
+    pipeline's bulk copies need 16-byte addresses; a view at an odd
+    element offset would otherwise fault on the card, which ends the
+    CUDA context."""
+    for x in ins:
+        if x.data_ptr() % nbytes:
+            raise ValueError(
+                f"expected a tensor starting on a {nbytes}-byte boundary, "
+                f"got one at address {x.data_ptr():#x} (storage offset "
+                f"{x.storage_offset()})")
+
+
 def check_streams(ins, *, rows: int, dtype: torch.dtype,
                   device: torch.device) -> None:
     """Raise ``ValueError`` unless every input is a contiguous CUDA
     ``(rows, 128)`` tensor of ``dtype`` on ``device``, in a dtype the
-    kernels take."""
+    kernels take, starting on a 16-byte boundary."""
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
     if dtype not in DTYPES:
@@ -125,6 +168,7 @@ def check_streams(ins, *, rows: int, dtype: torch.dtype,
             raise ValueError(
                 f"expected a contiguous ({rows}, {LANES}) {dtype} tensor on "
                 f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    check_aligned(ins)
 
 
 def chunking(rows: int, block_rows: int, num_stages: int
@@ -137,22 +181,34 @@ def chunking(rows: int, block_rows: int, num_stages: int
     return block, n_chunks, max(1, min(num_stages, n_chunks))
 
 
+class Plan(NamedTuple):
+    """Launch geometry of one pipelined call."""
+
+    block_rows: int
+    n_chunks: int
+    stages: int
+    ctas: int
+    #: output-ring slots (map pipeline), 0 for a reduction
+    out_slots: int
+
+
 def plan(rows: int, *, block_rows: int, num_stages: int, n_in: int,
          dtype: torch.dtype, device: torch.device,
-         ctas: int | None = None) -> tuple[int, int, int, int]:
-    """Launch geometry of one pipelined call: ``(block_rows, n_chunks,
-    stages, ctas)`` after :func:`chunking`, checking the ring against the
-    card's shared memory and choosing a persistent grid of
-    ``min(n_chunks, SMs)`` CTAs (or ``ctas``)."""
+         ctas: int | None = None, out_ring: bool = False) -> Plan:
+    """Launch geometry of one pipelined call after :func:`chunking`,
+    checking the ring (with the map pipeline's output ring where
+    ``out_ring``) against the card's shared memory and choosing a
+    persistent grid of ``min(n_chunks, SMs)`` CTAs (or ``ctas``)."""
     block, n_chunks, stages = chunking(rows, block_rows, num_stages)
     props = torch.cuda.get_device_properties(device)
-    PipelineConfig(stages, block).smem_bytes(
-        n_in, torch.finfo(dtype).bits // 8,
-        limit=props.shared_memory_per_block_optin)
+    limit = props.shared_memory_per_block_optin
+    cfg, eb = PipelineConfig(stages, block), torch.finfo(dtype).bits // 8
+    out_slots = cfg.map_out_slots(n_in, eb, limit=limit) if out_ring else 0
+    cfg.smem_bytes(n_in, eb, limit=limit, out_slots=out_slots)
     grid = min(n_chunks, props.multi_processor_count) if ctas is None else ctas
     if not 1 <= grid <= n_chunks:
         raise ValueError(f"ctas must lie in [1, {n_chunks}], got {grid}")
-    return block, n_chunks, stages, grid
+    return Plan(block, n_chunks, stages, grid, out_slots)
 
 
 _P = ctypes.c_void_p
@@ -162,7 +218,7 @@ _F = ctypes.c_float
 
 MAP_PIPELINE = _build.Kernel(
     "map_pipeline", "pipeline", "rt_map_pipeline",
-    [_I, _I, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _I, _P],
+    [_I, _I, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _I, _I, _P],
     replaces="src/repro/kernels/pipeline.py:234")
 REDUCE_PIPELINE = _build.Kernel(
     "reduce_pipeline", "pipeline", "rt_reduce_pipeline",
@@ -183,14 +239,14 @@ def map_pipeline(op: str, scalars: tuple, ins: tuple, *, rows: int,
     if len(scalars) != n_scalars or len(ins) != n_in:
         raise ValueError(f"{op} takes {n_scalars} scalars and {n_in} streams")
     check_streams(ins, rows=rows, dtype=dtype, device=device)
-    block, n_chunks, stages, grid = plan(
-        rows, block_rows=block_rows, num_stages=num_stages, n_in=n_in,
-        dtype=dtype, device=device, ctas=ctas)
+    p = plan(rows, block_rows=block_rows, num_stages=num_stages, n_in=n_in,
+             dtype=dtype, device=device, ctas=ctas, out_ring=True)
     out = torch.empty((rows, LANES), dtype=dtype, device=device)
     s, t = [_scal(v, dtype) for v in scalars] + [0.0] * (2 - n_scalars)
     x, y, z = list(ins) + [None] * (3 - n_in)
     MAP_PIPELINE.launch(code, DTYPES[dtype], _ptr(x), _ptr(y), _ptr(z),
-                        out.data_ptr(), s, t, n_chunks, block, stages, grid,
+                        out.data_ptr(), s, t, p.n_chunks, p.block_rows,
+                        p.stages, p.out_slots, p.ctas,
                         torch.cuda.current_stream(device).cuda_stream)
     return out
 
@@ -204,15 +260,14 @@ def reduce_pipeline(op: str, ins: tuple, *, num_stages: int,
         raise ValueError(f"{op} takes {n_in} streams")
     rows, dtype, device = ins[0].shape[0], ins[0].dtype, ins[0].device
     check_streams(ins, rows=rows, dtype=dtype, device=device)
-    block, n_chunks, stages, grid = plan(
-        rows, block_rows=block_rows, num_stages=num_stages, n_in=n_in,
-        dtype=dtype, device=device)
-    partial = torch.empty(grid, dtype=torch.float32, device=device)
+    p = plan(rows, block_rows=block_rows, num_stages=num_stages, n_in=n_in,
+             dtype=dtype, device=device)
+    partial = torch.empty(p.ctas, dtype=torch.float32, device=device)
     out = torch.empty((1, 1), dtype=torch.float32, device=device)
     x, y = list(ins) + [None] * (2 - n_in)
     REDUCE_PIPELINE.launch(code, DTYPES[dtype], _ptr(x), _ptr(y),
-                           partial.data_ptr(), out.data_ptr(), n_chunks,
-                           block, stages, grid,
+                           partial.data_ptr(), out.data_ptr(), p.n_chunks,
+                           p.block_rows, p.stages, p.ctas,
                            torch.cuda.current_stream(device).cuda_stream)
     return out
 

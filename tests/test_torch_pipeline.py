@@ -50,28 +50,99 @@ def test_buffer_budgets():
     assert pipeline_block(H100_SXM) == 32
 
 
+def _map_smem(op, block_rows, depth, limit):
+    """(output slots, shared memory) of the map pipeline for ``op``."""
+    n_in = P.MAP_OPS[op][2]
+    cfg = P.PipelineConfig(depth, block_rows)
+    slots = cfg.map_out_slots(n_in, limit=limit)
+    return slots, cfg.smem_bytes(n_in, limit=limit, out_slots=slots)
+
+
+@pytest.mark.parametrize("op", list(P.MAP_OPS))
+def test_map_ring_with_output_ring_fits(op):
+    """Every map call the benchmark and the smoke test make still fits
+    with the output ring counted: the benchmark's 32-row block at depths
+    1-3 and the ops' default 64 rows at depths 1-2 (schoenauer at 64 rows
+    and depth 2 with one output slot, 229,392 B of 232,448)."""
+    limit = H100_SXM.smem_per_block_optin
+    n_in = P.MAP_OPS[op][2]
+    slot32, slot64 = 32 * 128 * 4, 64 * 128 * 4
+    for depth in (1, 2, 3):
+        slots, nbytes = _map_smem(op, 32, depth, limit)
+        assert slots == (1 if n_in == 0 else 2)
+        assert nbytes == (n_in * depth + slots) * slot32 + 8 * depth <= limit
+    for depth in (1, 2):
+        slots, nbytes = _map_smem(op, 64, depth, limit)
+        want = 1 if n_in == 0 or (n_in, depth) == (3, 2) else 2
+        assert slots == want
+        assert nbytes == (n_in * depth + slots) * slot64 + 8 * depth <= limit
+    assert _map_smem("schoenauer", 64, 2, limit) == (1, 229392)
+    assert _map_smem("striad", 64, 3, limit) == (1, 229400)
+
+
+def test_map_ring_over_shared_memory_raises():
+    """A 64-row depth-3 schoenauer ring (288 KiB of input slots) raises,
+    output ring or not; the block is never shrunk."""
+    limit = H100_SXM.smem_per_block_optin
+    cfg = P.PipelineConfig(3, 64)
+    assert cfg.map_out_slots(3, limit=limit) == 1
+    with pytest.raises(ValueError, match="1 output slot"):
+        cfg.smem_bytes(3, limit=limit, out_slots=1)
+    assert cfg.ring_bytes(3) == cfg.vmem_bytes(3) == 3 * 3 * 32768
+
+
+def test_check_aligned():
+    """A flat view at an odd element offset, reshaped as the ops reshape
+    their streams, is refused; an offset of 16 bytes is not."""
+    x = torch.zeros(8 + 128 * 64)
+    assert x.data_ptr() % 16 == 0
+    for offset, ok in ((0, True), (1, False), (2, False), (3, False),
+                       (4, True)):
+        view = ops._as2d(x[offset:offset + 128 * 64])
+        if ok:
+            P.check_aligned((view,))
+        else:
+            with pytest.raises(ValueError, match="16-byte boundary"):
+                P.check_aligned((x[:128].view(1, 128), view))
+    bf = torch.zeros(16 + 128 * 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        P.check_aligned((bf[4:4 + 128 * 8],))     # 8 bytes in
+    P.check_aligned((bf[8:8 + 128 * 8],))
+
+
 def test_launch_plan(monkeypatch):
     """Launch geometry without a card: a persistent grid of
-    min(n_chunks, SMs) CTAs, an explicit ctas in range, and the ring
-    checked against the card's opt-in shared memory."""
+    min(n_chunks, SMs) CTAs, an explicit ctas in range, the ring checked
+    against the card's opt-in shared memory, and the map pipeline's
+    output slots (0 for a reduction, which has no output ring)."""
     props = types.SimpleNamespace(
         shared_memory_per_block_optin=H100_SXM.smem_per_block_optin,
         multi_processor_count=H100_SXM.sm_count)
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: props)
     kw = dict(dtype=torch.float32, device=torch.device("cpu"))
     assert P.plan(1 << 19, block_rows=32, num_stages=3, n_in=3, **kw) == \
-        (32, 1 << 14, 3, 132)
-    assert P.plan(96, block_rows=32, num_stages=3, n_in=3, **kw) == (32, 3, 3, 3)
+        (32, 1 << 14, 3, 132, 0)
+    assert P.plan(1 << 19, block_rows=32, num_stages=3, n_in=3,
+                  out_ring=True, **kw) == (32, 1 << 14, 3, 132, 2)
+    assert P.plan(96, block_rows=32, num_stages=3, n_in=3, **kw) == \
+        (32, 3, 3, 3, 0)
     assert P.plan(1 << 19, block_rows=32, num_stages=2, n_in=2, ctas=1,
-                  **kw) == (32, 1 << 14, 2, 1)
+                  out_ring=True, **kw) == (32, 1 << 14, 2, 1, 2)
+    assert P.plan(512, block_rows=64, num_stages=2, n_in=3, out_ring=True,
+                  **kw) == (64, 8, 2, 8, 1)
     with pytest.raises(ValueError, match="shared memory"):
         P.plan(512, block_rows=64, num_stages=3, n_in=3, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        P.plan(512, block_rows=64, num_stages=3, n_in=3, out_ring=True, **kw)
     with pytest.raises(ValueError, match="ctas"):
         P.plan(96, block_rows=32, num_stages=2, n_in=1, ctas=4, **kw)
-    # bf16 halves the ring: a 64-row depth-3 ring of 3 streams fits
-    assert P.plan(512, block_rows=64, num_stages=3, n_in=3,
-                  dtype=torch.bfloat16, device=torch.device("cpu")) == \
-        (64, 8, 3, 8)
+    # bf16 halves the ring: a 64-row depth-3 ring of 3 streams fits, with
+    # two output slots (144 + 32 KiB)
+    bf = dict(dtype=torch.bfloat16, device=torch.device("cpu"))
+    assert P.plan(512, block_rows=64, num_stages=3, n_in=3, **bf) == \
+        (64, 8, 3, 8, 0)
+    assert P.plan(512, block_rows=64, num_stages=3, n_in=3, out_ring=True,
+                  **bf) == (64, 8, 3, 8, 2)
 
 
 def test_fused_chain_equals_unfused():
