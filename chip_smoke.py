@@ -21,8 +21,8 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    across depths, the pipeline bit-identical to the grid kernels, the
    fused chain equal to the unfused one; rings that wrap: every map op
    through the pipeline at 512 rows (16 chunks) on 1 and 3 CTAs at
-   depths 1/2/3, and the grid map at blocks of 64, 33 and 7 rows, f32
-   and bf16, bit-equal to the plain version and the grid path; a 64-row
+   depths 1/2/3, and the grid map at blocks of 64, 33, 7 and 132 rows,
+   f32 and bf16, bit-equal to the plain version and the grid path; a 64-row
    depth-3 ring that does not fit shared memory raises, and so do the
    map and reduce ops on a view at an odd element offset, the context
    usable afterwards; the registers ``-Xptxas -v`` gave the stream and
@@ -91,8 +91,10 @@ SRC = Path(__file__).resolve().parent / "src"
 SMALL_ROWS = (512, 64, 33, 7)
 #: rows of the ring checks: 16 chunks of the pipeline's 32-row block
 RING_ROWS = 512
-#: the grid map's blocks in the ring checks, on rows they all divide
-GRID_BLOCKS = (64, 33, 7)
+#: the grid map's blocks in the ring checks, on rows they all divide: the
+#: reference's 64 (four 16-row pieces), 33 (16, 16 and 1 rows), 7 (one
+#: piece) and 132 (eight pieces of 16 and one of 4, the four slots reused)
+GRID_BLOCKS = (64, 33, 7, 132)
 GRID_ROWS = 64 * 33 * 7
 SEED = 0
 #: the reference's stencil test shapes (tests/test_stencil.py), and a 2D
@@ -232,7 +234,7 @@ def _ring_checks() -> list[str]:
     so a 1-3 slot input ring and the output ring are reused many times,
     every map op at depths 1/2/3, f32 and bf16, bit-equal to the plain
     version and to the grid path; the grid map at blocks of GRID_BLOCKS
-    rows (33 and 7 take the predicated pass) on GRID_ROWS rows."""
+    rows on GRID_ROWS rows."""
     from repro_torch.benchmarks import gpu_stream_ecm as G
     from repro_torch.kernels import pipeline as P
     from repro_torch.kernels.check import compare

@@ -1,7 +1,8 @@
 // Hopper building blocks in inline PTX (sm_90a): mbarriers, TMA tensor
 // loads, bulk copies of contiguous bytes in both directions, warpgroup
 // matrix products (wgmma) with shared-memory descriptors, and register
-// rebalancing between warpgroups.  Used by matmul.cu and pipeline.cu.
+// rebalancing between warpgroups.  Used by matmul.cu, pipeline.cu and
+// stream.cu.
 //
 // Conventions:
 //  * shared addresses are 32-bit shared-window addresses (smem_u32);
@@ -106,13 +107,6 @@ __device__ __forceinline__ void bulk_commit() {
 template <int PENDING>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// wait until at most PENDING of this thread's bulk groups are incomplete
-// (their writes to device memory done)
-template <int PENDING>
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // order this thread's ordinary writes to shared memory before later reads

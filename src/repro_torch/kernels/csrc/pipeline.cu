@@ -16,10 +16,13 @@
 // flight while it computes (max(T_data, T_OL)).
 //
 // Design.  On the TPU one core walks the chunks in order with DMA
-// semaphores per ring slot.  Here a persistent grid of G CTAs (by default
-// min(n_chunks, SMs x the CTAs an SM holds); G = 1 for the one-SM overlap
-// pair) walks chunks i, i+G, ...; each CTA owns a ring of `stages` slots
-// per input stream in dynamic shared memory.
+// semaphores per ring slot.  Here a persistent grid of G CTAs walks chunks
+// i, i+G, ...; each CTA owns a ring of `stages` slots per input stream in
+// dynamic shared memory.  G is min(n_chunks, SMs) for the reduction; for
+// the map it is min(n_chunks, SMs x the map CTAs an SM holds at once,
+// max(SMs, ceil(n_chunks / stages))): one CTA an SM, then as many rings,
+// and bytes in flight, as shared memory allows while each ring still gets
+// as many chunks as it has slots.  G = 1 for the one-SM overlap pair.
 //
 // map_pipeline (redesigned for Hopper): one thread moves every byte with
 // TMA bulk copies, so the others spend no issue slots on copies.  A chunk
@@ -28,21 +31,21 @@
 // completes on its own mbarrier with the slot's byte count.  Results go
 // into an output ring (the reference's out_scr / out_sem) that the same
 // thread drains with bulk stores (cp.async.bulk ... bulk_group), waiting
-// on wait_group.read before a slot is rewritten, and on wait_group 0 at
-// the end (the reference's drain).  Two output slots where they fit
-// beside the input ring, else one (the wrapper decides; schoenauer's
-// 64-row depth-2 ring leaves room for one): with two, one barrier a chunk
-// both publishes the slot to the async proxy and frees the input slot;
-// with one, a second barrier waits for the store to read it.  The fetch
+// on wait_group.read before a slot is rewritten and before the CTA exits
+// (the reference's drain; the writes complete with the grid).  Two
+// output slots where they fit beside the input ring, else one (the
+// wrapper decides; schoenauer's 64-row depth-2 ring leaves room for
+// one): with two, one barrier a chunk both publishes the slot to the
+// async proxy and frees the input slot; with one, a second barrier waits
+// for the store to read it.  The fetch
 // of chunk k + stages is issued once chunk k is computed, so depth 1
 // fetches, waits, computes and stores before the next fetch (that store
 // overlapping the next fetch, as in the reference), and depth k keeps
 // k - 1 chunks in flight while it computes.
 //
-// reduce_pipeline (PR 12's design, kept): the ring is filled with
-// cp.async (16 B per copy) and one commit group per chunk;
-// cp.async.wait_group(stages-1) makes chunk k resident while chunks
-// k+1..k+stages-1 are still in flight.  Each thread copies and later
+// reduce_pipeline: the ring is filled with cp.async (16 B per copy) and
+// one commit group per chunk; cp.async.wait_group(stages-1) makes chunk k
+// resident while chunks k+1..k+stages-1 are still in flight.  Each thread copies and later
 // reads back exactly the same 16-byte vectors, so completion of its own
 // copy group is all it needs: no __syncthreads guards the ring.  It adds
 // whole-chunk sums in chunk order with a fixed in-chunk tree and the CTA
@@ -59,8 +62,8 @@ using namespace rt;
 
 namespace {
 
-// The ring of one CTA: slot `slot` of input stream j holds chunk_vectors
-// vectors at ring + (j * stages + slot) * chunk_vectors.
+// The reduction's ring of one CTA: slot `slot` of input stream j holds
+// chunk_vectors vectors at ring + (j * stages + slot) * chunk_vectors.
 struct Ring {
   uint4* base;
   int stages;
@@ -88,7 +91,7 @@ __device__ __forceinline__ long long own_chunks(long long n_chunks) {
   return (n_chunks - blockIdx.x + gridDim.x - 1) / gridDim.x;
 }
 
-// The ring schedule common to both kernels: warm-up (chunks 0..stages-2),
+// The reduction's ring schedule: warm-up (chunks 0..stages-2),
 // then for every chunk start the one stages-1 ahead, wait for this one,
 // and hand its slot to `body`.  Every thread commits one group per step,
 // empty or not, so group k always belongs to chunk k.
@@ -168,7 +171,7 @@ __global__ void __launch_bounds__(THREADS)
     if (lead) {
       for (long long k = 0; k < mine; ++k) bulk_store(dst(k), smem_u32(o), chunk_bytes);
       bulk_commit();
-      bulk_wait<0>();
+      bulk_wait_read<0>();
     }
   } else {
     const uint8_t* in[3] = {x, y, z};
@@ -201,7 +204,7 @@ __global__ void __launch_bounds__(THREADS)
         __syncthreads();
       }
     }
-    if (lead) bulk_wait<0>();
+    if (lead) bulk_wait_read<0>();  // the CTA's shared memory outlives the stores' reads
   }
 }
 

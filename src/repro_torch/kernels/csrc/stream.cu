@@ -12,10 +12,16 @@
 // Bound: device-memory bytes.  Each element is read and written once and
 // costs at most a few FP32 operations (striad: 12 B and 2 FLOP per
 // element), far below the ~20 FLOP/B the H100 needs before its FP32 units
-// and not HBM are the limit.  So the design only has to keep HBM busy:
-// 256 threads a CTA, 16-byte vector accesses with neighbouring threads on
-// neighbouring addresses, and as many CTAs as blocks (8192 of 64 rows at
-// 2^26 elements), which the hardware scheduler spreads over all SMs.
+// and not HBM are the limit.  So the design only has to keep HBM busy,
+// with as many CTAs as blocks (8192 of 64 rows at 2^26 elements), which
+// the hardware scheduler spreads over all SMs.  grid_reduce: 256 threads
+// a CTA, 16-byte vector loads with neighbouring threads on neighbouring
+// addresses.  grid_map (redesigned for Hopper): the block moves in and
+// out by TMA bulk copies, which keep more bytes in flight per SM than
+// registers do and spend no thread's issue slots on addresses; timed
+// against a variant that issues every load of the block into registers
+// before any arithmetic, with streaming hints, it was the faster of the
+// two on every op with an input (PERF.md, Findings).
 //
 // On the TPU the reduction grid runs in order on one core and carries the
 // sum in the output block from step to step.  Blocks here run in parallel
@@ -29,85 +35,79 @@ using namespace rt;
 
 namespace {
 
-// Vectors a thread holds per input: the reference's 64-row block over
-// 256 threads (64 x 32 / 256 = 8 in f32, 64 x 16 / 256 = 4 in bf16).
-// Blocks of other sizes run in passes of U vectors a thread, the last one
-// predicated.
-template <int DT>
-__host__ __device__ constexpr int grid_unroll() {
-  return DT == BF16 ? 4 : 8;
-}
+// A block moves through shared memory in pieces of PIECE_ROWS rows (the
+// last one shorter), each input's piece in one of SLOTS ring slots with
+// its own mbarrier: the reference's 64-row block is four pieces, all in
+// flight at once, and a larger block reuses the slots, so no block_rows
+// the wrapper accepts overflows shared memory.
+constexpr int PIECE_ROWS = 16;
+constexpr int SLOTS = 4;
 
-// One (block_rows, 128) block a CTA.  Each thread issues every load of a
-// pass (U vectors per input, at most 24 for schoenauer) before any
-// arithmetic, with the streaming hints: loads evict-first and not kept in
-// L1 (ld.global.cs), stores evict-first (st.global.cs).
+// One (block_rows, 128) block a CTA.  Thread 0 starts the bulk copies of
+// the first SLOTS pieces of every input; the threads compute each piece
+// in place in the first input's slot as soon as it lands, and thread 0
+// writes it back with a bulk store, so the first pieces' arithmetic and
+// stores overlap the later pieces' loads.  A 64-row block is N x 32 KiB
+// in f32 (64 KiB for striad), so three CTAs an SM keep 192 KiB of reads
+// in flight.  A generator (store) has nothing to fetch and stores from
+// registers.
 template <int OP, int DT>
 __global__ void __launch_bounds__(THREADS)
-    grid_map(const uint4* __restrict__ x, const uint4* __restrict__ y, const uint4* __restrict__ z,
-             uint4* __restrict__ out, float s, float t, int block_vectors) {
-  constexpr int N = map_inputs(OP);
-  constexpr int U = grid_unroll<DT>();
-  const long long base = static_cast<long long>(blockIdx.x) * block_vectors;
-  for (int v0 = 0; v0 < block_vectors; v0 += U * THREADS) {
-    uint4 a[U], b[U], c[U];
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const int u = v0 + i * THREADS + static_cast<int>(threadIdx.x);
-      a[i] = b[i] = c[i] = uint4{};
-      if (u < block_vectors) {
-        if (N > 0) a[i] = __ldcs(x + base + u);
-        if (N > 1) b[i] = __ldcs(y + base + u);
-        if (N > 2) c[i] = __ldcs(z + base + u);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const int u = v0 + i * THREADS + static_cast<int>(threadIdx.x);
-      if (u < block_vectors) __stcs(out + base + u, apply<OP, DT>(s, t, a[i], b[i], c[i]));
-    }
-  }
-}
-
-// The alternative timed against grid_map: the block's inputs into shared
-// memory with bulk copies on one mbarrier, computed in place in the first
-// input's slot, and written back with one bulk store.
-template <int OP, int DT>
-__global__ void __launch_bounds__(THREADS)
-    grid_map_bulk(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
-                  const uint8_t* __restrict__ z, uint8_t* __restrict__ out, float s, float t,
-                  uint32_t block_bytes) {
-  extern __shared__ __align__(128) uint8_t bulk_smem[];
-  __shared__ uint64_t full;
+    grid_map(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
+             const uint8_t* __restrict__ z, uint8_t* __restrict__ out, float s, float t,
+             uint32_t block_bytes, uint32_t piece_bytes, int slots) {
+  extern __shared__ __align__(128) uint8_t grid_smem[];
+  __shared__ uint64_t full[SLOTS];
   constexpr int N = map_inputs(OP);
   const long long base = static_cast<long long>(blockIdx.x) * block_bytes;
-  const int bv = static_cast<int>(block_bytes / sizeof(uint4));
-  uint4* a = reinterpret_cast<uint4*>(bulk_smem);
-  if constexpr (N > 0) {
-    const uint32_t bar = smem_u32(&full);
-    if (threadIdx.x == 0) {
-      mbar_init(bar, 1);
-      fence_barrier_init();
-      mbar_arrive_expect_tx(bar, N * block_bytes);
-      const uint8_t* in[3] = {x, y, z};
+  if constexpr (N == 0) {
+    uint4* o = reinterpret_cast<uint4*>(out + base);
+    const uint4 v = apply<OP, DT>(s, t, uint4{}, uint4{}, uint4{});
+    for (uint32_t u = threadIdx.x; u < block_bytes / sizeof(uint4); u += THREADS) __stcs(o + u, v);
+  } else {
+    const uint8_t* in[3] = {x, y, z};
+    const int pieces = static_cast<int>((block_bytes + piece_bytes - 1) / piece_bytes);
+    // input j's slot r at (j * slots + r) * piece_bytes
+    auto slot = [&](int j, int r) { return grid_smem + static_cast<size_t>(j * slots + r) * piece_bytes; };
+    auto fetch = [&](int i) {  // thread 0: piece i of every input
+      const uint32_t off = static_cast<uint32_t>(i) * piece_bytes;
+      const uint32_t bytes = min(piece_bytes, block_bytes - off);
+      const uint32_t bar = smem_u32(&full[i % slots]);
+      mbar_arrive_expect_tx(bar, N * bytes);
 #pragma unroll
       for (int j = 0; j < N; ++j)
-        bulk_load(smem_u32(bulk_smem + j * block_bytes), in[j] + base, block_bytes, bar);
+        bulk_load(smem_u32(slot(j, i % slots)), in[j] + base + off, bytes, bar);
+    };
+    if (threadIdx.x == 0) {
+      for (int r = 0; r < slots; ++r) mbar_init(smem_u32(&full[r]), 1);
+      fence_barrier_init();
+      for (int i = 0; i < slots; ++i) fetch(i);
     }
-    __syncthreads();
-    mbar_wait(bar, 0);
-  }
-  const uint4* b = a + bv;
-  const uint4* c = a + 2 * bv;
-  for (int u = threadIdx.x; u < bv; u += THREADS)
-    a[u] = apply<OP, DT>(s, t, N > 0 ? a[u] : uint4{}, N > 1 ? b[u] : uint4{},
-                         N > 2 ? c[u] : uint4{});
-  fence_proxy_async_smem();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    bulk_store(out + base, smem_u32(a), block_bytes);
-    bulk_commit();
-    bulk_wait<0>();
+    __syncthreads();  // the barriers' initialisation, before anyone waits on them
+    for (int i = 0; i < pieces; ++i) {
+      const int r = i % slots;
+      const uint32_t off = static_cast<uint32_t>(i) * piece_bytes;
+      const uint32_t bytes = min(piece_bytes, block_bytes - off);
+      mbar_wait(smem_u32(&full[r]), static_cast<uint32_t>((i / slots) & 1));
+      uint4* a = reinterpret_cast<uint4*>(slot(0, r));
+      const uint4* b = reinterpret_cast<const uint4*>(slot(N > 1 ? 1 : 0, r));
+      const uint4* c = reinterpret_cast<const uint4*>(slot(N > 2 ? 2 : 0, r));
+      for (uint32_t u = threadIdx.x; u < bytes / sizeof(uint4); u += THREADS)
+        a[u] = apply<OP, DT>(s, t, a[u], N > 1 ? b[u] : uint4{}, N > 2 ? c[u] : uint4{});
+      fence_proxy_async_smem();
+      __syncthreads();  // every thread's writes, before the store reads them
+      if (threadIdx.x == 0) {
+        bulk_store(out + base + off, smem_u32(a), bytes);
+        bulk_commit();
+        // piece i + slots reuses the slot once this store has read it;
+        // the others touch it only after those loads land
+        if (i + slots < pieces) {
+          bulk_wait_read<0>();
+          fetch(i + slots);
+        }
+      }
+    }
+    if (threadIdx.x == 0) bulk_wait_read<0>();  // shared memory outlives the stores' reads
   }
 }
 
@@ -124,43 +124,35 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 struct MapArgs {
-  const uint4 *x, *y, *z;
-  uint4* out;
+  const uint8_t *x, *y, *z;
+  uint8_t* out;
   float s, t;
   long long n_blocks;
-  int block_vectors;
+  uint32_t block_bytes, piece_bytes;
+  int slots;
   cudaStream_t stream;
 };
 
 template <int OP, int DT>
 cudaError_t launch_map(const MapArgs& a) {
-  grid_map<OP, DT><<<static_cast<unsigned>(a.n_blocks), THREADS, 0, a.stream>>>(
-      a.x, a.y, a.z, a.out, a.s, a.t, a.block_vectors);
-  return cudaSuccess;
-}
-
-template <int OP, int DT>
-cudaError_t launch_map_bulk(const MapArgs& a) {
-  const uint32_t bytes = static_cast<uint32_t>(a.block_vectors * sizeof(uint4));
-  const size_t smem = static_cast<size_t>(map_inputs(OP) > 0 ? map_inputs(OP) : 1) * bytes;
+  const size_t smem = static_cast<size_t>(map_inputs(OP)) * a.slots * a.piece_bytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      grid_map_bulk<OP, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      grid_map<OP, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  grid_map_bulk<OP, DT><<<static_cast<unsigned>(a.n_blocks), THREADS, smem, a.stream>>>(
-      reinterpret_cast<const uint8_t*>(a.x), reinterpret_cast<const uint8_t*>(a.y),
-      reinterpret_cast<const uint8_t*>(a.z), reinterpret_cast<uint8_t*>(a.out), a.s, a.t, bytes);
+  grid_map<OP, DT><<<static_cast<unsigned>(a.n_blocks), THREADS, smem, a.stream>>>(
+      a.x, a.y, a.z, a.out, a.s, a.t, a.block_bytes, a.piece_bytes, a.slots);
   return cudaSuccess;
 }
 
-template <int DT, bool BULK>
+template <int DT>
 cudaError_t dispatch_map(int op, const MapArgs& a) {
   switch (op) {
-    case COPY: return BULK ? launch_map_bulk<COPY, DT>(a) : launch_map<COPY, DT>(a);
-    case STORE: return BULK ? launch_map_bulk<STORE, DT>(a) : launch_map<STORE, DT>(a);
-    case UPDATE: return BULK ? launch_map_bulk<UPDATE, DT>(a) : launch_map<UPDATE, DT>(a);
-    case STRIAD: return BULK ? launch_map_bulk<STRIAD, DT>(a) : launch_map<STRIAD, DT>(a);
-    case SCHOENAUER: return BULK ? launch_map_bulk<SCHOENAUER, DT>(a) : launch_map<SCHOENAUER, DT>(a);
-    case TRIAD_UPDATE: return BULK ? launch_map_bulk<TRIAD_UPDATE, DT>(a) : launch_map<TRIAD_UPDATE, DT>(a);
+    case COPY: return launch_map<COPY, DT>(a);
+    case STORE: return launch_map<STORE, DT>(a);
+    case UPDATE: return launch_map<UPDATE, DT>(a);
+    case STRIAD: return launch_map<STRIAD, DT>(a);
+    case SCHOENAUER: return launch_map<SCHOENAUER, DT>(a);
+    case TRIAD_UPDATE: return launch_map<TRIAD_UPDATE, DT>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -178,27 +170,16 @@ void launch_reduce(const uint4* x, const uint4* y, float* partial, long long n_b
 extern "C" int rt_grid_map(int op, int dtype, const void* x, const void* y, const void* z,
                            void* out, float s, float t, long long n_blocks, int block_rows,
                            void* stream) {
-  const MapArgs a{static_cast<const uint4*>(x), static_cast<const uint4*>(y),
-                  static_cast<const uint4*>(z), static_cast<uint4*>(out), s, t, n_blocks,
-                  static_cast<int>(block_rows * row_vectors(dtype)),
-                  static_cast<cudaStream_t>(stream)};
+  const uint32_t row_bytes = static_cast<uint32_t>(row_vectors(dtype) * sizeof(uint4));
+  const int piece_rows = block_rows < PIECE_ROWS ? block_rows : PIECE_ROWS;
+  const int pieces = (block_rows + piece_rows - 1) / piece_rows;
+  const MapArgs a{static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
+                  static_cast<const uint8_t*>(z), static_cast<uint8_t*>(out), s, t, n_blocks,
+                  block_rows * row_bytes, piece_rows * row_bytes,
+                  pieces < SLOTS ? pieces : SLOTS, static_cast<cudaStream_t>(stream)};
   cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == F32) e = dispatch_map<F32, false>(op, a);
-  else if (dtype == BF16) e = dispatch_map<BF16, false>(op, a);
-  return finish(e);
-}
-
-// rt_grid_map through grid_map_bulk
-extern "C" int rt_grid_map_bulk(int op, int dtype, const void* x, const void* y, const void* z,
-                                void* out, float s, float t, long long n_blocks, int block_rows,
-                                void* stream) {
-  const MapArgs a{static_cast<const uint4*>(x), static_cast<const uint4*>(y),
-                  static_cast<const uint4*>(z), static_cast<uint4*>(out), s, t, n_blocks,
-                  static_cast<int>(block_rows * row_vectors(dtype)),
-                  static_cast<cudaStream_t>(stream)};
-  cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == F32) e = dispatch_map<F32, true>(op, a);
-  else if (dtype == BF16) e = dispatch_map<BF16, true>(op, a);
+  if (dtype == F32) e = dispatch_map<F32>(op, a);
+  else if (dtype == BF16) e = dispatch_map<BF16>(op, a);
   return finish(e);
 }
 

@@ -139,16 +139,16 @@ def _ptr(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
-def check_aligned(ins, nbytes: int = 16) -> None:
-    """Raise ``ValueError`` unless every tensor starts on an ``nbytes``
-    boundary.  The stream kernels read 16-byte vectors and the map
-    pipeline's bulk copies need 16-byte addresses; a view at an odd
-    element offset would otherwise fault on the card, which ends the
-    CUDA context."""
+def check_aligned(ins) -> None:
+    """Raise ``ValueError`` unless every tensor starts on a 16-byte
+    boundary.  The stream kernels read 16-byte vectors and move data by
+    bulk copies, which need 16-byte addresses; a view at an odd element
+    offset would otherwise fault on the card, which ends the CUDA
+    context."""
     for x in ins:
-        if x.data_ptr() % nbytes:
+        if x.data_ptr() % 16:
             raise ValueError(
-                f"expected a tensor starting on a {nbytes}-byte boundary, "
+                f"expected a tensor starting on a 16-byte boundary, "
                 f"got one at address {x.data_ptr():#x} (storage offset "
                 f"{x.storage_offset()})")
 
@@ -194,18 +194,30 @@ class Plan(NamedTuple):
 
 def plan(rows: int, *, block_rows: int, num_stages: int, n_in: int,
          dtype: torch.dtype, device: torch.device,
-         ctas: int | None = None, out_ring: bool = False) -> Plan:
-    """Launch geometry of one pipelined call after :func:`chunking`,
-    checking the ring (with the map pipeline's output ring where
-    ``out_ring``) against the card's shared memory and choosing a
-    persistent grid of ``min(n_chunks, SMs)`` CTAs (or ``ctas``)."""
+         ctas: int | None = None, map_op: str | None = None) -> Plan:
+    """Launch geometry of one pipelined call after :func:`chunking`:
+    the ring checked against the card's shared memory, with the map
+    pipeline's output ring where ``map_op`` names a map op (a reduction
+    has none), and a persistent grid of ``ctas`` CTAs or, by default,
+    ``min(n_chunks, SMs)`` for a reduction and, for the map,
+    ``min(n_chunks, SMs x the CTAs an SM holds (:func:`map_ctas_per_sm`),
+    max(SMs, ceil(n_chunks / stages)))``: one CTA an SM, then every ring
+    the SMs hold as long as each still gets as many chunks as it has
+    slots."""
     block, n_chunks, stages = chunking(rows, block_rows, num_stages)
     props = torch.cuda.get_device_properties(device)
     limit = props.shared_memory_per_block_optin
     cfg, eb = PipelineConfig(stages, block), torch.finfo(dtype).bits // 8
-    out_slots = cfg.map_out_slots(n_in, eb, limit=limit) if out_ring else 0
+    out_slots = 0 if map_op is None else cfg.map_out_slots(n_in, eb, limit=limit)
     cfg.smem_bytes(n_in, eb, limit=limit, out_slots=out_slots)
-    grid = min(n_chunks, props.multi_processor_count) if ctas is None else ctas
+    sms = props.multi_processor_count
+    if ctas is not None:
+        grid = ctas
+    elif map_op is None:
+        grid = min(n_chunks, sms)
+    else:
+        per_sm = map_ctas_per_sm(MAP_OPS[map_op][0], dtype, block, stages, out_slots)
+        grid = min(n_chunks, sms * per_sm, max(sms, -(-n_chunks // stages)))
     if not 1 <= grid <= n_chunks:
         raise ValueError(f"ctas must lie in [1, {n_chunks}], got {grid}")
     return Plan(block, n_chunks, stages, grid, out_slots)
@@ -226,6 +238,28 @@ REDUCE_PIPELINE = _build.Kernel(
     replaces="src/repro/kernels/pipeline.py:258")
 
 
+_OCCUPANCY: dict[tuple, int] = {}
+
+
+def map_ctas_per_sm(code: int, dtype: torch.dtype, block_rows: int,
+                    stages: int, out_slots: int) -> int:
+    """How many map-pipeline CTAs one SM holds at once (the CUDA occupancy
+    query on the compiled kernel, at the launch's shared memory)."""
+    key = (code, dtype, block_rows, stages, out_slots)
+    if key not in _OCCUPANCY:
+        fn = _build.library("pipeline").rt_map_pipeline_occupancy
+        fn.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+        fn.restype = _I
+        n = _I(0)
+        rc = fn(code, DTYPES[dtype], block_rows, stages, out_slots,
+                ctypes.byref(n))
+        if rc != 0 or n.value < 1:
+            raise RuntimeError(f"rt_map_pipeline_occupancy: error {rc}, "
+                               f"{n.value} CTAs an SM")
+        _OCCUPANCY[key] = n.value
+    return _OCCUPANCY[key]
+
+
 def map_pipeline(op: str, scalars: tuple, ins: tuple, *, rows: int,
                  dtype: torch.dtype, device: torch.device, num_stages: int,
                  block_rows: int, ctas: int | None = None) -> torch.Tensor:
@@ -233,14 +267,16 @@ def map_pipeline(op: str, scalars: tuple, ins: tuple, *, rows: int,
     ``(rows, 128)`` CUDA streams; returns a new ``(rows, 128)`` tensor.
 
     ``ctas`` pins the persistent grid (the one-SM overlap pair uses 1);
-    by default it is ``min(n_chunks, SMs)``.
+    by default it is every CTA the SMs hold at once, as long as each gets
+    as many chunks as its ring has slots, and at least one an SM
+    (:func:`plan`).
     """
     code, n_scalars, n_in = MAP_OPS[op]
     if len(scalars) != n_scalars or len(ins) != n_in:
         raise ValueError(f"{op} takes {n_scalars} scalars and {n_in} streams")
     check_streams(ins, rows=rows, dtype=dtype, device=device)
     p = plan(rows, block_rows=block_rows, num_stages=num_stages, n_in=n_in,
-             dtype=dtype, device=device, ctas=ctas, out_ring=True)
+             dtype=dtype, device=device, ctas=ctas, map_op=op)
     out = torch.empty((rows, LANES), dtype=dtype, device=device)
     s, t = [_scal(v, dtype) for v in scalars] + [0.0] * (2 - n_scalars)
     x, y, z = list(ins) + [None] * (3 - n_in)

@@ -1,9 +1,10 @@
 """Wrappers of the grid stream kernels (``csrc/stream.cu``).
 
 One CTA per ``(block_rows, 128)`` block, the reference's one block per
-grid step (``repro/kernels/stream/kernel.py``).  The wrappers take CUDA
-tensors only; CPU tensors take the plain versions in ``ref.py``, chosen
-in ``ops.py``.
+grid step (``repro/kernels/stream/kernel.py``); the map kernel moves its
+block through shared memory by TMA bulk copies, in pieces of 16 rows,
+four in flight.  The wrappers take CUDA tensors only; CPU tensors take
+the plain versions in ``ref.py``, chosen in ``ops.py``.
 """
 from __future__ import annotations
 

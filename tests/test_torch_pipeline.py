@@ -112,28 +112,49 @@ def test_check_aligned():
 
 def test_launch_plan(monkeypatch):
     """Launch geometry without a card: a persistent grid of
-    min(n_chunks, SMs) CTAs, an explicit ctas in range, the ring checked
-    against the card's opt-in shared memory, and the map pipeline's
-    output slots (0 for a reduction, which has no output ring)."""
+    min(n_chunks, SMs) CTAs for a reduction, an explicit ctas in range,
+    the ring checked against the card's opt-in shared memory, and for a
+    map op its output slots (0 for a reduction, which has no output
+    ring) and its grid from the CTAs an SM holds."""
     props = types.SimpleNamespace(
         shared_memory_per_block_optin=H100_SXM.smem_per_block_optin,
         multi_processor_count=H100_SXM.sm_count)
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: props)
+    seen = []
+
+    def per_sm(code, dtype, *geometry):
+        seen.append((code, dtype, *geometry))
+        return 2
+
+    monkeypatch.setattr(P, "map_ctas_per_sm", per_sm)
     kw = dict(dtype=torch.float32, device=torch.device("cpu"))
     assert P.plan(1 << 19, block_rows=32, num_stages=3, n_in=3, **kw) == \
         (32, 1 << 14, 3, 132, 0)
-    assert P.plan(1 << 19, block_rows=32, num_stages=3, n_in=3,
-                  out_ring=True, **kw) == (32, 1 << 14, 3, 132, 2)
     assert P.plan(96, block_rows=32, num_stages=3, n_in=3, **kw) == \
         (32, 3, 3, 3, 0)
     assert P.plan(1 << 19, block_rows=32, num_stages=2, n_in=2, ctas=1,
-                  out_ring=True, **kw) == (32, 1 << 14, 2, 1, 2)
-    assert P.plan(512, block_rows=64, num_stages=2, n_in=3, out_ring=True,
-                  **kw) == (64, 8, 2, 8, 1)
+                  map_op="striad", **kw) == (32, 1 << 14, 2, 1, 2)
+    assert P.plan(512, block_rows=64, num_stages=2, n_in=3,
+                  map_op="schoenauer", **kw) == (64, 8, 2, 8, 1)
+    # the map pipeline's default grid: one CTA an SM, then up to SMs x the
+    # CTAs an SM holds at the launch's geometry while each CTA still gets
+    # as many chunks as its ring has slots
+    assert P.plan(1 << 19, block_rows=32, num_stages=2, n_in=2,
+                  map_op="striad", **kw) == (32, 1 << 14, 2, 264, 2)
+    assert seen[-1] == (3, torch.float32, 32, 2, 2)
+    assert P.plan(96, block_rows=32, num_stages=3, n_in=3,
+                  map_op="schoenauer", **kw) == (32, 3, 3, 3, 2)
+    assert P.plan(8192, block_rows=32, num_stages=2, n_in=2,
+                  map_op="striad", **kw) == (32, 256, 2, 132, 2)
+    assert P.plan(16384, block_rows=32, num_stages=2, n_in=2,
+                  map_op="striad", **kw) == (32, 512, 2, 256, 2)
+    assert P.plan(8192, block_rows=32, num_stages=1, n_in=2,
+                  map_op="striad", **kw) == (32, 256, 1, 256, 2)
     with pytest.raises(ValueError, match="shared memory"):
         P.plan(512, block_rows=64, num_stages=3, n_in=3, **kw)
     with pytest.raises(ValueError, match="shared memory"):
-        P.plan(512, block_rows=64, num_stages=3, n_in=3, out_ring=True, **kw)
+        P.plan(512, block_rows=64, num_stages=3, n_in=3, map_op="schoenauer",
+               **kw)
     with pytest.raises(ValueError, match="ctas"):
         P.plan(96, block_rows=32, num_stages=2, n_in=1, ctas=4, **kw)
     # bf16 halves the ring: a 64-row depth-3 ring of 3 streams fits, with
@@ -141,8 +162,8 @@ def test_launch_plan(monkeypatch):
     bf = dict(dtype=torch.bfloat16, device=torch.device("cpu"))
     assert P.plan(512, block_rows=64, num_stages=3, n_in=3, **bf) == \
         (64, 8, 3, 8, 0)
-    assert P.plan(512, block_rows=64, num_stages=3, n_in=3, out_ring=True,
-                  **bf) == (64, 8, 3, 8, 2)
+    assert P.plan(512, block_rows=64, num_stages=3, n_in=3,
+                  map_op="schoenauer", **bf) == (64, 8, 3, 8, 2)
 
 
 def test_fused_chain_equals_unfused():

@@ -82,6 +82,32 @@ def test_grid_ops_match_reference(rows, dt):
     check_against_reference(rows, dt, None)
 
 
+@pytest.mark.parametrize("block", [64, 33, 7])
+def test_grid_map_blocks_match_reference(block):
+    """The map ops at the grid blocks the card checks (64 rows, and 33 and
+    7, which the card's grid map runs as pieces shorter than 64 rows),
+    against the reference's grid kernels at the same block, bit for bit,
+    on rows that 33 and 7 divide."""
+    rows = 2 * 33 * 7
+    for dt, (jdt, tdt) in DTYPES.items():
+        js, ts = _inputs(rows, jdt, seed=3)
+        kw = dict(block_rows=block)
+        for name, port, ref in (
+                ("store", lambda: ops.store(S, (rows * 128,), tdt, device="cpu", **kw),
+                 lambda: jops.store(S, (rows * 128,), jdt, interpret=True, **kw)),
+                ("update", lambda: ops.update(S, ts[0], **kw),
+                 lambda: jops.update(S, js[0], interpret=True, **kw)),
+                ("copy", lambda: ops.copy(ts[1], **kw),
+                 lambda: jops.copy(js[1], interpret=True, **kw)),
+                ("striad", lambda: ops.striad(S, ts[1], ts[2], **kw),
+                 lambda: jops.striad(S, js[1], js[2], interpret=True, **kw)),
+                ("schoenauer", lambda: ops.schoenauer(*ts[1:], **kw),
+                 lambda: jops.schoenauer(*js[1:], interpret=True, **kw))):
+            want = streams_from_numpy([np.asarray(ref())], device="cpu")[0]
+            ok, err, _ = compare(port(), want)
+            assert ok, (name, block, dt, err)
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_outputs_identical_across_paths(dt):
     """Inside the port the full matrix of paths, None/1/2/3, agrees bit
