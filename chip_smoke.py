@@ -5,10 +5,12 @@ Run from the repository root on a machine with an H100:
 
     python3 chip_smoke.py
 
-It drives the port's three paths, the paper's stream-ECM loop
+It drives the port's paths, the calibration of the card's model
+(``repro_torch.launch.calibrate``), the paper's stream-ECM loop
 (``repro_torch.benchmarks.gpu_stream_ecm.run``), the Jacobi stencil
-loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``) and the
-compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``), and
+loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``), the
+compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``) and
+Eq. 2 over the SMs (``repro_torch.benchmarks.gpu_scaling_ecm.run``), and
 holds every CUDA kernel against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
@@ -25,8 +27,10 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    f32 and bf16, bit-equal to the plain version and the grid path; a 64-row
    depth-3 ring that does not fit shared memory raises, and so do the
    map and reduce ops on a view at an odd element offset, the context
-   usable afterwards; the registers ``-Xptxas -v`` gave the stream and
-   pipeline kernels;
+   usable afterwards; the one-pass ``striad_rmw`` on the grid map bit for
+   bit against its plain version on the card, f32 and bf16, rows
+   64/33/7, with a NaN and an inf in ``a``, and refused by the pipeline;
+   the registers ``-Xptxas -v`` gave the stream and pipeline kernels;
 4. the stencils at small sizes: the reference's test shapes and one 2D
    shape of three trailing-dim strips, whole-array and at depths 1/2/3,
    f32 and bf16, two or three coefficient pairs, bit for bit against the
@@ -59,8 +63,19 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    ``None`` that the reference refuses raise; the
    registers, shared memory and spills ``-Xptxas -v`` gave each matmul
    and attention kernel;
-6. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
-   loop at its three full-size points, then the compute loop at its four
+6. the calibration, through the CLI: a cold run from an empty cache
+   directory (``--no-snap``: the prior is a data sheet, so every field
+   adopts what the card measured; the fields within ``SNAP_RTOL`` of it
+   are listed), which writes the machine file under ``results/`` and must
+   load back to the fitted machine, with every fitted field finite and
+   positive and every residual within ``MAX_FIT_RESIDUAL``; the RFO
+   ratio and verdict (the CLI fails on an undetermined one, and the
+   one-CTA overlap pair must have run: no RFO); the L2 knee and the
+   layer-condition estimate beside ``l2_bytes``; the overlap fit; then a
+   warm run from the same directory, which must fit and measure nothing;
+7. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
+   loop at its three full-size points (both loops' models under the prior
+   and the calibrated machine), then the compute loop at its four
    points (f32 and bf16 4096^3 matmul, causal prefill and decode
    attention at S = 4096, 16 heads, 8 KV heads, d = 128), each path with
    every kernel's launch count set to 0 just before and read just after;
@@ -70,17 +85,26 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    tile route alone at every compiled prefill tiling (the pick's rank
    among them reported), the decode point the split route alone and at
    least one combine per split launch (the combine is also timed alone);
-7. one JSON line with the ten kernels (the matmul and attention rows with
+8. Eq. 2 over the SMs against the calibrated machine: every Table I op
+   through the pipeline at depth 2 on 1 to 132 CTAs, one an SM (the
+   occupancy query says 1), every point checked, ``P(n)`` and both
+   ``n_S``;
+9. one JSON line with the ten kernels (the matmul and attention rows with
    their launches per route, the combine's with the decode's split plan),
    then the ``ok`` line.
+
+The calibration and the Eq. 2 sweep count their launches from 0 too,
+each kernel they run at least once.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -88,6 +112,9 @@ import numpy as np
 import torch
 
 SRC = Path(__file__).resolve().parent / "src"
+#: where the calibration writes the card's machine file (``.gitignore``
+#: lists ``results/``)
+MACHINE_FILE = Path(__file__).resolve().parent / "results" / "chip_smoke_machine.json"
 SMALL_ROWS = (512, 64, 33, 7)
 #: rows of the ring checks: 16 chunks of the pipeline's 32-row block
 RING_ROWS = 512
@@ -168,6 +195,10 @@ NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
                         ((1, 192, 192, 4, 2, 64), False),
                         ((2, 256, 256, 8, 2, 16), True),
                         ((2, 256, 256, 8, 2, 32), False))
+#: the kernels the calibration times (grid sweeps, stencil sweeps, the
+#: one-CTA pair)
+CALIBRATE_KERNELS = ("grid_map", "grid_reduce", "jacobi2d_grid",
+                     "jacobi3d_grid", "map_pipeline")
 #: which points of the stencil loop each stencil kernel serves
 STENCIL_POINTS = {"halo_pipeline": ("2d", "3d", "3d_lc_broken"),
                   "jacobi2d_grid": ("2d",),
@@ -254,13 +285,13 @@ def _ring_checks() -> list[str]:
                 want = _plain_map(op, scalars, ins, rows, dtype)
                 grid = K.grid_map(op, scalars, ins, block_rows=64, **kw)
                 got = {"grid": grid}
-                if blocks is None:
+                if blocks is None and op not in P.GRID_ONLY_OPS:
                     for ctas in (1, 3):
                         for d in (1, 2, 3):
                             got[f"depth {d} ctas {ctas}"] = P.map_pipeline(
                                 op, scalars, ins, num_stages=d, block_rows=pb,
                                 ctas=ctas, **kw)
-                else:
+                elif blocks is not None:
                     for b in blocks:
                         got[f"grid block {b}"] = K.grid_map(
                             op, scalars, ins, block_rows=b, **kw)
@@ -271,6 +302,46 @@ def _ring_checks() -> list[str]:
                                         f"and the grid path")
     torch.cuda.synchronize()
     return failures
+
+
+def _striad_rmw_checks() -> tuple[list[str], dict]:
+    """The one-pass ``striad_rmw`` on the grid map against its plain
+    version on the same card inputs, bit for bit (the outputs' bits, so a
+    NaN compares too), f32 and bf16, rows 64/33/7, with a NaN and an inf
+    placed in ``a``; and the pipeline's refusal of the op."""
+    from repro_torch.benchmarks import gpu_stream_ecm as G
+    from repro_torch.kernels import pipeline as P
+    from repro_torch.kernels.stream import ops, ref
+
+    failures = []
+    rng = np.random.default_rng(SEED + 2)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for rows in (64, 33, 7):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, c = (torch.from_numpy(rng.standard_normal(rows * 128)
+                                        .astype(np.float32)).cuda().to(dtype)
+                       for _ in range(3))
+            a[5], a[rows * 128 - 1] = float("nan"), float("inf")
+            got = ops.striad_rmw(G.S, a, b, c)
+            want = ref.striad_rmw(G.S, a, b, c)
+            where = f"striad_rmw rows={rows} {dtype}"
+            if not torch.equal(got.view(bits[dtype]), want.view(bits[dtype])):
+                failures.append(f"{where}: not bit-equal to the plain version")
+            if not (bool(got[5].isnan()) and bool(got[-1].isnan())
+                    and int(got.isnan().sum()) == 2):
+                failures.append(f"{where}: the NaN and the inf of a do not "
+                                f"give exactly two NaNs")
+    x = torch.zeros((64, 128), device="cuda")
+    try:
+        P.map_pipeline("striad_rmw", (G.S,), (x, x, x), rows=64,
+                       dtype=x.dtype, device=x.device, num_stages=2,
+                       block_rows=32)
+        failures.append("the pipeline did not refuse striad_rmw")
+        refusal = ""
+    except ValueError as e:
+        refusal = str(e)
+    torch.cuda.synchronize()
+    return failures, {"striad_rmw_pipeline_raises": refusal}
 
 
 def _plain_map(op, scalars, ins, rows, dtype):
@@ -666,6 +737,93 @@ def _compute_refusals() -> dict:
     return out
 
 
+def _calibrate_phase() -> tuple[list[str], object, dict]:
+    """Phase 6: the calibration CLI, cold from an empty cache directory,
+    then warm from the same one.  Returns what failed, the calibrated
+    machine and the record to print."""
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import diskcache
+    from repro_torch.core.machine import load_machine_file
+    from repro_torch.launch import calibrate as cli
+
+    failures = []
+    MACHINE_FILE.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as cache:
+        argv = ["--no-snap", "--cache-dir", cache, "--machine-out",
+                str(MACHINE_FILE)]
+        runs = {}
+        for run in ("cold", "warm"):
+            cal.reset_counters()
+            diskcache.reset_counters()
+            t0 = time.perf_counter()
+            rc, report = cli.run(argv)
+            runs[run] = {"rc": rc, "s": time.perf_counter() - t0,
+                         "fits": cal.CAL_COUNTERS["fits"],
+                         "measurements": cal.CAL_COUNTERS["measurements"],
+                         "cache": dict(diskcache.COUNTERS),
+                         "from_cache": report.from_cache if report else None}
+            if rc != 0 or report is None:
+                failures.append(f"calibrate {run} run exited {rc}")
+                return failures, None, {"runs": runs}
+            if run == "cold":
+                cold = report
+    warm = runs["warm"]
+    if warm["fits"] or warm["measurements"] or not warm["from_cache"] \
+            or warm["cache"]["hits"] < 1:
+        failures.append(f"the warm calibration fitted or measured: {warm}")
+    if runs["cold"]["cache"]["hits"]:
+        failures.append("the cold calibration was served from a cache")
+    loaded = load_machine_file(MACHINE_FILE)
+    if loaded != cold.machine or report.machine != cold.machine:
+        failures.append("the machine file does not load back to the fitted "
+                        "machine")
+    for f in cold.fits:
+        if not (math.isfinite(f.fitted) and f.fitted > 0
+                and math.isfinite(f.adopted) and f.adopted > 0):
+            failures.append(f"{f.field}: fitted {f.fitted}, adopted "
+                            f"{f.adopted}: not finite and positive")
+    if cold.residual_max("bandwidth") > cal.MAX_FIT_RESIDUAL:
+        failures.append(f"bandwidth residual {cold.residual_max('bandwidth')} "
+                        f"over {cal.MAX_FIT_RESIDUAL}")
+    lc = cold.checks["stencil_lc_breaks"]["L2"]
+    record = {
+        "phase": "calibrate", "runs": runs,
+        "fits": [f.as_dict() for f in cold.fits],
+        "within_snap_rtol": [f.field for f in cold.fits
+                             if f.prior and abs(f.fitted - f.prior)
+                             <= cal.SNAP_RTOL * abs(f.prior)],
+        "residual_max": cold.group_summary(),
+        "rfo": cold.checks["rfo"],
+        "capacity": {**cold.checks["capacity"],
+                     "fitted_l2_bytes": cold.machine.l2_bytes,
+                     "lc_estimate_bytes": lc.get("capacity_est"),
+                     "lc": lc},
+        "backend": cold.checks["backend"],
+        "machine_file": str(MACHINE_FILE.relative_to(SRC.parent)),
+        "machine_file_round_trips": loaded == cold.machine,
+        "calibrated": {k: getattr(cold.machine, k) for k in (
+            "measured_bw", "l2_bytes", "l2_bytes_per_s", "write_allocate")},
+    }
+    return failures, cold.machine, record
+
+
+def _scaling_phase(machine) -> tuple[list[str], dict]:
+    """Phase 8: Eq. 2 over the SMs against the calibrated machine."""
+    from repro_torch.benchmarks import gpu_scaling_ecm as SC
+
+    report = SC.run(machine)
+    failures = []
+    for op, rec in report["ops"].items():
+        if rec["ctas_per_sm"] != 1:
+            failures.append(f"scaling {op}: {rec['ctas_per_sm']} CTAs an SM, "
+                            f"not 1")
+        failures += [f"scaling {op} ctas={n}: err {err} tol {tol}"
+                     for n, (ok, err, tol) in rec["checks"].items() if not ok]
+        if set(rec["ms"]) != set(SC.CTAS):
+            failures.append(f"scaling {op}: timed {sorted(rec['ms'])}")
+    return failures, report
+
+
 def _check_compute_report(report: dict) -> list[str]:
     where = f"{report['op']} {report['dims']} {report['dtype']}"
     out, failures = report["output"], []
@@ -760,11 +918,13 @@ def main() -> int:
     # 3. correctness at small sizes
     failures = _small_checks()
     failures += _ring_checks()
+    rmw_failures, rmw_refusal = _striad_rmw_checks()
+    failures += rmw_failures
     print(json.dumps({"phase": "small", "rows": SMALL_ROWS,
                       "ring_rows": RING_ROWS, "grid_blocks": GRID_BLOCKS,
                       "failures": failures}))
     print(json.dumps({"ring_64_rows_depth_3_raises": _shared_memory_refusal()}))
-    print(json.dumps(_alignment_refusal()))
+    print(json.dumps(_alignment_refusal() | rmw_refusal))
     print(json.dumps({"stream_ptxas": _build.ptxas_report("stream"),
                       "pipeline_ptxas": _build.ptxas_report("pipeline")}))
     if failures:
@@ -794,7 +954,20 @@ def main() -> int:
     if failures:
         _fail(f"{len(failures)} small-size matmul and attention checks failed")
 
-    # 6. the three paths, each with its launches counted from 0
+    # 6. the calibration, its launches counted from 0
+    t_path = time.perf_counter()
+    kernels.reset_launches()
+    failures, calibrated, record = _calibrate_phase()
+    record["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    record["s"] = time.perf_counter() - t_path
+    print(json.dumps(record))
+    failures += [f"{k} was not launched by the calibration"
+                 for k in CALIBRATE_KERNELS if not record["launches"][k]]
+    if failures:
+        _fail(f"{len(failures)} calibration checks failed: {failures}")
+    torch.cuda.empty_cache()
+
+    # 7. the three paths, each with its launches counted from 0
     t_path = time.perf_counter()
     kernels.reset_launches()
     full = G.run(rows=G.N_FULL_ROWS)
@@ -808,6 +981,9 @@ def main() -> int:
                           "block_rows": report["block_rows"]}))
         for rec in G.summary(report):
             print(json.dumps(rec))
+    # the model under the calibrated machine, beside the prior's "ecm"
+    print(json.dumps({"n": full["n"], "ecm_calibrated": G.ecm_against(
+        full["timings"]["ops"], G.N_FULL_ROWS, calibrated)}))
     stream_s = time.perf_counter() - t_path
 
     t_path = time.perf_counter()
@@ -825,6 +1001,10 @@ def main() -> int:
         print(json.dumps({"device": report["device"]}))
         for rec in GS.summary(report):
             print(json.dumps(rec))
+        print(json.dumps({"shape": report["shape"],
+                          "ecm_calibrated": GS.model_against(
+                              tuple(report["shape"]), report["timings"]["ms"],
+                              calibrated)}))
     stencil_s = time.perf_counter() - t_path
 
     t_path = time.perf_counter()
@@ -877,7 +1057,22 @@ def main() -> int:
     failures += [f"{k} was not launched on its path"
                  for k, v in launches.items() if v == 0]
 
-    # 7. the kernels line
+    # 8. Eq. 2 over the SMs, its launches counted from 0
+    t_path = time.perf_counter()
+    kernels.reset_launches()
+    scaling_failures, scaling = _scaling_phase(calibrated)
+    scaling_launches = {k.name: k.launches for k in kernels.KERNELS}
+    scaling_failures += [f"{k} was not launched by the Eq. 2 sweep"
+                         for k in ("map_pipeline", "reduce_pipeline")
+                         if not scaling_launches[k]]
+    print(json.dumps({k: v for k, v in scaling.items() if k != "ops"}
+                     | {"phase": "scaling", "launches": scaling_launches,
+                        "s": time.perf_counter() - t_path}))
+    for op, rec in scaling["ops"].items():
+        print(json.dumps({"phase": "scaling", "op": op, **rec}))
+    failures += scaling_failures
+
+    # 9. the kernels line
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
               "reduce": [o for o in G.OPS if o in kernels.pipeline.REDUCE_OPS]}
     rows = []

@@ -123,6 +123,38 @@ def _conv(a: torch.Tensor, p: torch.Tensor, c0: float, c1: float):
     return call
 
 
+def model_against(shape: tuple[int, ...], ms: dict,
+                  machine: GPUMachineModel, elem_bytes: int = 4) -> dict:
+    """``gpu_stencil_ecm`` of a sweep of ``shape`` under ``machine`` (the
+    card's prior, or a calibrated machine file's) beside the measured
+    ``ms`` per path: the whole-array kernel's model over the whole width,
+    the halo pipeline's over its trailing-dim tile (it sweeps one tile
+    at a time)."""
+    dim = len(shape)
+    spec = dataclasses.replace(STENCILS[f"jacobi{dim}d"], elem_bytes=elem_bytes)
+    blocks = {"grid": None, "halo": P.HALO_TILE[dim][-(dim - 1):]}
+    models = {k: gpu_stencil_ecm(spec, shape, machine, elem_bytes, block=b)
+              for k, b in blocks.items()}
+    predicted = {label: models["grid" if ns is None else "halo"].t_ecm * 1e3
+                 for label, ns in paths()}
+    return {
+        "l2_bytes": machine.l2_bytes, "lc_safety": LC_SAFETY,
+        "block": blocks,
+        "conditions": {k: {c.name: {"bytes": c.nbytes,
+                                    "holds": c.holds(machine.l2_bytes)}
+                           for c in spec.conditions(shape[1:], b)}
+                       for k, b in blocks.items()},
+        "hbm_streams": {k: stencil_hbm_streams(spec, shape, machine, block=b)
+                        for k, b in blocks.items()},
+        "model_bytes_per_lup": {
+            k: m.t_hbm * machine.sustained_bw(spec.name, "_stencil")
+            / math.prod(shape) for k, m in models.items()},
+        "predicted_ms": predicted,
+        "measured_over_predicted": {k: t / predicted[k]
+                                    for k, t in ms.items()},
+    }
+
+
 def timings(a: torch.Tensor, machine: GPUMachineModel) -> dict:
     """Time every path, the pad, the plain version, the cuDNN yardstick
     and the one-CTA depth-1/depth-2 pair; set the layer-condition model
@@ -133,8 +165,6 @@ def timings(a: torch.Tensor, machine: GPUMachineModel) -> dict:
     spec = dataclasses.replace(STENCILS[f"jacobi{dim}d"], elem_bytes=eb)
     c0, c1 = COEFFS[dim]
     p = ref.pad(a)
-    # the halo pipeline sweeps one trailing-dim tile at a time
-    blocks = {"grid": None, "halo": P.HALO_TILE[dim][-(dim - 1):]}
 
     def kernel(ns, ctas=None):
         if ns is None:
@@ -156,10 +186,6 @@ def timings(a: torch.Tensor, machine: GPUMachineModel) -> dict:
              else "operations") if bounded else (None, None)
     one_cta = {d: time_call(kernel(d, ctas=1), inner=ONE_CTA_INNER)[0]
                for d in (1, 2)}
-    models = {k: gpu_stencil_ecm(spec, shape, machine, eb, block=b)
-              for k, b in blocks.items()}
-    predicted = {label: models["grid" if ns is None else "halo"].t_ecm * 1e3
-                 for label, ns in paths()}
     return {
         "ms": ms,
         "host_us": host,
@@ -181,23 +207,7 @@ def timings(a: torch.Tensor, machine: GPUMachineModel) -> dict:
             "exposed_hbm_fraction": measured_overlap(one_cta[1], one_cta[2],
                                                      one_cta[2]),
         },
-        "ecm": {
-            "l2_bytes": machine.l2_bytes, "lc_safety": LC_SAFETY,
-            "block": blocks,
-            "conditions": {k: {c.name: {"bytes": c.nbytes,
-                                        "holds": c.holds(machine.l2_bytes)}
-                               for c in spec.conditions(shape[1:], b)}
-                           for k, b in blocks.items()},
-            "hbm_streams": {k: stencil_hbm_streams(spec, shape, machine,
-                                                   block=b)
-                            for k, b in blocks.items()},
-            "model_bytes_per_lup": {
-                k: m.t_hbm * machine.hbm_bytes_per_s / lups
-                for k, m in models.items()},
-            "predicted_ms": predicted,
-            "measured_over_predicted": {k: t / predicted[k]
-                                        for k, t in ms.items()},
-        },
+        "ecm": model_against(shape, ms, machine, eb),
     }
 
 

@@ -23,8 +23,7 @@ import json
 
 import torch
 
-from ..core.ecm import ECMModel
-from ..core.gpu_ecm import measured_overlap
+from ..core.gpu_ecm import gpu_stream_ecm, measured_overlap, stream_count
 from ..core.kernel_spec import BENCHMARKS, TRIAD_UPDATE_STREAMS
 from ..core.machine import H100_SXM, GPUMachineModel
 from ..kernels import pipeline as P
@@ -46,31 +45,10 @@ OPS = ("load", "ddot", "store", "update", "copy", "striad", "schoenauer",
        "triad_update")
 
 
-def gpu_stream_ecm(name: str, machine: GPUMachineModel) -> ECMModel:
-    """Analytic GPU-ECM for one stream kernel, cycles per 128-lane f32 row.
-
-    In-core: every FP32 operation of an element takes one lane-cycle and
-    the card has ``sm_count x 128`` FP32 lanes (at least one operation per
-    element, the move).  Transfer: the row's streams cross HBM at the
-    data-sheet rate.  Stores write whole rows, so there is no RFO stream.
-    """
-    spec = BENCHMARKS[name]
-    row_bytes = LANES * 4
-    streams = spec.loads_explicit + spec.stores + spec.nt_stores
-    # the spec counts AVX uops per 64 B line of doubles: 2 uops per
-    # operation on every element
-    lane_ops = max((spec.uop_fma + spec.uop_mul + spec.uop_add) / 2, 1)
-    t_comp = lane_ops * LANES / (machine.sm_count * machine.fp32_lanes_per_sm)
-    t_hbm = streams * row_bytes / machine.hbm_bytes_per_cycle()
-    return ECMModel(t_ol=t_comp, t_nol=0.0, transfers=(t_hbm,),
-                    levels=("REG", "HBM"), unit="cy/row", name=f"gpu-{name}")
-
-
 def _stream_count(name: str) -> int:
     if name == "triad_update":
         return TRIAD_UPDATE_STREAMS[1]
-    spec = BENCHMARKS[name]
-    return spec.loads_explicit + spec.stores + spec.nt_stores
+    return stream_count(name)
 
 
 def _flops_per_elem(name: str) -> int:
@@ -178,8 +156,9 @@ def _bound(name: str, n: int, nbytes: int, machine: GPUMachineModel
 
 def pipeline_timings(streams, machine: GPUMachineModel) -> dict:
     """Time every op on every path, the one-SM overlap pair, the fused
-    chain against its two-launch composition and ``striad`` against
-    ``striad_rmw``; set the ECM model against the times."""
+    chain against its two-launch composition and ``striad`` against the
+    one-pass ``striad_rmw`` (:func:`rmw_record`); set the ECM model
+    against the times."""
     a, b, c, _ = streams
     n = a.numel()
     rows = n // LANES
@@ -229,24 +208,39 @@ def pipeline_timings(streams, machine: GPUMachineModel) -> dict:
         "predicted_stream_ratio": unfused_streams / fused_streams,
     }
 
-    e = gpu_stream_ecm("striad", machine)
-    t_rmw_hbm = (_stream_count("striad") + 1) * LANES * 4 / machine.hbm_bytes_per_cycle()
-    t_rmw = time_call(lambda: ops.striad_rmw(S, a, b, c))[0]
-    out["rmw"] = {
-        "striad_ms": card["grid"], "striad_rmw_ms": t_rmw,
-        "ratio": t_rmw / card["grid"],
-        "ecm_ratio": max(e.t_nol + t_rmw_hbm, e.t_ol) / e.prediction("HBM"),
-        "note": "striad_rmw is plain PyTorch: three kernels, not one pass",
-    }
+    out["rmw"] = rmw_record(card["grid"], time_call(
+        lambda: ops.striad_rmw(S, a, b, c))[0], machine)
 
     # the model has no L2 level: its HBM prediction, like the bound, holds
     # only where the arrays stream from HBM
-    out["ecm"] = _ecm_against(out["ops"], rows, machine) if bounded else None
+    out["ecm"] = ecm_against(out["ops"], rows, machine) if bounded else None
     return out
 
 
-def _ecm_against(timed: dict, rows: int, machine: GPUMachineModel) -> dict:
-    """The GPU-ECM prediction of each Table I op beside its fastest path."""
+def rmw_record(striad_ms: float, striad_rmw_ms: float,
+               machine: GPUMachineModel) -> dict:
+    """``striad`` against the one-pass ``striad_rmw`` (both on the grid
+    map) beside the ECM's ratio for each answer to the RFO question:
+    without an RFO ``striad`` moves 3 streams and ``striad_rmw`` 4; with
+    one ``striad`` would already move 4 (its store reading the line
+    first), a ratio of 1.0.  The HBM terms take the rate the card
+    sustains for ``striad``."""
+    e = gpu_stream_ecm("striad", machine)
+    t_rmw_hbm = ((stream_count("striad") + 1) * LANES * 4
+                 / (machine.sustained_bw("striad", "_stream") / machine.clock_hz))
+    return {
+        "striad_ms": striad_ms, "striad_rmw_ms": striad_rmw_ms,
+        "ratio": striad_rmw_ms / striad_ms,
+        "ecm_ratio_no_rfo": (max(e.t_nol + t_rmw_hbm, e.t_ol)
+                             / e.prediction("HBM")),
+        "ecm_ratio_rfo": 1.0,
+    }
+
+
+def ecm_against(timed: dict, rows: int, machine: GPUMachineModel) -> dict:
+    """The GPU-ECM prediction of each Table I op beside its fastest path
+    (``timed``: ``pipeline_timings``' ``ops``), under ``machine``: the
+    card's prior, or a calibrated machine file's."""
     out = {}
     for name in OPS:
         if name not in BENCHMARKS:

@@ -6,6 +6,7 @@ memory streaming), composed by Eq. 1 with a fraction of the transfer
 serialized with compute (the ``T_nOL`` role).  Collective terms (ICI/DCN
 in the reference) wait for the multi-card slices of the port.
 
+:func:`gpu_stream_ecm` is the per-row ECM of a Table I stream kernel;
 :func:`gpu_stencil_ecm` builds the step model of one Jacobi sweep, with
 its HBM traffic from the layer condition of the card's L2;
 :func:`gpu_matmul_ecm` and :func:`gpu_attention_ecm` those of the
@@ -17,8 +18,14 @@ import dataclasses
 import math
 from dataclasses import dataclass
 
+from .ecm import ECMModel
+from .kernel_spec import BENCHMARKS
 from .layer_condition import StencilSpec
+from .machine import GPUMachineModel
 from .workload import AttentionWorkload, MatmulWorkload
+
+#: f32 elements of one row of the stream layout, the ECM's unit of work
+LANES = 128
 
 
 @dataclass(frozen=True)
@@ -80,17 +87,67 @@ def with_measured_overlap(step: StepECM, *, t_serial_s: float,
     return dataclasses.replace(step, exposed_hbm_fraction=f)
 
 
+def stream_count(name: str) -> int:
+    """HBM streams of the Table I kernel ``name``: its explicit loads and
+    its stores; a card store writes whole sectors, so no RFO stream."""
+    spec = BENCHMARKS[name]
+    return spec.loads_explicit + spec.stores + spec.nt_stores
+
+
+def lane_ops(name: str) -> float:
+    """FP32 operations per element of the Table I kernel ``name``, at
+    least one (the move): the spec counts AVX uops per 64 B line of
+    doubles, 2 uops per operation on every element."""
+    spec = BENCHMARKS[name]
+    return max((spec.uop_fma + spec.uop_mul + spec.uop_add) / 2, 1)
+
+
+def gpu_stream_ecm(name: str, machine: GPUMachineModel) -> ECMModel:
+    """Analytic GPU-ECM for one stream kernel, cycles per 128-lane f32 row.
+
+    In-core: every FP32 operation of an element takes one lane-cycle and
+    the card has ``sm_count x 128`` FP32 lanes (at least one operation per
+    element, the move).  Transfer: the row's streams cross HBM at the
+    rate the card sustains for the kernel (``machine.sustained_bw(name,
+    "_stream")``: the data-sheet rate until calibrated).  Stores write
+    whole rows, so there is no RFO stream.
+    """
+    row_bytes = LANES * 4
+    streams = stream_count(name)
+    t_comp = lane_ops(name) * LANES / (machine.sm_count
+                                       * machine.fp32_lanes_per_sm)
+    t_hbm = streams * row_bytes / (machine.sustained_bw(name, "_stream")
+                                   / machine.clock_hz)
+    return ECMModel(t_ol=t_comp, t_nol=0.0, transfers=(t_hbm,),
+                    levels=("REG", "HBM"), unit="cy/row", name=f"gpu-{name}")
+
+
+#: rows of the sweep plane one CTA of the whole-array Jacobi kernels
+#: covers (``csrc/stencil.cu``: 32 x 8 threads, one point each)
+GRID_CTA_ROWS = 8
+
+
 def stencil_hbm_streams(spec: StencilSpec, shape: tuple[int, ...], machine,
-                        *, block: tuple[int, ...] | None = None) -> int:
+                        *, block: tuple[int, ...] | None = None) -> float:
     """Arrays the sweep of ``shape`` streams through HBM per update: the
     input streams that miss the card's L2 under the layer condition (of
     ``spec.elem_bytes`` elements, with ``LC_SAFETY``), plus the write-back
     of the output.  ``block`` caps the inner widths at the trailing-dim
     tile of a blocked sweep (the halo pipeline's).  Stores write whole
     sectors, so there is no write-allocate stream, as in the stream loop's
-    model."""
-    return (spec.load_misses(machine.l2_bytes, tuple(shape[1:]), block=block)
-            + spec.wb_streams)
+    model.
+
+    Where no condition holds, the whole-array kernel (``block`` None)
+    still reads each row of its sweep plane once per CTA: a CTA's
+    ``GRID_CTA_ROWS`` rows run at once, so their neighbours' re-reads hit
+    in L1 or L2, and only the ``2r`` halo rows are read again by the next
+    CTA down.  The ``2r + 1`` row streams of the plane become ``(rows +
+    2r) / rows``; in 3D the ``2r`` outer layers stay one stream each."""
+    misses = spec.load_misses(machine.l2_bytes, tuple(shape[1:]), block=block)
+    if block is None and misses == spec.row_streams:
+        r = spec.radius
+        misses = (GRID_CTA_ROWS + 2 * r) / GRID_CTA_ROWS + (spec.dim - 2) * 2 * r
+    return misses + spec.wb_streams
 
 
 def gpu_stencil_ecm(spec: StencilSpec, shape: tuple[int, ...], machine,
@@ -100,9 +157,11 @@ def gpu_stencil_ecm(spec: StencilSpec, shape: tuple[int, ...], machine,
     ``elem_bytes`` elements on the card ``machine`` (a
     ``GPUMachineModel``); times in seconds.
 
-    ``T_hbm = streams x elem_bytes x LUPs / hbm_bytes_per_s`` with the
-    streams of :func:`stencil_hbm_streams` (``block`` as there);
-    ``T_comp = flops_per_elem x LUPs / peak_f32_flops``.
+    ``T_hbm = streams x elem_bytes x LUPs / b`` with the streams of
+    :func:`stencil_hbm_streams` (``block`` as there) and ``b`` the
+    bandwidth the card sustains for the stencil
+    (``machine.sustained_bw(name, "_stencil")``: the data-sheet rate
+    until calibrated); ``T_comp = flops_per_elem x LUPs / peak_f32_flops``.
     """
     if len(shape) != spec.dim:
         raise ValueError(f"{spec.name} takes a {spec.dim}D shape, got {shape}")
@@ -112,7 +171,8 @@ def gpu_stencil_ecm(spec: StencilSpec, shape: tuple[int, ...], machine,
     return StepECM(
         name=f"gpu-{spec.name}",
         t_comp=spec.flops_per_elem * lups / machine.peak_f32_flops,
-        t_hbm=streams * elem_bytes * lups / machine.hbm_bytes_per_s,
+        t_hbm=(streams * elem_bytes * lups
+               / machine.sustained_bw(spec.name, "_stencil")),
         exposed_hbm_fraction=machine.exposed_hbm_fraction)
 
 

@@ -5,12 +5,23 @@ The counterpart of the reference's ``TPUMachineModel``
 registers <- shared memory <- L2 <- HBM; the SM takes the place of the
 paper's core.  What the device reports about itself is read from it
 (:meth:`GPUMachineModel.from_device`); the peak rates come from the
-vendor's data sheet, chosen by card name, and are listed in ``priors``
-because nothing in the port has measured them.
+vendor's data sheet, chosen by card name, and are listed in ``priors``.
+The calibration (``core/calibrate.py``) measures what the card sustains
+and keeps it beside the priors: ``measured_bw`` per kernel, the L2
+plateau ``l2_bytes_per_s``, a fitted ``l2_bytes`` and the RFO verdict
+``write_allocate``.  Predictions read ``sustained_bw``; bounds keep the
+data-sheet ``hbm_bytes_per_s``, the card's limit.
+
+A fitted machine is saved as a versioned machine file
+(:func:`save_machine_file`); the port has no machine registry.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+import os
+from dataclasses import dataclass, field
+from pathlib import Path
 
 #: Data-sheet rates by card name, as ``torch.cuda.get_device_name`` gives
 #: it: HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense bf16
@@ -38,6 +49,13 @@ class GPUMachineModel:
     reference's TPU model; it stays at its prior here: the one-CTA
     depth-1/depth-2 pair that estimates it describes one SM, not the
     card, and is reported beside the model instead of stored in it.
+
+    Calibration fields: ``measured_bw`` maps a kernel name, or the family
+    keys ``_stream`` / ``_stencil``, to the HBM bytes/s it sustains;
+    ``l2_bytes_per_s`` is the card-wide L2 plateau (``None`` until
+    measured); ``write_allocate`` says whether a store reads its line
+    first (an RFO stream).  With an empty ``measured_bw`` every
+    prediction takes the data-sheet rate, as before calibration.
     """
 
     name: str
@@ -52,6 +70,9 @@ class GPUMachineModel:
     fp32_lanes_per_sm: int = 128
     priors: tuple[str, ...] = _PRIOR_FIELDS
     exposed_hbm_fraction: float = 0.0
+    measured_bw: dict = field(default_factory=dict)
+    l2_bytes_per_s: float | None = None
+    write_allocate: bool = False
 
     @classmethod
     def from_device(cls, device) -> "GPUMachineModel":
@@ -86,6 +107,15 @@ class GPUMachineModel:
     def hbm_bytes_per_cycle(self) -> float:
         return self.hbm_bytes_per_s / self.clock_hz
 
+    def sustained_bw(self, *keys: str, default: float | None = None) -> float:
+        """Walk a calibration-key chain (kernel name, then family key, then
+        ``_default``) through :attr:`measured_bw`; where none is present,
+        ``default`` or, without one, the data-sheet ``hbm_bytes_per_s``."""
+        for k in (*keys, "_default"):
+            if k in self.measured_bw:
+                return self.measured_bw[k]
+        return self.hbm_bytes_per_s if default is None else default
+
 
 #: The H100 SXM as its data sheet and the Hopper tuning guide describe it
 #: (132 SMs, 50 MB L2, 80 GB HBM3, 227 KB of shared memory per block by
@@ -99,3 +129,75 @@ H100_SXM = GPUMachineModel(
     smem_per_block_optin=232448,
     **DATASHEET["NVIDIA H100 80GB HBM3"],
 )
+
+
+#: Version of the machine-file schema; a file of another schema is
+#: rejected, not guessed at.
+MACHINE_SCHEMA_VERSION = 1
+#: ``kind`` of a port machine file (the reference's files are
+#: ``ecm-machine``; neither package reads the other's)
+MACHINE_FILE_KIND = "gpu-machine"
+
+
+def machine_to_dict(machine: GPUMachineModel) -> dict:
+    """A JSON-ready dict of every field; the inverse of
+    :func:`machine_from_dict`."""
+    d = dataclasses.asdict(machine)
+    d["priors"] = list(d["priors"])
+    d["measured_bw"] = dict(d["measured_bw"])
+    return d
+
+
+def machine_from_dict(data: dict) -> GPUMachineModel:
+    """Rebuild a :class:`GPUMachineModel` from :func:`machine_to_dict`'s
+    output or from a whole machine-file document.  Unknown fields, a
+    foreign ``kind`` and another schema version raise ``ValueError``."""
+    if not isinstance(data, dict):
+        raise TypeError(f"machine_from_dict wants a dict, got {type(data)!r}")
+    d = dict(data)
+    if isinstance(d.get("machine"), dict):            # whole file document
+        if d.get("schema") != MACHINE_SCHEMA_VERSION:
+            raise ValueError(
+                f"unsupported machine-file schema {d.get('schema')!r} (this "
+                f"code understands schema {MACHINE_SCHEMA_VERSION})")
+        if d.get("kind") != MACHINE_FILE_KIND:
+            raise ValueError(f"not a {MACHINE_FILE_KIND!r} file: kind "
+                             f"{d.get('kind')!r}")
+        d = dict(d["machine"])
+    known = {f.name for f in dataclasses.fields(GPUMachineModel)}
+    unknown = sorted(set(d) - known)
+    if unknown:
+        raise ValueError(f"unknown GPUMachineModel fields: {unknown}")
+    if "priors" in d:
+        d["priors"] = tuple(d["priors"])
+    if "measured_bw" in d:
+        d["measured_bw"] = {k: float(v) for k, v in d["measured_bw"].items()}
+    return GPUMachineModel(**d)
+
+
+def save_machine_file(machine: GPUMachineModel, path: "str | os.PathLike",
+                      *, provenance: dict | None = None) -> Path:
+    """Write ``machine`` as a versioned machine file; ``provenance`` (the
+    calibration's fits, residuals and measurement hash) is stored beside
+    it verbatim."""
+    doc = {"schema": MACHINE_SCHEMA_VERSION, "kind": MACHINE_FILE_KIND,
+           "machine": machine_to_dict(machine)}
+    if provenance is not None:
+        doc["provenance"] = dict(provenance)
+    path = Path(path)
+    path.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
+    return path
+
+
+def load_machine_file(path: "str | os.PathLike", *,
+                      with_provenance: bool = False):
+    """Load a machine file; the :class:`GPUMachineModel`, or ``(model,
+    provenance)`` with ``with_provenance=True``."""
+    raw = json.loads(Path(path).read_text())
+    if not isinstance(raw, dict) or not isinstance(raw.get("machine"), dict):
+        raise ValueError(f"{os.fspath(path)!r} is not a machine file: expected "
+                         f"a JSON object with a 'machine' member")
+    model = machine_from_dict(raw)
+    if with_provenance:
+        return model, dict(raw.get("provenance") or {})
+    return model

@@ -12,7 +12,12 @@
 //  * f32: striad and schoenauer round once, as a fused multiply-add
 //    (the reference's f32 result is fma(s, c, b) / fma(c, d, b));
 //  * bf16: the operands are widened to float and the result is rounded
-//    back to bf16 after every operation, with the scalar already in bf16.
+//    back to bf16 after every operation, with the scalar already in bf16;
+//  * striad_rmw (A = (A*0 + B) + s*C, the reference's `a * 0 + b + s * c`,
+//    which reads A first): the product with zero is an __fmul_rn, which
+//    nvcc neither folds nor contracts, so a NaN or inf in A reaches the
+//    output as in the reference; f32 then rounds the rest once, as a fused
+//    multiply-add, and bf16 after every operation.
 // Sums accumulate in f32 in a fixed order: the order of a thread's own
 // elements, then a fixed shuffle tree (block_sum), then the partials in
 // index order (sum_partials).  No atomics, so results repeat bit for bit.
@@ -25,7 +30,8 @@
 namespace rt {
 
 // op codes; kernels/pipeline.py MAP_OPS and REDUCE_OPS hold the same numbers
-enum Op { COPY = 0, STORE = 1, UPDATE = 2, STRIAD = 3, SCHOENAUER = 4, TRIAD_UPDATE = 5 };
+enum Op { COPY = 0, STORE = 1, UPDATE = 2, STRIAD = 3, SCHOENAUER = 4, TRIAD_UPDATE = 5,
+          STRIAD_RMW = 6 };
 enum Red { LOAD = 0, DDOT = 1 };
 enum Dtype { F32 = 0, BF16 = 1 };
 // host-side failures beyond cudaError_t's range (hopper.cuh; rt_error_string)
@@ -36,7 +42,10 @@ constexpr int LANES = 128;
 constexpr int WARPS = THREADS / 32;
 
 __host__ __device__ constexpr int map_inputs(int op) {
-  return op == STORE ? 0 : op == SCHOENAUER ? 3 : (op == STRIAD || op == TRIAD_UPDATE) ? 2 : 1;
+  return op == STORE                                ? 0
+         : (op == SCHOENAUER || op == STRIAD_RMW)   ? 3
+         : (op == STRIAD || op == TRIAD_UPDATE)     ? 2
+                                                    : 1;
 }
 
 __host__ __device__ constexpr int red_inputs(int red) { return red == DDOT ? 2 : 1; }
@@ -54,6 +63,7 @@ __device__ __forceinline__ float op_f32(float s, float t, float x, float y, floa
   else if constexpr (OP == UPDATE) return __fmul_rn(s, x);
   else if constexpr (OP == STRIAD) return __fmaf_rn(s, y, x);
   else if constexpr (OP == SCHOENAUER) return __fmaf_rn(y, z, x);
+  else if constexpr (OP == STRIAD_RMW) return __fmaf_rn(s, z, __fadd_rn(__fmul_rn(x, 0.f), y));
   else return __fmul_rn(t, __fmaf_rn(s, y, x));  // TRIAD_UPDATE: update(t, striad(s, b, c))
 }
 
@@ -63,11 +73,14 @@ __device__ __forceinline__ float op_bf16(float s, float t, float x, float y, flo
   else if constexpr (OP == UPDATE) return bf(__fmul_rn(s, x));
   else if constexpr (OP == STRIAD) return bf(__fadd_rn(x, bf(__fmul_rn(s, y))));
   else if constexpr (OP == SCHOENAUER) return bf(__fadd_rn(x, bf(__fmul_rn(y, z))));
+  else if constexpr (OP == STRIAD_RMW)
+    return bf(__fadd_rn(bf(__fadd_rn(bf(__fmul_rn(x, 0.f)), y)), bf(__fmul_rn(s, z))));
   else return bf(__fmul_rn(t, bf(__fadd_rn(x, bf(__fmul_rn(s, y))))));
 }
 
 // One 16-byte vector of the elementwise op.  x, y, z are the op's inputs
-// in the reference's argument order (b, c, d); unused ones are ignored.
+// in the reference's argument order (b, c, d; striad_rmw: a, b, c);
+// unused ones are ignored.
 template <int OP, int DT>
 __device__ __forceinline__ uint4 apply(float s, float t, uint4 x, uint4 y, uint4 z) {
   if constexpr (OP == COPY) {

@@ -285,6 +285,15 @@ cudaError_t with_map(int op, int dtype, F f) {
   return cudaErrorInvalidValue;
 }
 
+// CTAs of reduce_pipeline<RED, DT> one SM holds at once at a launch's shared memory
+template <int RED, int DT>
+cudaError_t occupancy_reduce(const Args& a, int* ctas_per_sm) {
+  const cudaError_t e = allow_smem(reduce_pipeline<RED, DT>, a.smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, reduce_pipeline<RED, DT>,
+                                                       THREADS, a.smem);
+}
+
 template <int RED, int DT>
 cudaError_t launch_reduce(const Args& a) {
   const cudaError_t e = allow_smem(reduce_pipeline<RED, DT>, a.smem);
@@ -296,14 +305,18 @@ cudaError_t launch_reduce(const Args& a) {
 
 // The shared memory of a launch, as kernels/pipeline.py PipelineConfig.
 // smem_bytes counts it: n_in * stages input slots, then (map kernels,
-// out_slots > 0) the output slots and one 8-byte mbarrier per input slot.
+// out_slots > 0) the output slots and one 8-byte mbarrier per input slot;
+// at least reserve_smem bytes (the rest unused), which caps the CTAs an SM
+// holds (the Eq. 2 sweep reserves enough for one).
 Args make_args(int dtype, int n_in, const void* x, const void* y, const void* z, void* out,
                float s, float t, long long n_chunks, int block_rows, int stages, int out_slots,
-               int ctas, void* stream) {
+               int ctas, long long reserve_smem, void* stream) {
   const int cv = static_cast<int>(block_rows * row_vectors(dtype));
   const size_t slot = static_cast<size_t>(cv) * sizeof(uint4);
-  const size_t smem = (static_cast<size_t>(n_in) * stages + out_slots) * slot +
+  const size_t ring = (static_cast<size_t>(n_in) * stages + out_slots) * slot +
                       (out_slots > 0 ? static_cast<size_t>(stages) * sizeof(uint64_t) : 0);
+  const size_t smem = ring > static_cast<size_t>(reserve_smem) ? ring
+                                                               : static_cast<size_t>(reserve_smem);
   return Args{static_cast<const uint4*>(x),
               static_cast<const uint4*>(y),
               static_cast<const uint4*>(z),
@@ -318,22 +331,23 @@ Args make_args(int dtype, int n_in, const void* x, const void* y, const void* z,
 // ring on `ctas` persistent CTAs.
 extern "C" int rt_map_pipeline(int op, int dtype, const void* x, const void* y, const void* z,
                                void* out, float s, float t, long long n_chunks, int block_rows,
-                               int stages, int out_slots, int ctas, void* stream) {
+                               int stages, int out_slots, int ctas, long long reserve_smem,
+                               void* stream) {
   if (out_slots < 1 || out_slots > 2) return finish(cudaErrorInvalidValue);
   const Args a = make_args(dtype, map_inputs(op), x, y, z, out, s, t, n_chunks, block_rows,
-                           stages, out_slots, ctas, stream);
+                           stages, out_slots, ctas, reserve_smem, stream);
   return finish(with_map(op, dtype, [&](auto o, auto d) {
     return launch_map<decltype(o)::value, decltype(d)::value>(a);
   }));
 }
 
 // CTAs of rt_map_pipeline one SM holds at once for the same op, dtype,
-// block, depth and output slots
+// block, depth, output slots and reserve
 extern "C" int rt_map_pipeline_occupancy(int op, int dtype, int block_rows, int stages,
-                                         int out_slots, int* ctas_per_sm) {
+                                         int out_slots, long long reserve_smem, int* ctas_per_sm) {
   if (out_slots < 1 || out_slots > 2) return finish(cudaErrorInvalidValue);
   const Args a = make_args(dtype, map_inputs(op), nullptr, nullptr, nullptr, nullptr, 0.f, 0.f, 0,
-                           block_rows, stages, out_slots, 0, nullptr);
+                           block_rows, stages, out_slots, 0, reserve_smem, nullptr);
   return finish(with_map(op, dtype, [&](auto o, auto d) {
     return occupancy_map<decltype(o)::value, decltype(d)::value>(a, ctas_per_sm);
   }));
@@ -343,10 +357,10 @@ extern "C" int rt_map_pipeline_occupancy(int op, int dtype, int block_rows, int 
 // holds `ctas` floats of scratch.
 extern "C" int rt_reduce_pipeline(int red, int dtype, const void* x, const void* y,
                                   void* partial, void* out, long long n_chunks, int block_rows,
-                                  int stages, int ctas, void* stream) {
+                                  int stages, int ctas, long long reserve_smem, void* stream) {
   if (red != LOAD && red != DDOT) return finish(cudaErrorInvalidValue);
   const Args a = make_args(dtype, red_inputs(red), x, y, nullptr, partial, 0.f, 0.f, n_chunks,
-                           block_rows, stages, 0, ctas, stream);
+                           block_rows, stages, 0, ctas, reserve_smem, stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (red == LOAD && dtype == F32) e = launch_reduce<LOAD, F32>(a);
   else if (red == LOAD && dtype == BF16) e = launch_reduce<LOAD, BF16>(a);
@@ -357,4 +371,19 @@ extern "C" int rt_reduce_pipeline(int red, int dtype, const void* x, const void*
   sum_partials<<<1, THREADS, 0, a.stream>>>(static_cast<const float*>(partial), ctas,
                                            static_cast<float*>(out));
   return finish(cudaSuccess);
+}
+
+// CTAs of rt_reduce_pipeline one SM holds at once for the same reduction,
+// dtype, block, depth and reserve
+extern "C" int rt_reduce_pipeline_occupancy(int red, int dtype, int block_rows, int stages,
+                                            long long reserve_smem, int* ctas_per_sm) {
+  if (red != LOAD && red != DDOT) return finish(cudaErrorInvalidValue);
+  const Args a = make_args(dtype, red_inputs(red), nullptr, nullptr, nullptr, nullptr, 0.f, 0.f, 0,
+                           block_rows, stages, 0, 0, reserve_smem, nullptr);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (red == LOAD && dtype == F32) e = occupancy_reduce<LOAD, F32>(a, ctas_per_sm);
+  else if (red == LOAD && dtype == BF16) e = occupancy_reduce<LOAD, BF16>(a, ctas_per_sm);
+  else if (red == DDOT && dtype == F32) e = occupancy_reduce<DDOT, F32>(a, ctas_per_sm);
+  else if (red == DDOT && dtype == BF16) e = occupancy_reduce<DDOT, BF16>(a, ctas_per_sm);
+  return finish(e);
 }

@@ -5,7 +5,11 @@
 //                      _striad/_schoenauer_kernel (:47-64): A=B, A=s, A=s*A,
 //                      A=B+s*C, A=B+C*D, one (block_rows, 128) block per
 //                      "parallel" grid step.  It also takes the fused
-//                      A=t*(B+s*C) of the triad->update chain.
+//                      A=t*(B+s*C) of the triad->update chain, and the
+//                      one-pass A=(A*0+B)+s*C that reads A first (the
+//                      reference's striad_rmw, a jax.jit fusion at
+//                      src/repro/kernels/stream/ops.py:200): four streams,
+//                      which is what an RFO would add to striad.
 //  * rt_grid_reduce <- _reduce_call (:150) with _load_kernel (:67) and
 //                      _ddot_kernel (:78): sum(A) and sum(A*B) into (1, 1).
 //
@@ -153,6 +157,7 @@ cudaError_t dispatch_map(int op, const MapArgs& a) {
     case STRIAD: return launch_map<STRIAD, DT>(a);
     case SCHOENAUER: return launch_map<SCHOENAUER, DT>(a);
     case TRIAD_UPDATE: return launch_map<TRIAD_UPDATE, DT>(a);
+    case STRIAD_RMW: return launch_map<STRIAD_RMW, DT>(a);
   }
   return cudaErrorInvalidValue;
 }

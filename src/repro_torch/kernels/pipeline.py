@@ -62,7 +62,11 @@ MAP_OPS: dict[str, tuple[int, int, int]] = {
     "striad": (3, 1, 2),
     "schoenauer": (4, 0, 3),
     "triad_update": (5, 2, 2),
+    "striad_rmw": (6, 1, 3),
 }
+#: map ops of the grid kernel alone: the reference has no pipelined form
+#: of them, and :func:`map_pipeline` refuses them
+GRID_ONLY_OPS = frozenset({"striad_rmw"})
 #: reductions: name -> (code in csrc/common.cuh, input streams)
 REDUCE_OPS: dict[str, tuple[int, int]] = {"load": (0, 1), "ddot": (1, 2)}
 
@@ -194,7 +198,8 @@ class Plan(NamedTuple):
 
 def plan(rows: int, *, block_rows: int, num_stages: int, n_in: int,
          dtype: torch.dtype, device: torch.device,
-         ctas: int | None = None, map_op: str | None = None) -> Plan:
+         ctas: int | None = None, map_op: str | None = None,
+         one_cta_per_sm: bool = False) -> Plan:
     """Launch geometry of one pipelined call after :func:`chunking`:
     the ring checked against the card's shared memory, with the map
     pipeline's output ring where ``map_op`` names a map op (a reduction
@@ -203,10 +208,13 @@ def plan(rows: int, *, block_rows: int, num_stages: int, n_in: int,
     ``min(n_chunks, SMs x the CTAs an SM holds (:func:`map_ctas_per_sm`),
     max(SMs, ceil(n_chunks / stages)))``: one CTA an SM, then every ring
     the SMs hold as long as each still gets as many chunks as it has
-    slots."""
+    slots.  ``one_cta_per_sm`` (see :func:`map_pipeline`) comes with an
+    explicit ``ctas``."""
     block, n_chunks, stages = chunking(rows, block_rows, num_stages)
     props = torch.cuda.get_device_properties(device)
     limit = props.shared_memory_per_block_optin
+    if one_cta_per_sm and ctas is None:
+        raise ValueError("one_cta_per_sm sets the CTAs an SM holds: pass ctas")
     cfg, eb = PipelineConfig(stages, block), torch.finfo(dtype).bits // 8
     out_slots = 0 if map_op is None else cfg.map_out_slots(n_in, eb, limit=limit)
     cfg.smem_bytes(n_in, eb, limit=limit, out_slots=out_slots)
@@ -216,7 +224,8 @@ def plan(rows: int, *, block_rows: int, num_stages: int, n_in: int,
     elif map_op is None:
         grid = min(n_chunks, sms)
     else:
-        per_sm = map_ctas_per_sm(MAP_OPS[map_op][0], dtype, block, stages, out_slots)
+        per_sm = map_ctas_per_sm(MAP_OPS[map_op][0], dtype, block, stages,
+                                 out_slots)
         grid = min(n_chunks, sms * per_sm, max(sms, -(-n_chunks // stages)))
     if not 1 <= grid <= n_chunks:
         raise ValueError(f"ctas must lie in [1, {n_chunks}], got {grid}")
@@ -230,80 +239,123 @@ _F = ctypes.c_float
 
 MAP_PIPELINE = _build.Kernel(
     "map_pipeline", "pipeline", "rt_map_pipeline",
-    [_I, _I, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _I, _I, _P],
+    [_I, _I, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _I, _I, _LL, _P],
     replaces="src/repro/kernels/pipeline.py:234")
 REDUCE_PIPELINE = _build.Kernel(
     "reduce_pipeline", "pipeline", "rt_reduce_pipeline",
-    [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _P],
     replaces="src/repro/kernels/pipeline.py:258")
 
 
 _OCCUPANCY: dict[tuple, int] = {}
 
 
-def map_ctas_per_sm(code: int, dtype: torch.dtype, block_rows: int,
-                    stages: int, out_slots: int) -> int:
-    """How many map-pipeline CTAs one SM holds at once (the CUDA occupancy
-    query on the compiled kernel, at the launch's shared memory)."""
-    key = (code, dtype, block_rows, stages, out_slots)
+def one_cta_reserve(device: torch.device) -> int:
+    """Shared memory a CTA reserves so that an SM of ``device`` holds one:
+    over half of the block opt-in limit, which is what an SM has less the
+    1 KiB each block keeps.  The occupancy queries confirm it."""
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin // 2 + 1
+
+
+def _reserve(device: torch.device, one_cta_per_sm: bool) -> int:
+    return one_cta_reserve(device) if one_cta_per_sm else 0
+
+
+def _occupancy(symbol: str, *args) -> int:
+    """CTAs one SM holds at once: the CUDA occupancy query ``symbol`` of
+    ``csrc/pipeline.cu`` on the compiled kernel at the launch's shared
+    memory, ``args`` its integer arguments before the result."""
+    key = (symbol, *args)
     if key not in _OCCUPANCY:
-        fn = _build.library("pipeline").rt_map_pipeline_occupancy
-        fn.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+        fn = getattr(_build.library("pipeline"), symbol)
+        fn.argtypes = [_I] * (len(args) - 1) + [_LL, ctypes.POINTER(_I)]
         fn.restype = _I
         n = _I(0)
-        rc = fn(code, DTYPES[dtype], block_rows, stages, out_slots,
-                ctypes.byref(n))
+        rc = fn(*args, ctypes.byref(n))
         if rc != 0 or n.value < 1:
-            raise RuntimeError(f"rt_map_pipeline_occupancy: error {rc}, "
-                               f"{n.value} CTAs an SM")
+            raise RuntimeError(f"{symbol}: error {rc}, {n.value} CTAs an SM")
         _OCCUPANCY[key] = n.value
     return _OCCUPANCY[key]
 
 
+def map_ctas_per_sm(code: int, dtype: torch.dtype, block_rows: int,
+                    stages: int, out_slots: int,
+                    one_cta_per_sm: bool = False) -> int:
+    """How many map-pipeline CTAs one SM holds at once (the CUDA occupancy
+    query on the compiled kernel, at the launch's shared memory)."""
+    return _occupancy("rt_map_pipeline_occupancy", code, DTYPES[dtype],
+                      block_rows, stages, out_slots,
+                      _reserve(torch.device("cuda"), one_cta_per_sm))
+
+
+def reduce_ctas_per_sm(code: int, dtype: torch.dtype, block_rows: int,
+                       stages: int, one_cta_per_sm: bool = False) -> int:
+    """How many reduce-pipeline CTAs one SM holds at once (the same query
+    on the reduction kernel)."""
+    return _occupancy("rt_reduce_pipeline_occupancy", code, DTYPES[dtype],
+                      block_rows, stages,
+                      _reserve(torch.device("cuda"), one_cta_per_sm))
+
+
 def map_pipeline(op: str, scalars: tuple, ins: tuple, *, rows: int,
                  dtype: torch.dtype, device: torch.device, num_stages: int,
-                 block_rows: int, ctas: int | None = None) -> torch.Tensor:
-    """Launch the pipelined map ``op`` (a key of :data:`MAP_OPS`) on
-    ``(rows, 128)`` CUDA streams; returns a new ``(rows, 128)`` tensor.
+                 block_rows: int, ctas: int | None = None,
+                 one_cta_per_sm: bool = False) -> torch.Tensor:
+    """Launch the pipelined map ``op`` (a key of :data:`MAP_OPS` not in
+    :data:`GRID_ONLY_OPS`) on ``(rows, 128)`` CUDA streams; returns a new
+    ``(rows, 128)`` tensor.
 
     ``ctas`` pins the persistent grid (the one-SM overlap pair uses 1);
     by default it is every CTA the SMs hold at once, as long as each gets
     as many chunks as its ring has slots, and at least one an SM
-    (:func:`plan`).
+    (:func:`plan`).  ``one_cta_per_sm`` makes each CTA hold over half an
+    SM's shared memory (:func:`one_cta_reserve`), so an SM holds one and
+    ``ctas`` CTAs run on ``ctas`` SMs (the Eq. 2 sweep).
     """
+    if op in GRID_ONLY_OPS:
+        raise ValueError(f"{op} runs on the grid kernel only (num_stages="
+                         f"None): the reference has no pipelined form of it")
     code, n_scalars, n_in = MAP_OPS[op]
     if len(scalars) != n_scalars or len(ins) != n_in:
         raise ValueError(f"{op} takes {n_scalars} scalars and {n_in} streams")
     check_streams(ins, rows=rows, dtype=dtype, device=device)
     p = plan(rows, block_rows=block_rows, num_stages=num_stages, n_in=n_in,
-             dtype=dtype, device=device, ctas=ctas, map_op=op)
+             dtype=dtype, device=device, ctas=ctas, map_op=op,
+             one_cta_per_sm=one_cta_per_sm)
     out = torch.empty((rows, LANES), dtype=dtype, device=device)
     s, t = [_scal(v, dtype) for v in scalars] + [0.0] * (2 - n_scalars)
     x, y, z = list(ins) + [None] * (3 - n_in)
     MAP_PIPELINE.launch(code, DTYPES[dtype], _ptr(x), _ptr(y), _ptr(z),
                         out.data_ptr(), s, t, p.n_chunks, p.block_rows,
                         p.stages, p.out_slots, p.ctas,
+                        _reserve(device, one_cta_per_sm),
                         torch.cuda.current_stream(device).cuda_stream)
     return out
 
 
 def reduce_pipeline(op: str, ins: tuple, *, num_stages: int,
-                    block_rows: int) -> torch.Tensor:
+                    block_rows: int, ctas: int | None = None,
+                    one_cta_per_sm: bool = False) -> torch.Tensor:
     """Launch the pipelined reduction ``op`` (``load`` or ``ddot``) on
-    ``(rows, 128)`` CUDA streams; returns the ``(1, 1)`` f32 sum."""
+    ``(rows, 128)`` CUDA streams; returns the ``(1, 1)`` f32 sum.
+    ``ctas`` and ``one_cta_per_sm`` as in :func:`map_pipeline` (default
+    grid: one CTA an SM)."""
     code, n_in = REDUCE_OPS[op]
     if len(ins) != n_in:
         raise ValueError(f"{op} takes {n_in} streams")
     rows, dtype, device = ins[0].shape[0], ins[0].dtype, ins[0].device
     check_streams(ins, rows=rows, dtype=dtype, device=device)
     p = plan(rows, block_rows=block_rows, num_stages=num_stages, n_in=n_in,
-             dtype=dtype, device=device)
+             dtype=dtype, device=device, ctas=ctas,
+             one_cta_per_sm=one_cta_per_sm)
     partial = torch.empty(p.ctas, dtype=torch.float32, device=device)
     out = torch.empty((1, 1), dtype=torch.float32, device=device)
     x, y = list(ins) + [None] * (2 - n_in)
     REDUCE_PIPELINE.launch(code, DTYPES[dtype], _ptr(x), _ptr(y),
                            partial.data_ptr(), out.data_ptr(), p.n_chunks,
                            p.block_rows, p.stages, p.ctas,
+                           _reserve(device, one_cta_per_sm),
                            torch.cuda.current_stream(device).cuda_stream)
     return out
 

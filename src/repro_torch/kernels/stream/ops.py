@@ -122,9 +122,9 @@ def triad_update_unfused(s, t, b, c, *, block_rows=K.BLOCK_ROWS,
 
 
 def striad_rmw(s, a, b, c):
-    """A[i] = B[i] + s*C[i], reading A first (write-allocate analogue).
-
-    Plain tensor code, as in the reference; in eager PyTorch it runs as
-    three kernels (``a*0``, ``+b``, ``+s*c``), not as one pass.
-    """
-    return ref.striad(s, a * 0 + b, c)
+    """A[i] = B[i] + s*C[i], reading A first (write-allocate analogue):
+    the reference's ``a * 0 + b + s * c``, one pass of the grid kernel
+    over four streams on the card (the reference fuses it with
+    ``jax.jit``).  There is no pipelined form."""
+    return _map("striad_rmw", ref.striad_rmw, (s,), (a, b, c),
+                num_stages=None, block_rows=K.BLOCK_ROWS)

@@ -67,6 +67,12 @@ def schoenauer(b, c, d):
     return torch.addcmul(b, c, d)
 
 
+def striad_rmw(s, a, b, c):
+    """A[i] = (A[i]*0 + B[i]) + s*C[i]: striad reading A first; the
+    product with zero carries a NaN or inf of A into the result."""
+    return striad(s, a * 0 + b, c)
+
+
 def triad_update(s, t, b, c):
     """A[i] = t * (B[i] + s * C[i]): the fused chain computes exactly the
     two roundings of ``update(t, striad(s, b, c))``."""

@@ -1,10 +1,12 @@
 """The port's copy of the analytic model against the reference's: Eq. 1
 and the notations, the Table I stream counts, the overlap calibration,
-the two-term step model, and the GPU machine and stream-ECM model."""
+the two-term step model, the GPU machine and stream-ECM model, and the
+batched Eq. 1 (``ECMBatch`` and ``eq1_predictions``)."""
 import dataclasses
 import itertools
 import types
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,7 +17,7 @@ from repro.core import tpu_ecm as jtpu  # noqa: E402
 from repro_torch.benchmarks.gpu_stream_ecm import gpu_stream_ecm  # noqa: E402
 from repro_torch.convert import spec_from_dict  # noqa: E402
 from repro_torch.core import gpu_ecm  # noqa: E402
-from repro_torch.core.ecm import ECMModel  # noqa: E402
+from repro_torch.core.ecm import ECMBatch, ECMModel, eq1_predictions  # noqa: E402
 from repro_torch.core.kernel_spec import BENCHMARKS  # noqa: E402
 from repro_torch.core.machine import H100_SXM, GPUMachineModel  # noqa: E402
 
@@ -140,3 +142,91 @@ def test_gpu_stream_ecm(name):
                                         + spec.uop_add) / 2, 1) / 132)
     # memory-bound: the prediction is the HBM time of the row
     assert e.prediction("HBM") == pytest.approx(e.transfers[0])
+
+
+def _random_batch(seed, shape=(5,), edges=3):
+    rng = np.random.default_rng(seed)
+    t_ol = rng.uniform(0, 4, shape)
+    t_nol = rng.uniform(0, 2, shape)
+    transfers = rng.uniform(0, 3, shape + (edges,))
+    transfers[..., 0] *= rng.integers(0, 2, shape)      # some zero terms
+    return t_ol, t_nol, transfers
+
+
+@pytest.mark.parametrize("shape,edges", [((5,), 3), ((2, 4), 1), ((7,), 2),
+                                         ((), 3)])
+def test_ecm_batch_matches_reference(shape, edges):
+    args = _random_batch(len(shape) * 10 + edges, shape, edges)
+    levels = tuple(f"L{i}" for i in range(edges + 1))
+    got = ECMBatch(*args, levels=levels)
+    want = jecm.ECMBatch(*args, levels=levels)
+    assert np.array_equal(got.predictions(), want.predictions())
+    assert np.array_equal(got.t_data(), want.t_data())
+    assert np.array_equal(got.t_core, want.t_core)
+    for level in (0, -1, levels[-1]):
+        assert np.array_equal(got.prediction(level), want.prediction(level))
+        assert np.array_equal(got.core_bound(level), want.core_bound(level))
+        assert np.array_equal(got.performance(64.0, level, clock_hz=2e9),
+                              want.performance(64.0, level, clock_hz=2e9))
+    assert np.array_equal(got.scaled(1.7).predictions(),
+                          want.scaled(1.7).predictions())
+    assert got.batch_shape == want.batch_shape and len(got) == len(want)
+    if shape:
+        f = np.linspace(0.5, 2.0, int(np.prod(shape))).reshape(shape)
+        assert np.array_equal(got.scaled(f).transfers, want.scaled(f).transfers)
+        for i in range(len(got)):
+            g, w = got.scalar(i), want.scalar(i)
+            assert (g.t_ol, g.t_nol, g.transfers) == (w.t_ol, w.t_nol, w.transfers)
+            assert g.predictions() == w.predictions()
+
+
+def test_ecm_batch_from_models_matches_scalar():
+    models = [ECMModel.parse(s, name=n)
+              for n, s in sorted(jspec.PAPER_TABLE1_INPUTS.items())]
+    batch = ECMBatch.from_models(models)
+    assert batch.names == tuple(m.name for m in models)
+    for i, m in enumerate(models):
+        assert tuple(batch.predictions()[i]) == m.predictions()
+        assert batch.scalar(i) == m
+    with pytest.raises(ValueError):
+        ECMBatch.from_models([models[0], ECMModel(1, 0, (1.0,),
+                                                  levels=("L1", "Mem"))])
+
+
+@pytest.mark.parametrize("name", sorted(jspec.PAPER_TABLE1_INPUTS))
+def test_ecm_model_scalar_methods_match_reference(name):
+    s = jspec.PAPER_TABLE1_INPUTS[name]
+    got, want = ECMModel.parse(s), jecm.ECMModel.parse(s)
+    for level in range(len(want.levels)):
+        assert got.core_bound(level) == want.core_bound(level)
+        assert got.performance(8.0, level) == want.performance(8.0, level)
+        assert got.performance(8.0, level, 2.3e9) == \
+            want.performance(8.0, level, 2.3e9)
+    assert got.scaled(0.37).predictions() == want.scaled(0.37).predictions()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_eq1_predictions_match_reference(seed):
+    """The port's ``eq1_predictions`` is the reference's, bit for bit in
+    f64, on a random batch."""
+    args = _random_batch(seed, (3, 4), 3)
+    assert np.array_equal(eq1_predictions(*args), jecm.eq1_predictions(*args))
+
+
+def test_empty_measured_bw_is_the_data_sheet():
+    """With no calibration, the stream and stencil models equal the ones
+    built from the data-sheet rate, bit for bit."""
+    from repro_torch.core.layer_condition import STENCILS
+
+    for name in ("load", "copy", "striad", "schoenauer"):
+        e = gpu_stream_ecm(name, H100_SXM)
+        spec = BENCHMARKS[name]
+        streams = spec.loads_explicit + spec.stores + spec.nt_stores
+        assert e.transfers == (streams * 512 / H100_SXM.hbm_bytes_per_cycle(),)
+    spec = dataclasses.replace(STENCILS["jacobi2d"], elem_bytes=4)
+    step = gpu_ecm.gpu_stencil_ecm(spec, (8192, 8192), H100_SXM, 4)
+    streams = gpu_ecm.stencil_hbm_streams(spec, (8192, 8192), H100_SXM)
+    assert step.t_hbm == streams * 4 * 8192 * 8192 / H100_SXM.hbm_bytes_per_s
+    fitted = dataclasses.replace(H100_SXM, measured_bw={"jacobi2d": 3.0e12})
+    assert gpu_ecm.gpu_stencil_ecm(spec, (8192, 8192), fitted, 4).t_hbm == \
+        streams * 4 * 8192 * 8192 / 3.0e12

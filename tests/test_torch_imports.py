@@ -42,7 +42,10 @@ def test_port_files_exist():
     assert ROOT / "src/repro_torch/core/layer_condition.py" in PORT_FILES
     for f in ("benchmarks/gpu_compute_ecm.py", "core/workload.py",
               "core/autotune.py", "kernels/matmul/ops.py",
-              "kernels/attention/ops.py"):
+              "kernels/attention/ops.py", "core/calibrate.py",
+              "core/diskcache.py", "core/saturation.py",
+              "benchmarks/gpu_calibrate.py", "benchmarks/gpu_scaling_ecm.py",
+              "launch/calibrate.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -64,6 +67,10 @@ def test_import_leaves_jax_out():
         "import repro_torch.benchmarks.gpu_compute_ecm\n"
         "import repro_torch.kernels.matmul.ops, repro_torch.kernels.attention.ops\n"
         "import repro_torch.core.autotune, repro_torch.core.workload\n"
+        "import repro_torch.core.calibrate, repro_torch.core.diskcache\n"
+        "import repro_torch.core.saturation, repro_torch.launch.calibrate\n"
+        "import repro_torch.benchmarks.gpu_calibrate\n"
+        "import repro_torch.benchmarks.gpu_scaling_ecm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

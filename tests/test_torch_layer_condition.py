@@ -175,3 +175,26 @@ def test_gpu_stencil_ecm_conditions_use_the_element_size():
 def test_gpu_stencil_ecm_rejects_a_wrong_shape():
     with pytest.raises(ValueError):
         gpu_stencil_ecm(LC.JACOBI2D, (8, 8, 8), H100_SXM, 4)
+
+
+#: (shape, HBM streams): where no layer condition holds in the card's L2,
+#: the whole-array kernel reads its CTA's 8 + 2 rows once per 8 rows of
+#: output; a held condition is untouched
+NO_CONDITION = [((64, 4_400_000), 2.25), ((64, 2_000_000), 2),
+                ((4, 3_000_000, 3_000_000), 4.25), ((64, 2048, 2048), 4)]
+
+
+@pytest.mark.parametrize("shape,streams", NO_CONDITION)
+def test_gpu_stencil_streams_where_no_condition_holds(shape, streams):
+    from repro_torch.core.gpu_ecm import GRID_CTA_ROWS
+
+    dim = len(shape)
+    spec = dataclasses.replace(LC.STENCILS[f"jacobi{dim}d"], elem_bytes=4)
+    assert GRID_CTA_ROWS == 8
+    assert stencil_hbm_streams(spec, shape, H100_SXM) == streams
+    m = gpu_stencil_ecm(spec, shape, H100_SXM, 4)
+    assert m.t_hbm * H100_SXM.hbm_bytes_per_s / np.prod(shape) == \
+        pytest.approx(4 * streams)
+    # the halo pipeline's tile holds the condition whatever the width
+    block = {2: (1024,), 3: (16, 64)}[dim]
+    assert stencil_hbm_streams(spec, shape, H100_SXM, block=block) == 2

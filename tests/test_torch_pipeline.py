@@ -166,6 +166,43 @@ def test_launch_plan(monkeypatch):
                   map_op="schoenauer", **bf) == (64, 8, 3, 8, 2)
 
 
+def test_launch_plan_reserve(monkeypatch):
+    """One CTA an SM comes with an explicit grid and changes neither
+    blocks nor slots; the wrapper launches with the reserve that over
+    half the card's per-block limit gives, and 0 without it."""
+    props = types.SimpleNamespace(
+        shared_memory_per_block_optin=H100_SXM.smem_per_block_optin,
+        multi_processor_count=H100_SXM.sm_count)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: props)
+    kw = dict(dtype=torch.float32, device=torch.device("cpu"))
+    assert P.plan(1 << 19, block_rows=32, num_stages=2, n_in=2, ctas=48,
+                  map_op="striad", one_cta_per_sm=True, **kw) == \
+        (32, 1 << 14, 2, 48, 2)
+    assert P.plan(1 << 19, block_rows=32, num_stages=2, n_in=1, ctas=7,
+                  one_cta_per_sm=True, **kw) == (32, 1 << 14, 2, 7, 0)
+    with pytest.raises(ValueError, match="pass ctas"):
+        P.plan(1 << 19, block_rows=32, num_stages=2, n_in=2,
+               map_op="striad", one_cta_per_sm=True, **kw)
+    assert P.one_cta_reserve(torch.device("cuda")) == \
+        H100_SXM.smem_per_block_optin // 2 + 1
+    launched = []
+    monkeypatch.setattr(P.MAP_PIPELINE, "launch",
+                        lambda *a: launched.append(a[-2]))
+    monkeypatch.setattr(P.REDUCE_PIPELINE, "launch",
+                        lambda *a: launched.append(a[-2]))
+    monkeypatch.setattr(P, "check_streams", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    meta = torch.empty((1 << 10, P.LANES), device="meta")
+    for one in (True, False):
+        P.map_pipeline("copy", (), (meta,), rows=1 << 10, dtype=torch.float32,
+                       device=meta.device, num_stages=2, block_rows=32,
+                       ctas=4, one_cta_per_sm=one)
+        P.reduce_pipeline("ddot", (meta, meta), num_stages=2, block_rows=32,
+                          ctas=4, one_cta_per_sm=one)
+    assert launched == [H100_SXM.smem_per_block_optin // 2 + 1] * 2 + [0, 0]
+
+
 def test_fused_chain_equals_unfused():
     g = torch.Generator().manual_seed(3)
     b, c = (torch.randn(64 * 128, generator=g) for _ in range(2))

@@ -121,11 +121,49 @@ def test_outputs_identical_across_paths(dt):
             assert torch.equal(_port(name, ts, ns, tdt), base), (name, ns)
 
 
-def test_striad_rmw_matches_reference():
-    js, ts = _inputs(64, jnp.float32, seed=2)
-    want = np.asarray(jops.striad_rmw(S, js[0], js[1], js[2]))
-    got = ops.striad_rmw(S, ts[0], ts[1], ts[2])
-    assert np.array_equal(got.numpy(), want)
+@pytest.mark.parametrize("special", [None, "nan", "inf"])
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_striad_rmw_matches_reference(dt, rows, special):
+    """The plain version the card's one-pass kernel is held against
+    equals the reference's ``a * 0 + b + s * c``, f32 and bf16, with a NaN
+    or an inf placed in ``a`` carried to the output as a NaN."""
+    jdt, _ = DTYPES[dt]
+    rng = np.random.default_rng(2)
+    x = [rng.standard_normal(rows * 128).astype(np.float32) for _ in range(3)]
+    if special:
+        x[0][[3, rows * 128 - 1]] = float(special)
+    js = [jnp.asarray(v, jdt) for v in x]
+    ts = streams_from_numpy([np.asarray(v) for v in js], device="cpu")
+    want = np.asarray(jops.striad_rmw(S, *js)).astype(np.float32)
+    got = ops.striad_rmw(S, *ts)
+    assert got.dtype == ts[0].dtype
+    assert np.array_equal(got.float().numpy(), want, equal_nan=True)
+    assert int(np.isnan(want).sum()) == (2 if special else 0)
+
+
+def test_striad_rmw_card_route(monkeypatch):
+    """On a card tensor (``meta`` here, the wrapper replaced) the op
+    launches the grid map with the one-pass code over its three streams;
+    the pipeline refuses the op, which the reference has no pipelined
+    form of."""
+    calls = []
+
+    def grid_map(op, scalars, ins, **kw):
+        calls.append((op, scalars, len(ins), kw["block_rows"]))
+        return torch.empty((kw["rows"], 128), dtype=kw["dtype"], device="meta")
+
+    monkeypatch.setattr(K, "grid_map", grid_map)
+    a, b, c = (torch.empty(64 * 128, device="meta") for _ in range(3))
+    out = ops.striad_rmw(S, a, b, c)
+    assert out.shape == a.shape
+    assert calls == [("striad_rmw", (S,), 3, K.BLOCK_ROWS)]
+    assert P.MAP_OPS["striad_rmw"] == (6, 1, 3)
+    x = torch.empty((64, 128), device="meta")
+    with pytest.raises(ValueError, match="grid kernel only"):
+        P.map_pipeline("striad_rmw", (S,), (x, x, x), rows=64,
+                       dtype=x.dtype, device=x.device, num_stages=2,
+                       block_rows=32)
 
 
 def test_compare_fails_on_nan_elementwise():
