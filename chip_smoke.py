@@ -9,9 +9,10 @@ It drives the port's paths, the calibration of the card's model
 (``repro_torch.launch.calibrate``), the paper's stream-ECM loop
 (``repro_torch.benchmarks.gpu_stream_ecm.run``), the Jacobi stencil
 loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``), the
-compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``) and
-Eq. 2 over the SMs (``repro_torch.benchmarks.gpu_scaling_ecm.run``), and
-holds every CUDA kernel against its plain PyTorch version.  Phases:
+compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``),
+Eq. 2 over the SMs (``repro_torch.benchmarks.gpu_scaling_ecm.run``) and
+the energy over the SMs (``repro_torch.benchmarks.gpu_energy_ecm.run``),
+and holds every CUDA kernel against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -71,8 +72,14 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    positive and every residual within ``MAX_FIT_RESIDUAL``; the RFO
    ratio and verdict (the CLI fails on an undetermined one, and the
    one-CTA overlap pair must have run: no RFO); the L2 knee and the
-   layer-condition estimate beside ``l2_bytes``; the overlap fit; then a
-   warm run from the same directory, which must fit and measure nothing;
+   layer-condition estimate beside ``l2_bytes``; the overlap fit; the
+   power fit (``ChipPower`` from the card's energy counter over a
+   compute-bound matmul on 1-132 SMs, one CTA an SM, every count checked;
+   a visit whose SM clock leaves 1 % of the law's, or that shows a power
+   cap or a slowdown, raises, which fails the phase), every power field finite and positive with its residual within
+   ``MAX_FIT_RESIDUAL``, beside the idle card's reading and the counter's
+   update period; then a warm run from the same directory, which must
+   fit and measure nothing;
 7. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
    loop at its three full-size points (both loops' models under the prior
    and the calibrated machine), then the compute loop at its four
@@ -89,12 +96,22 @@ holds every CUDA kernel against its plain PyTorch version.  Phases:
    through the pipeline at depth 2 on 1 to 132 CTAs, one an SM (the
    occupancy query says 1), every point checked, ``P(n)`` and both
    ``n_S``;
-9. one JSON line with the ten kernels (the matmul and attention rows with
-   their launches per route, the combine's with the decode's split plan),
-   then the ``ok`` line.
+9. the energy over the SMs against the calibrated machine: ``ddot``,
+   ``copy`` and ``striad`` as in phase 8, each point held at least a
+   second and checked; measured and modelled J, W and s a pass with the
+   two factors (W and s) apart, each point's SM clock and clock event
+   reasons (a clock more than 1 % off the first point's fails), the
+   measured and modelled energy- and EDP-optimal SM counts beside the
+   measured ``n_S`` of phase 8 and of this sweep, and the paper's claim
+   (ii), reported; a reader error fails;
+10. one JSON line with the ten kernels (the matmul and attention rows
+   with their launches per route, the matmul's per path too, the
+   combine's with the decode's split plan), then the ``ok`` line.
 
-The calibration and the Eq. 2 sweep count their launches from 0 too,
-each kernel they run at least once.
+The calibration, the Eq. 2 sweep and the energy sweep count their
+launches from 0 too, each kernel they run at least once; the matmul's
+count in the kernels line adds the power fit's launches to the compute
+loop's.  The time of each phase is printed.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
@@ -198,7 +215,7 @@ NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
 #: the kernels the calibration times (grid sweeps, stencil sweeps, the
 #: one-CTA pair)
 CALIBRATE_KERNELS = ("grid_map", "grid_reduce", "jacobi2d_grid",
-                     "jacobi3d_grid", "map_pipeline")
+                     "jacobi3d_grid", "map_pipeline", "matmul")
 #: which points of the stencil loop each stencil kernel serves
 STENCIL_POINTS = {"halo_pipeline": ("2d", "3d", "3d_lc_broken"),
                   "jacobi2d_grid": ("2d",),
@@ -756,7 +773,12 @@ def _calibrate_phase() -> tuple[list[str], object, dict]:
             cal.reset_counters()
             diskcache.reset_counters()
             t0 = time.perf_counter()
-            rc, report = cli.run(argv)
+            try:
+                rc, report = cli.run(argv)
+            except Exception as e:  # noqa: BLE001 - a reader or sweep error fails the phase
+                failures.append(f"calibrate {run} run raised "
+                                f"{type(e).__name__}: {e}")
+                return failures, None, {"runs": runs}
             runs[run] = {"rc": rc, "s": time.perf_counter() - t0,
                          "fits": cal.CAL_COUNTERS["fits"],
                          "measurements": cal.CAL_COUNTERS["measurements"],
@@ -782,9 +804,13 @@ def _calibrate_phase() -> tuple[list[str], object, dict]:
                 and math.isfinite(f.adopted) and f.adopted > 0):
             failures.append(f"{f.field}: fitted {f.fitted}, adopted "
                             f"{f.adopted}: not finite and positive")
-    if cold.residual_max("bandwidth") > cal.MAX_FIT_RESIDUAL:
-        failures.append(f"bandwidth residual {cold.residual_max('bandwidth')} "
-                        f"over {cal.MAX_FIT_RESIDUAL}")
+    for group in ("bandwidth", "power"):
+        if cold.residual_max(group) > cal.MAX_FIT_RESIDUAL:
+            failures.append(f"{group} residual {cold.residual_max(group)} "
+                            f"over {cal.MAX_FIT_RESIDUAL}")
+    if sorted(f.field for f in cold.fits if f.group == "power") != sorted(
+            f"power.{nm}" for nm in cal.POWER_FIELDS):
+        failures.append("the calibration fitted no power")
     lc = cold.checks["stencil_lc_breaks"]["L2"]
     record = {
         "phase": "calibrate", "runs": runs,
@@ -802,7 +828,9 @@ def _calibrate_phase() -> tuple[list[str], object, dict]:
         "machine_file": str(MACHINE_FILE.relative_to(SRC.parent)),
         "machine_file_round_trips": loaded == cold.machine,
         "calibrated": {k: getattr(cold.machine, k) for k in (
-            "measured_bw", "l2_bytes", "l2_bytes_per_s", "write_allocate")},
+            "measured_bw", "l2_bytes", "l2_bytes_per_s", "write_allocate")}
+        | {"power": vars(cold.machine.power)},
+        "power": cold.checks.get("power"),
     }
     return failures, cold.machine, record
 
@@ -821,6 +849,28 @@ def _scaling_phase(machine) -> tuple[list[str], dict]:
                      for n, (ok, err, tol) in rec["checks"].items() if not ok]
         if set(rec["ms"]) != set(SC.CTAS):
             failures.append(f"scaling {op}: timed {sorted(rec['ms'])}")
+    return failures, report
+
+
+def _energy_phase(machine, scaling: dict) -> tuple[list[str], dict]:
+    """Phase 9: the energy over the SMs against the calibrated machine,
+    beside phase 8's measured ``n_S``."""
+    from repro_torch.benchmarks import gpu_energy_ecm as EN
+    from repro_torch.benchmarks import gpu_scaling_ecm as SC
+
+    try:
+        report = EN.run(machine)
+    except Exception as e:  # noqa: BLE001 - a reader error fails the phase
+        return [f"energy sweep raised {type(e).__name__}: {e}"], {}
+    failures = report["check_failures"] + report["clock_failures"]
+    for op, rec in report["ops"].items():
+        rec["n_s_eq2"] = scaling["ops"][op]["n_s_measured"]
+        if set(rec["points"]) != set(SC.CTAS):
+            failures.append(f"energy {op}: measured {sorted(rec['points'])}")
+        for n, p in rec["points"].items():
+            if not all(math.isfinite(p[k]) and p[k] > 0 for k in (
+                    "joules", "watts", "seconds", "model_joules")):
+                failures.append(f"energy {op} ctas={n}: {p}")
     return failures, report
 
 
@@ -912,8 +962,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build(kernels.SOURCES)
-    print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "sources": list(kernels.SOURCES)}))
+    build_s = time.perf_counter() - t0
+    print(json.dumps({"build_s": build_s, "sources": list(kernels.SOURCES)}))
 
     # 3. correctness at small sizes
     failures = _small_checks()
@@ -1052,8 +1102,9 @@ def main() -> int:
         print(json.dumps({"device": report["device"]}))
         for rec in GC.summary(report):
             print(json.dumps(rec))
+    compute_s = time.perf_counter() - t_path
     print(json.dumps({"path_s": {"stream": stream_s, "stencil": stencil_s,
-                                 "compute": time.perf_counter() - t_path}}))
+                                 "compute": compute_s}}))
     failures += [f"{k} was not launched on its path"
                  for k, v in launches.items() if v == 0]
 
@@ -1071,8 +1122,30 @@ def main() -> int:
     for op, rec in scaling["ops"].items():
         print(json.dumps({"phase": "scaling", "op": op, **rec}))
     failures += scaling_failures
+    scaling_s = time.perf_counter() - t_path
 
-    # 9. the kernels line
+    # 9. the energy over the SMs, its launches counted from 0
+    t_path = time.perf_counter()
+    kernels.reset_launches()
+    energy_failures, energy = _energy_phase(calibrated, scaling)
+    energy_launches = {k.name: k.launches for k in kernels.KERNELS}
+    energy_failures += [f"{k} was not launched by the energy sweep"
+                        for k in ("map_pipeline", "reduce_pipeline")
+                        if not energy_launches[k]]
+    energy_s = time.perf_counter() - t_path
+    print(json.dumps({k: v for k, v in energy.items() if k != "ops"}
+                     | {"phase": "energy", "launches": energy_launches,
+                        "s": energy_s}))
+    for op, rec in energy.get("ops", {}).items():
+        print(json.dumps({"phase": "energy", "op": op, **rec}))
+    failures += energy_failures
+    print(json.dumps({"phase_s": {
+        "build": build_s, "calibrate": record["s"], "stream": stream_s,
+        "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
+        "energy": energy_s}}))
+
+    # 10. the kernels line; the matmul's launches add the power fit's
+    launches["matmul"] += record["launches"]["matmul"]
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
               "reduce": [o for o in G.OPS if o in kernels.pipeline.REDUCE_OPS]}
     rows = []
@@ -1102,6 +1175,9 @@ def main() -> int:
             rec = full["timings"]["ops"][op]
             where = {"op": op, "path": path, "n": full["n"]}
         if k is kernels.MATMUL:
+            where["launches_by_path"] = {
+                "compute": launches["matmul"] - record["launches"]["matmul"],
+                "calibrate (power fit)": record["launches"]["matmul"]}
             where["launches_by_route"] = matmul_routes
             where["by_route"] = {
                 kernels.matmul.kernel.route_of(GC.POINTS[pt].dtype): {

@@ -29,6 +29,27 @@ calibration what it fits:
   depths 1 and 2 (the stream loop's one-SM pair).
 * ``rfo_pair()``: ``striad`` against the one-pass ``striad_rmw``, both on
   the grid map at 2^26, in turns (each turn's time kept in ``info()``).
+* ``power_grid(n_grid, f_grid)``: the card's watts with ``n`` SMs busy,
+  read by ``power.PowerReader`` (the energy counter between two of its
+  updates, each window at least a second).  The law's premise is that
+  each busy SM adds the same power, which holds where the SMs share no
+  bottleneck, so the load is compute-bound: the FFMA route of the
+  matmul, f32, :data:`POWER_BLOCK`, on ``(128, POWER_K) @ (POWER_K, 256
+  n)``, so ``n`` CTAs of one an SM (the registers ``-Xptxas -v`` gave
+  the kernel and its shared memory both allow one; checked).  The counts
+  are visited ascending, then descending; each takes the median of its
+  two readings, so a drift of the card shows as a spread, not a slope.
+  Every count's output is held against the plain ``torch.matmul`` with
+  TF32 off at the reference's f32 tolerance, and a failed check raises.
+  Before the sweep the card idles (no kernel for ``power.IDLE_S``): that
+  reading, with its SM clock, goes beside the fit in ``info()`` and is
+  not fitted.  The port sets no clock, so the card runs at one and
+  ``f_grid`` must hold one.  The law is fitted at that clock, so every
+  visit's SM clock reads must lie within ``power.CLOCK_RTOL`` of it and
+  no visit may show a reason of ``power.SLOWDOWN`` (a power cap or heat
+  that lowered the clock); otherwise the sweep raises with every visit's
+  clock, temperature, watts and reasons (:func:`power_faults`), and
+  nothing is fitted.
 
 There is no CPU path: without the card the backend raises.  The inputs
 are N(0, 1), drawn on the card from a fixed seed.
@@ -43,11 +64,18 @@ import torch
 from ..core import calibrate as cal
 from ..core.gpu_ecm import stream_count
 from ..core.machine import GPUMachineModel
+from ..kernels import _build
 from ..kernels import pipeline as P
+from ..kernels.check import compare
+from ..kernels.matmul import kernel as MK
+from ..kernels.matmul import ops as MO
+from ..kernels.matmul import ref as MR
 from ..kernels.stencil import kernel as SK
 from ..kernels.stream import kernel as K
 from ..kernels.stream import ops
 from . import gpu_stream_ecm as G
+from .gpu_compute_ecm import full_f32
+from .power import CLOCK_RTOL, SLOWDOWN, PowerReader
 from .timing import time_call, time_graph
 
 LANES = P.LANES
@@ -66,6 +94,32 @@ L2_WAVE_CTAS = 3
 L2_PASSES = 5
 #: stencil coefficients (c0 != 0, so both products round)
 STENCIL_COEFFS = {2: (0.3, 0.175), 3: (0.3, 0.1)}
+#: the power sweep's load: an FFMA tile of 128 x 256 outputs, 32 deep, one
+#: CTA an SM, on a K that makes a call ~0.75 ms (K = 8192 would put f32
+#: rounding differences with the plain version at ~5 sigma of the
+#: reference's atol 1e-3; 4096 keeps them at ~10)
+POWER_BLOCK = (128, 256, 32)
+POWER_K = 4096
+#: registers of one SM (Hopper)
+SM_REGISTERS = 65536
+
+
+def power_faults(points, f_ghz: float) -> list[str]:
+    """The power sweep's visits (``Window.summary()`` with ``ctas``) that
+    ran off the clock ``f_ghz`` the law is fitted at: an SM clock read
+    more than CLOCK_RTOL from it, a reason of SLOWDOWN, or no clock read."""
+    mhz = f_ghz * 1e3
+    faults = []
+    for p in points:
+        lo, hi = p.get("sm_mhz_min"), p.get("sm_mhz_max")
+        slow = [r for r in p.get("reasons", ()) if r in SLOWDOWN]
+        if lo is None or slow or max(abs(lo - mhz), abs(hi - mhz)) \
+                > CLOCK_RTOL * mhz:
+            faults.append(
+                f"{p['ctas']} SMs: SM clock {lo}-{hi} MHz against {mhz:g}, "
+                f"{p.get('temp_c_max')} C, {p['watts']:.1f} W, reasons "
+                f"{p.get('reasons')}")
+    return faults
 
 
 def rows_for(ws_bytes: float, streams: int) -> int:
@@ -115,6 +169,7 @@ class CardBackend:
         self.launch_floor_ms: dict[str, float] = {}
         self.rfo_turns_ms: list[tuple[str, float]] = []
         self.l2_passes_s: list[list[float]] = []
+        self.power: dict = {}
 
     def _pool(self, n: int) -> torch.Tensor:
         g = torch.Generator(device=self.device).manual_seed(SEED)
@@ -238,6 +293,76 @@ class CardBackend:
             t[k] += ms * 1e-3 / 2
         return t["striad"], t["striad_rmw"]
 
+    def power_ctas_per_sm(self) -> dict:
+        """CTAs of the power sweep's kernel an SM holds, by its registers
+        (``-Xptxas -v``, allocated in 8s a thread) and by its shared
+        memory; the library must be built."""
+        bm, bn, bk = POWER_BLOCK
+        tag = f"matmul_ffma<{bm}, {bn}, {bk}, {MK.FFMA_STAGES}>"
+        entry = next(e for e in _build.ptxas_report("matmul")
+                     if tag in e["kernel"])
+        regs = -(-entry["registers"] // 8) * 8 * MK.FFMA_THREADS
+        props = torch.cuda.get_device_properties(self.device)
+        smem = MK.smem_bytes(bm, bn, bk, torch.float32)
+        return {"kernel": entry["kernel"], "registers": entry["registers"],
+                "spill_stores": entry["spill_stores"], "smem_bytes": smem,
+                "by_registers": SM_REGISTERS // regs,
+                "by_smem": props.shared_memory_per_multiprocessor // smem}
+
+    def power_grid(self, n_grid, f_grid) -> np.ndarray:
+        """``(1, N)`` watts of the card with ``n`` SMs busy for each ``n``
+        of ``n_grid``, at the card's one clock (module notes)."""
+        if len(f_grid) != 1:
+            raise ValueError(f"the card runs at one clock; a power grid over "
+                             f"{list(f_grid)} GHz needs clocks set")
+        cal.CAL_COUNTERS["measurements"] += 1
+        reader = PowerReader(self.device)
+        period = reader.update_period()
+        idle = reader.idle()
+        bm, bn, bk = POWER_BLOCK
+        g = torch.Generator(device=self.device).manual_seed(SEED)
+        x = torch.randn(bm, POWER_K, generator=g, device=self.device)
+        pool = torch.randn(POWER_K * bn * max(n_grid), generator=g,
+                           device=self.device)
+        checks, readings = {}, {n: [] for n in n_grid}
+        points = []
+        for n in list(n_grid) + list(n_grid)[::-1]:
+            y = pool[:POWER_K * bn * n].view(POWER_K, bn * n)
+            call = (lambda y=y: MO.matmul(x, y, bm=bm, bn=bn, bk=bk))
+            if n not in checks:
+                with full_f32():
+                    checks[n] = compare(call(), MR.matmul(x, y),
+                                        tol=MR.TOLERANCE[torch.float32])
+                if not checks[n][0]:
+                    raise RuntimeError(f"power sweep: the matmul on {n} CTAs "
+                                       f"differs from its plain version: "
+                                       f"{checks[n]}")
+            w = reader.run(call)
+            readings[n].append(w.watts)
+            points.append({"ctas": n, **w.summary()})
+        faults = power_faults(points, f_grid[0])
+        if faults:
+            raise RuntimeError(f"power sweep: the card left the {f_grid[0]} "
+                               f"GHz the law is fitted at: {faults}")
+        occupancy = self.power_ctas_per_sm()
+        if min(occupancy["by_registers"], occupancy["by_smem"]) != 1:
+            raise RuntimeError(f"power sweep: not one CTA an SM: {occupancy}")
+        watts = [float(np.median(readings[n])) for n in n_grid]
+        self.power = {
+            "counter_period_s": period,
+            "counter_updates_per_s": reader.updates_per_s,
+            "counter_read_s": reader.read_s,
+            "power_limit_w": reader.power_limit_w(), "bus_id": reader.bus_id,
+            "idle": idle.summary(), "block": list(POWER_BLOCK), "k": POWER_K,
+            "ctas_per_sm": occupancy, "points": points,
+            "watts": dict(zip(n_grid, watts)),
+            "spread": {n: abs(r[0] - r[-1]) / float(np.median(r))
+                       for n, r in readings.items()},
+            "checks": checks}
+        del pool
+        torch.cuda.empty_cache()
+        return np.array([watts])
+
     def info(self) -> dict:
         """What the measurements rest on, for the report's checks."""
         return {"device": torch.cuda.get_device_name(self.device),
@@ -248,4 +373,5 @@ class CardBackend:
                 "l2_wave_ctas": L2_WAVE_CTAS,
                 "l2_passes_s": self.l2_passes_s,
                 "stencil_rows": dict(cal.STENCIL_ROWS),
-                "block_rows": K.BLOCK_ROWS}
+                "block_rows": K.BLOCK_ROWS,
+                "power": self.power}

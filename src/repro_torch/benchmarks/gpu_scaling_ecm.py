@@ -19,7 +19,8 @@ Table I kernel at 2^26 f32 elements a stream:
   (:func:`one_sm_ecm`): ``T_OL`` the op's lane operations on one SM's
   128 lanes, then the row's bytes from L2 at ``l2_bytes_per_s /
   sm_count`` (SM <- L2) and from HBM at ``sustained_bw(op)`` (L2 <- HBM,
-  the paper's ``T_L3Mem`` and the shared bottleneck), in cycles per row;
+  the paper's ``T_L3Mem`` and the shared bottleneck), in cycles per row
+  (``core/gpu_ecm.py`` ``one_sm_ecm``);
   ``n_S = ceil(T_ECM / T_HBM)``, beside ``ceil(T_1 / T_HBM)`` from the
   measured one-CTA time ``T_1`` (the paper reads both).
 
@@ -39,8 +40,7 @@ import math
 
 import torch
 
-from ..core.ecm import ECMModel
-from ..core.gpu_ecm import LANES, lane_ops, stream_count
+from ..core.gpu_ecm import LANES, SM_COUNTS, one_sm_ecm, stream_count
 from ..core.machine import GPUMachineModel, load_machine_file
 from ..core.saturation import ScalingModel
 from ..kernels import pipeline as P
@@ -48,9 +48,8 @@ from ..kernels.check import compare
 from . import gpu_stream_ecm as G
 from .timing import time_call
 
-#: the CTA counts of the sweep: powers of two, the steps of 16 past 32, and
-#: every SM of an H100
-CTAS = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128, 132)
+#: the CTA counts of the sweep, one CTA an SM
+CTAS = SM_COUNTS
 DEPTH = 2
 BLOCK_ROWS = 32
 #: the share of P(all SMs) that counts as saturated
@@ -58,24 +57,6 @@ SATURATED = 0.95
 OPS = ("load", "ddot", "store", "update", "copy", "striad", "schoenauer")
 #: calls per timed repeat: a one-CTA call streams up to 1 GB through one SM
 FEW_CTAS_INNER, FEW_CTAS = 2, 16
-
-
-def one_sm_ecm(name: str, machine: GPUMachineModel) -> ECMModel:
-    """The one-SM ECM of a Table I kernel, cycles per 128-lane f32 row:
-    ``T_OL`` = its lane operations over one SM's lanes, transfers SM <- L2
-    at ``l2_bytes_per_s / sm_count`` and L2 <- HBM at
-    ``sustained_bw(name)``.  Needs a calibrated ``l2_bytes_per_s``."""
-    if machine.l2_bytes_per_s is None:
-        raise ValueError("the one-SM model needs the L2 plateau: calibrate "
-                         "the machine first (repro_torch.launch.calibrate)")
-    row_bytes = stream_count(name) * LANES * 4
-    t_l2 = row_bytes * machine.clock_hz / (machine.l2_bytes_per_s
-                                           / machine.sm_count)
-    t_hbm = row_bytes * machine.clock_hz / machine.sustained_bw(name, "_stream")
-    return ECMModel(t_ol=lane_ops(name) * LANES / machine.fp32_lanes_per_sm,
-                    t_nol=0.0, transfers=(t_l2, t_hbm),
-                    levels=("REG", "L2", "HBM"), unit="cy/row",
-                    name=f"sm-{name}")
 
 
 def saturation_point(gbps: dict, ctas=CTAS) -> int:

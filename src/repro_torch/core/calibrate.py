@@ -43,6 +43,19 @@ the same microbenchmarks that validate the model.  On the card:
      is 1.0.  A ratio within :data:`RFO_BAND` of one of them decides;
      outside both the verdict is "undetermined", ``write_allocate`` keeps
      its prior and the CLI fails.  Recorded in ``checks``.
+   * ``power`` (a :class:`~.machine.ChipPower`): the card's power over
+     the SMs (``backend.power_grid`` at :func:`power_counts` SMs and the
+     machine's clocks).  With 3 or more clocks, the reference's OLS of
+     ``P = idle + n (static + lin f + quad f^2)`` over all four
+     coefficients.  With one clock (a card whose clocks cannot be set)
+     the design ``[1, n, n f, n f^2]`` has rank 2: the fit takes the two
+     quantities the grid identifies, ``idle_watts`` (the intercept at the
+     running clock) and the per-SM slope at that clock, and splits the
+     slope over ``static``, ``lin`` and ``quad`` in the prior's
+     proportions at that clock, with one fitted scale; each field's note
+     says so.  With two clocks, as in the reference, the priors stay.
+     The residual is the rms relative misfit of the fitted law to the
+     grid.
    * the one-SM overlap pair (``pipeline_pair``, where the verdict is "no
      RFO") gives ``sm.exposed_hbm_fraction``.  It is kept in
      the provenance, not stored in the machine: the pair describes one
@@ -56,9 +69,8 @@ the same microbenchmarks that validate the model.  On the card:
    file with its provenance.  Reports are cached in :mod:`.diskcache`
    under the prior machine's fingerprint, so a warm rerun fits nothing.
 
-Left out: the reference's simulator backend, its ECM-forward inversion
-for hierarchies a simulator cannot sweep (the card can sweep), and the
-power fit (one card at one clock is rank-deficient).
+Left out: the reference's simulator backend and its ECM-forward
+inversion for hierarchies a simulator cannot sweep (the card can sweep).
 
 This module imports no kernel.
 """
@@ -74,11 +86,11 @@ import numpy as np
 
 from . import diskcache
 from .ecm import ECMBatch, ECMModel
-from .gpu_ecm import (LANES, gpu_stencil_ecm, gpu_stream_ecm, measured_overlap,
-                      stream_count)
+from .gpu_ecm import (LANES, SM_COUNTS, gpu_stencil_ecm, gpu_stream_ecm,
+                      measured_overlap, stream_count)
 from .layer_condition import LC_SAFETY, STENCILS
-from .machine import (GPUMachineModel, machine_from_dict, machine_to_dict,
-                      save_machine_file)
+from .machine import (ChipPower, GPUMachineModel, machine_from_dict,
+                      machine_to_dict, save_machine_file)
 
 #: Default snap tolerance: fits within this relative distance of the
 #: prior adopt the prior bit-identically.
@@ -133,7 +145,7 @@ class FieldFit:
     residual against the measurement."""
 
     field: str                 # e.g. "measured_bw[copy]", "l2_bytes"
-    group: str                 # bandwidth | capacity | overlap
+    group: str                 # bandwidth | capacity | overlap | power
     prior: float
     fitted: float
     adopted: float
@@ -158,7 +170,7 @@ class CalibrationReport:
     backend: str
     snap_rtol: float
     wall_s: float
-    checks: dict = field(default_factory=dict)   # RFO, knee, LC breaks
+    checks: dict = field(default_factory=dict)   # RFO, knee, LC, power
     from_cache: bool = False
 
     def residual_max(self, group: str | None = None) -> float:
@@ -670,6 +682,83 @@ def _fit_overlap(machine, backend, rfo, snap_rtol, meas, fits):
     CAL_COUNTERS["fits"] += 1
 
 
+def power_counts(machine: GPUMachineModel) -> tuple[int, ...]:
+    """SM counts of the power grid: the Eq. 2 counts up to the card's."""
+    return tuple(n for n in SM_COUNTS if n <= machine.sm_count)
+
+
+POWER_FIELDS = ("idle_watts", "static_per_core", "dyn_lin", "dyn_quad")
+
+
+def _fit_power(machine, backend, snap_rtol, meas, fits, checks) -> ChipPower:
+    """``ChipPower`` from the power grid over (clocks x active SMs) at
+    :func:`power_counts` (§III-D): the reference's OLS with 3 or more
+    clocks, the one-clock split (module notes) with one, the priors with
+    two."""
+    prior = machine.power
+    f_grid = machine.frequency_grid()
+    n_grid = list(power_counts(machine))
+    clocks = len(set(f_grid))
+    if clocks == 2 or len(n_grid) < 2:
+        for nm in POWER_FIELDS:
+            p = float(getattr(prior, nm))
+            fits.append(FieldFit(
+                field=f"power.{nm}", group="power", prior=p, fitted=p,
+                adopted=p, residual=0.0, n_points=0, snapped=True,
+                note="fewer than 3 DVFS points: P(n,f) design matrix is "
+                     "rank-deficient; priors retained"))
+            CAL_COUNTERS["fits"] += 1
+        return prior
+    grid = np.asarray(backend.power_grid(n_grid, f_grid), float)   # (F, N)
+    meas.append(("power_grid", grid))
+    if clocks >= 3:
+        rows, y = [], []
+        for i, f in enumerate(f_grid):
+            for j, n in enumerate(n_grid):
+                rows.append([1.0, n, n * f, n * f * f])
+                y.append(grid[i, j])
+        A = np.array(rows)
+        yv = np.array(y)
+        coef, *_ = np.linalg.lstsq(A, yv, rcond=None)
+        pred = A @ coef
+        notes = ("",) * 4
+    else:
+        f = float(f_grid[0])
+        yv = grid[0]
+        A = np.stack([np.ones(len(n_grid)), np.asarray(n_grid, float)], axis=1)
+        (idle, slope), *_ = np.linalg.lstsq(A, yv, rcond=None)
+        pred = A @ np.array([idle, slope])
+        prior_slope = (prior.static_per_core + prior.dyn_lin * f
+                       + prior.dyn_quad * f * f)
+        scale = slope / prior_slope
+        coef = (idle, scale * prior.static_per_core, scale * prior.dyn_lin,
+                scale * prior.dyn_quad)
+        split = (f"one clock ({f:g} GHz): [1, n, n f, n f^2] has rank 2; "
+                 f"the per-SM slope {slope:.6g} W at {f:g} GHz is split over "
+                 f"static/lin/quad in the prior's proportions (scale "
+                 f"{scale:.6g})")
+        notes = (f"one clock ({f:g} GHz): the intercept at the running clock",
+                 split, split, split)
+        checks["power"] = {"f_ghz": f, "slope_w_per_sm": float(slope),
+                           "prior_slope_w_per_sm": float(prior_slope),
+                           "scale": float(scale)}
+    resid = _rms_rel(yv, pred)
+    checks.setdefault("power", {}).update(
+        {"n": n_grid, "f_grid_ghz": list(f_grid), "watts": grid.tolist(),
+         "residual": resid})
+    kwargs = {}
+    for nm, fitted, note in zip(POWER_FIELDS, coef, notes):
+        p = float(getattr(prior, nm))
+        adopted, snapped = _snap(float(fitted), p, snap_rtol)
+        fits.append(FieldFit(
+            field=f"power.{nm}", group="power", prior=p,
+            fitted=float(fitted), adopted=adopted, residual=resid,
+            n_points=len(yv), snapped=snapped, note=note))
+        CAL_COUNTERS["fits"] += 1
+        kwargs[nm] = adopted
+    return ChipPower(**kwargs)
+
+
 # ---------------------------------------------------------------------------
 # The runner
 # ---------------------------------------------------------------------------
@@ -708,12 +797,15 @@ def calibrate(machine: GPUMachineModel, *, backend,
                                            fits))
     l2_bytes, l2_rate = _fit_capacity(machine, backend, snap_rtol, meas, fits,
                                       checks)
+    # last: the power sweep loads every SM, which would warm the card
+    # under the bandwidth sweeps
+    power = _fit_power(machine, backend, snap_rtol, meas, fits, checks)
     checks["backend"] = backend.info()
 
     fitted_m = dataclasses.replace(
         machine, measured_bw={**machine.measured_bw, **fitted_bw},
         l2_bytes=l2_bytes, l2_bytes_per_s=l2_rate,
-        write_allocate=checks["rfo"]["write_allocate"])
+        write_allocate=checks["rfo"]["write_allocate"], power=power)
     wall = time.perf_counter() - t0
     h = hashlib.sha256()
     for label, arr in meas:
@@ -755,6 +847,19 @@ def format_report(report: CalibrationReport) -> str:
         lines.append(f"L2 knee at ws {cap['knee_ws_bytes']} B beside "
                      f"l2_bytes {cap['l2_bytes']} B; layer-condition "
                      f"estimate {lc.get('capacity_est', 'not detected')} B")
+    pw = report.checks.get("power")
+    if pw:
+        p = report.machine.power
+        lines.append(
+            f"power: P(n, f) = {p.idle_watts:.4g} W + n ({p.static_per_core:.4g}"
+            f" + {p.dyn_lin:.4g} f + {p.dyn_quad:.4g} f^2) W over n = "
+            f"{pw['n'][0]}-{pw['n'][-1]} SMs at {pw['f_grid_ghz']} GHz, "
+            f"residual {pw['residual']:.4f}")
+    idle = report.checks.get("backend", {}).get("power", {}).get("idle")
+    if idle:
+        lines.append(f"idle card (no kernel {idle['window_s']:.3g} s, not "
+                     f"fitted): {idle['watts']:.4g} W at SM "
+                     f"{idle.get('sm_mhz')} MHz")
     lines.append(
         f"max residual {report.residual_max():.3f}; "
         f"{sum(1 for f in report.fits if f.snapped)}/{len(report.fits)} "

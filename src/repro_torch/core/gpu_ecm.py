@@ -10,7 +10,9 @@ in the reference) wait for the multi-card slices of the port.
 :func:`gpu_stencil_ecm` builds the step model of one Jacobi sweep, with
 its HBM traffic from the layer condition of the card's L2;
 :func:`gpu_matmul_ecm` and :func:`gpu_attention_ecm` those of the
-compute-bound kernels, with their traffic laws evaluated at the L2.
+compute-bound kernels, with their traffic laws evaluated at the L2;
+:func:`one_sm_ecm` the one-SM ECM of a stream kernel that Eq. 2 and the
+energy model scale over the SMs (at the counts in :data:`SM_COUNTS`).
 """
 from __future__ import annotations
 
@@ -26,6 +28,10 @@ from .workload import AttentionWorkload, MatmulWorkload
 
 #: f32 elements of one row of the stream layout, the ECM's unit of work
 LANES = 128
+#: the SM counts the card is measured at over the SMs (Eq. 2, the power
+#: fit, the energy sweep): powers of two, the steps of 16 past 32, and
+#: every SM of an H100
+SM_COUNTS = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128, 132)
 
 
 @dataclass(frozen=True)
@@ -120,6 +126,24 @@ def gpu_stream_ecm(name: str, machine: GPUMachineModel) -> ECMModel:
                                    / machine.clock_hz)
     return ECMModel(t_ol=t_comp, t_nol=0.0, transfers=(t_hbm,),
                     levels=("REG", "HBM"), unit="cy/row", name=f"gpu-{name}")
+
+
+def one_sm_ecm(name: str, machine: GPUMachineModel) -> ECMModel:
+    """The one-SM ECM of a Table I kernel, cycles per 128-lane f32 row:
+    ``T_OL`` = its lane operations over one SM's lanes, transfers SM <- L2
+    at ``l2_bytes_per_s / sm_count`` and L2 <- HBM at
+    ``sustained_bw(name)``.  Needs a calibrated ``l2_bytes_per_s``."""
+    if machine.l2_bytes_per_s is None:
+        raise ValueError("the one-SM model needs the L2 plateau: calibrate "
+                         "the machine first (repro_torch.launch.calibrate)")
+    row_bytes = stream_count(name) * LANES * 4
+    t_l2 = row_bytes * machine.clock_hz / (machine.l2_bytes_per_s
+                                           / machine.sm_count)
+    t_hbm = row_bytes * machine.clock_hz / machine.sustained_bw(name, "_stream")
+    return ECMModel(t_ol=lane_ops(name) * LANES / machine.fp32_lanes_per_sm,
+                    t_nol=0.0, transfers=(t_l2, t_hbm),
+                    levels=("REG", "L2", "HBM"), unit="cy/row",
+                    name=f"sm-{name}")
 
 
 #: rows of the sweep plane one CTA of the whole-array Jacobi kernels

@@ -8,9 +8,15 @@ paper's core.  What the device reports about itself is read from it
 vendor's data sheet, chosen by card name, and are listed in ``priors``.
 The calibration (``core/calibrate.py``) measures what the card sustains
 and keeps it beside the priors: ``measured_bw`` per kernel, the L2
-plateau ``l2_bytes_per_s``, a fitted ``l2_bytes`` and the RFO verdict
-``write_allocate``.  Predictions read ``sustained_bw``; bounds keep the
-data-sheet ``hbm_bytes_per_s``, the card's limit.
+plateau ``l2_bytes_per_s``, a fitted ``l2_bytes``, the RFO verdict
+``write_allocate`` and the chip power ``power`` (a :class:`ChipPower`
+fitted from the card's own energy counter, its prior chosen by card name
+from :data:`POWER_PRIORS`).  The port sets no clock, so a card runs at
+one, ``clock_hz``: the reference's frequency fields (``f_steps_ghz``,
+``bw_freq_coupled``, ``coupling_floor``) have nothing to hold, and the
+energy grids run at :attr:`GPUMachineModel.nominal_ghz` only.
+Predictions read ``sustained_bw``; bounds keep the data-sheet
+``hbm_bytes_per_s``, the card's limit.
 
 A fitted machine is saved as a versioned machine file
 (:func:`save_machine_file`); the port has no machine registry.
@@ -42,6 +48,48 @@ _PRIOR_FIELDS = ("hbm_bytes_per_s", "peak_f32_flops", "peak_bf16_tensor_flops",
 
 
 @dataclass(frozen=True)
+class ChipPower:
+    """Chip power as a function of active SMs and frequency (GHz):
+    ``P(n, f) = idle + n * (static + lin * f + quad * f**2)`` (paper
+    §III-D), the reference's ``ChipPower`` with the SM as the core.
+
+    Per-card calibration data, carried on :attr:`GPUMachineModel.power` as
+    ``measured_bw`` carries the sustained rates.  There are no defaults:
+    the reference's are a Haswell fit, and a card's prior is its own
+    (:data:`POWER_PRIORS`)."""
+
+    idle_watts: float
+    static_per_core: float        # W per active SM
+    dyn_lin: float                # W per SM per GHz
+    dyn_quad: float               # W per SM per GHz^2
+
+    def watts(self, n_cores, f_ghz):
+        """Power draw; accepts scalars or broadcastable NumPy arrays."""
+        return self.idle_watts + n_cores * (
+            self.static_per_core + self.dyn_lin * f_ghz
+            + self.dyn_quad * f_ghz**2
+        )
+
+
+#: Chip-power priors by card name: a prior, not a measurement; the
+#: calibration fits the card's own (``core/calibrate.py`` ``_fit_power``).
+#: H100 SXM: ``watts(132, 1.98)`` is the data sheet's 700 W board limit at
+#: the boost clock.  The split is this port's assumption: 100 W with no SM
+#: active (a guess at the draw of a card that runs no kernel), and each
+#: SM's share of the rest taken as 1/5 static (leakage, which grows with
+#: the voltage but not the clock), 1/5 linear and 3/5 quadratic in the
+#: clock (switching power is C V^2 f, and the voltage rises with the
+#: clock along the card's DVFS curve).
+_H100_PER_SM = (700.0 - 100.0) / 132          # W an SM at 1.98 GHz
+POWER_PRIORS: dict[str, ChipPower] = {
+    "NVIDIA H100 80GB HBM3": ChipPower(
+        idle_watts=100.0, static_per_core=0.2 * _H100_PER_SM,
+        dyn_lin=0.2 * _H100_PER_SM / 1.98,
+        dyn_quad=0.6 * _H100_PER_SM / 1.98**2),
+}
+
+
+@dataclass(frozen=True)
 class GPUMachineModel:
     """One GPU as the stream-ECM model sees it.
 
@@ -56,6 +104,9 @@ class GPUMachineModel:
     measured); ``write_allocate`` says whether a store reads its line
     first (an RFO stream).  With an empty ``measured_bw`` every
     prediction takes the data-sheet rate, as before calibration.
+
+    ``power`` is the chip power over the SMs (§III-D): the card's prior
+    from :data:`POWER_PRIORS` until the calibration fits it.
     """
 
     name: str
@@ -67,6 +118,7 @@ class GPUMachineModel:
     peak_f32_flops: float
     peak_bf16_tensor_flops: float
     clock_hz: float
+    power: ChipPower
     fp32_lanes_per_sm: int = 128
     priors: tuple[str, ...] = _PRIOR_FIELDS
     exposed_hbm_fraction: float = 0.0
@@ -78,8 +130,9 @@ class GPUMachineModel:
     def from_device(cls, device) -> "GPUMachineModel":
         """Read the card's own properties; take the rates from DATASHEET.
 
-        Raises ``ValueError`` on a card the data-sheet table does not
-        know, rather than guessing its rates.
+        Raises ``ValueError`` on a card the data-sheet table or the
+        power priors do not know, rather than guessing its rates or its
+        power.
         """
         import torch
 
@@ -89,12 +142,17 @@ class GPUMachineModel:
             raise ValueError(
                 f"no data-sheet rates for {props.name!r}; known cards: "
                 f"{sorted(DATASHEET)}")
+        if props.name not in POWER_PRIORS:
+            raise ValueError(
+                f"no power prior for {props.name!r}; known cards: "
+                f"{sorted(POWER_PRIORS)}")
         return cls(
             name=props.name,
             sm_count=props.multi_processor_count,
             l2_bytes=props.L2_cache_size,
             memory_bytes=props.total_memory,
             smem_per_block_optin=props.shared_memory_per_block_optin,
+            power=POWER_PRIORS[props.name],
             **rates,
         )
 
@@ -116,6 +174,15 @@ class GPUMachineModel:
                 return self.measured_bw[k]
         return self.hbm_bytes_per_s if default is None else default
 
+    @property
+    def nominal_ghz(self) -> float:
+        """The SM clock in GHz (the ECM models' clock domain)."""
+        return self.clock_hz / 1e9
+
+    def frequency_grid(self) -> tuple[float, ...]:
+        """Clocks of the energy and EDP grids: the card's one clock."""
+        return (self.nominal_ghz,)
+
 
 #: The H100 SXM as its data sheet and the Hopper tuning guide describe it
 #: (132 SMs, 50 MB L2, 80 GB HBM3, 227 KB of shared memory per block by
@@ -127,13 +194,14 @@ H100_SXM = GPUMachineModel(
     l2_bytes=50 * 1024**2,
     memory_bytes=80 * 1024**3,
     smem_per_block_optin=232448,
+    power=POWER_PRIORS["NVIDIA H100 80GB HBM3"],
     **DATASHEET["NVIDIA H100 80GB HBM3"],
 )
 
 
 #: Version of the machine-file schema; a file of another schema is
-#: rejected, not guessed at.
-MACHINE_SCHEMA_VERSION = 1
+#: rejected, not guessed at.  2: the ``power`` field.
+MACHINE_SCHEMA_VERSION = 2
 #: ``kind`` of a port machine file (the reference's files are
 #: ``ecm-machine``; neither package reads the other's)
 MACHINE_FILE_KIND = "gpu-machine"
@@ -172,6 +240,8 @@ def machine_from_dict(data: dict) -> GPUMachineModel:
         d["priors"] = tuple(d["priors"])
     if "measured_bw" in d:
         d["measured_bw"] = {k: float(v) for k, v in d["measured_bw"].items()}
+    if "power" in d:
+        d["power"] = ChipPower(**{k: float(v) for k, v in d["power"].items()})
     return GPUMachineModel(**d)
 
 

@@ -6,6 +6,10 @@ builds the card's prior (``GPUMachineModel.from_device``: what the card
 reports, the data sheet's rates), measures it with the card backend
 (``benchmarks/gpu_calibrate.py``), fits every calibration field
 (``core/calibrate.py``), prints the fit table and writes the machine file.
+The table holds the power fit too (``power.idle_watts``,
+``power.static_per_core``, ``power.dyn_lin``, ``power.dyn_quad``, the
+fitted law and its residual), beside the idle card's reading, which is
+not fitted.
 It checks that the file loads back to the fitted machine, and exits 1
 when a field's fit residual exceeds the bound or the RFO check decides
 neither way.  With ``--cache-dir`` (or

@@ -6,7 +6,9 @@ known pipeline pair are recovered; measurements at the prior snap every
 field bit-identically; a response that does not bracket keeps its prior;
 the machine file round-trips and refuses what it does not know; a warm
 cache fits nothing; the CLI exits 0, 1 above the bound, and non-zero
-without a card."""
+without a card.  The synthetic card's power grid is its ``ChipPower``
+over the SM counts (the power fit's own tests are in
+``test_torch_power.py``)."""
 import dataclasses
 import json
 import math
@@ -45,8 +47,11 @@ class SyntheticBackend:
     name = "synthetic"
 
     def __init__(self, machine, *, bw=None, stencil_bw=None, l2_rate=TRUE_L2_RATE,
-                 cap=TRUE_CAP, pair=PAIR, rfo_ratio=4 / 3, noise=0.0):
+                 cap=TRUE_CAP, pair=PAIR, rfo_ratio=4 / 3, noise=0.0,
+                 power=None, power_noise=0.0):
         self.machine = machine
+        self.power = power or machine.power
+        self.power_noise = power_noise
         self.bw = bw or TRUE_BW
         self.stencil_bw = stencil_bw or TRUE_STENCIL_BW
         self.l2_rate = l2_rate
@@ -84,6 +89,14 @@ class SyntheticBackend:
 
     def pipeline_pair(self):
         return self.pair
+
+    def power_grid(self, n_grid, f_grid):
+        """``(F, N)`` watts of the synthetic card's ``ChipPower``, with an
+        alternating +-power_noise over the SM counts."""
+        self.measured += 1
+        n = np.asarray(n_grid, float)
+        wobble = 1 + self.power_noise * (-1.0) ** np.arange(len(n))
+        return np.array([self.power.watts(n, f) * wobble for f in f_grid])
 
     def rfo_pair(self):
         return 1.0e-3, self.rfo_ratio * 1.0e-3

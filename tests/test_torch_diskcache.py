@@ -13,7 +13,7 @@ pytest.importorskip("torch")
 
 from repro.core import diskcache as jdiskcache  # noqa: E402
 from repro_torch.core import diskcache  # noqa: E402
-from repro_torch.core.machine import H100_SXM, GPUMachineModel  # noqa: E402
+from repro_torch.core.machine import H100_SXM, ChipPower, GPUMachineModel  # noqa: E402
 
 
 @pytest.fixture
@@ -91,7 +91,8 @@ def test_stable_form_matches_reference():
 
 _BUMPS = {int: lambda v: v + 1, float: lambda v: v * 1.5 + 0.25, str: lambda v: v + "x",
           bool: lambda v: not v, tuple: lambda v: v + ("x",),
-          dict: lambda v: {**v, "copy": 1.0}, type(None): lambda v: 1.0}
+          dict: lambda v: {**v, "copy": 1.0}, type(None): lambda v: 1.0,
+          ChipPower: lambda v: dataclasses.replace(v, idle_watts=v.idle_watts + 1)}
 
 
 @pytest.mark.parametrize("name", [f.name for f in

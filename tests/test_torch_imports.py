@@ -45,7 +45,8 @@ def test_port_files_exist():
               "kernels/attention/ops.py", "core/calibrate.py",
               "core/diskcache.py", "core/saturation.py",
               "benchmarks/gpu_calibrate.py", "benchmarks/gpu_scaling_ecm.py",
-              "launch/calibrate.py"):
+              "launch/calibrate.py", "core/scaling.py", "core/energy.py",
+              "benchmarks/power.py", "benchmarks/gpu_energy_ecm.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -71,6 +72,9 @@ def test_import_leaves_jax_out():
         "import repro_torch.core.saturation, repro_torch.launch.calibrate\n"
         "import repro_torch.benchmarks.gpu_calibrate\n"
         "import repro_torch.benchmarks.gpu_scaling_ecm\n"
+        "import repro_torch.core.scaling, repro_torch.core.energy\n"
+        "import repro_torch.benchmarks.power\n"
+        "import repro_torch.benchmarks.gpu_energy_ecm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
