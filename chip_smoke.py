@@ -10,9 +10,11 @@ It drives the port's paths, the calibration of the card's model
 (``repro_torch.benchmarks.gpu_stream_ecm.run``), the Jacobi stencil
 loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``), the
 compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``),
-Eq. 2 over the SMs (``repro_torch.benchmarks.gpu_scaling_ecm.run``) and
-the energy over the SMs (``repro_torch.benchmarks.gpu_energy_ecm.run``),
-and holds every CUDA kernel against its plain PyTorch version.  Phases:
+Eq. 2 over the SMs (``repro_torch.benchmarks.gpu_scaling_ecm.run``),
+the energy over the SMs (``repro_torch.benchmarks.gpu_energy_ecm.run``)
+and the dense LM internlm2-1.8b through the serve launcher
+(``repro_torch.launch.serve.serve``), and holds every CUDA kernel against
+its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -104,19 +106,43 @@ and holds every CUDA kernel against its plain PyTorch version.  Phases:
    measured and modelled energy- and EDP-optimal SM counts beside the
    measured ``n_S`` of phase 8 and of this sweep, and the paper's claim
    (ii), reported; a reader error fails;
-10. one JSON line with the ten kernels (the matmul and attention rows
+10. internlm2-1.8b at full width and all 24 layers, random weights
+   drawn from SEED on the card: first the flash-attention op alone at the
+   model's prefill shape (B 8, S 2048, 16 heads, 8 KV heads, d 128,
+   causal, bf16) within the reference's tolerance of its plain version,
+   timed at every compiled prefill tiling beside its plain version, SDPA
+   (the compute loop's efficient backend on KV repeated, and the backend
+   SDPA picks itself with ``enable_gqa``) and its bounds on the bf16
+   tensor cores and on FFMA; then the model served (prompt 2048, batch 8)
+   in f32 with ``attn_impl`` chunked (the plain version) and flash (the
+   kernel), 4 decode steps each: every flash prefill launches the tile
+   route exactly once a layer and the split route never, every logit is
+   finite, the flash prefill's last-position logits are within 2e-3 of
+   the chunked ones, and its prefill and decode logits within 2e-3 of a
+   teacher-forced dense forward of the tokens it was fed; then in bf16
+   (the parameters cast once), 32 decode steps each way: prefill and
+   decode times and tokens/s, the model FLOP rate against the bf16 peak,
+   decode against the bytes of the weights (and of the cache) a step
+   reads, the device's idle share in decode (a CUDA graph's replay of one
+   step against the eager step), the attention kernel's share of prefill,
+   and the bf16 flash-chunked logit difference, reported, not gated;
+11. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
-   combine's with the decode's split plan), then the ``ok`` line.
+   attention's per path with the model phase's beside the compute
+   loop's and its time at the model's shape, the combine's with the
+   decode's split plan), then the ``ok`` line.
 
-The calibration, the Eq. 2 sweep and the energy sweep count their
-launches from 0 too, each kernel they run at least once; the matmul's
-count in the kernels line adds the power fit's launches to the compute
-loop's.  The time of each phase is printed.
+The calibration, the Eq. 2 sweep, the energy sweep and the model's
+served runs count their launches from 0 too, each kernel they run at
+least once; the matmul's count in the kernels line adds the power fit's
+launches to the compute loop's, the attention's the served runs'.  The
+time of each phase is printed.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -212,6 +238,19 @@ NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
                         ((1, 192, 192, 4, 2, 64), False),
                         ((2, 256, 256, 8, 2, 16), True),
                         ((2, 256, 256, 8, 2, 32), False))
+#: the model phase: internlm2-1.8b at full width and depth, served
+#: through the port's launcher for a prompt batch of MODEL_BATCH x
+#: MODEL_PROMPT tokens and MODEL_GEN greedy decode steps; the f32 gate run
+#: decodes MODEL_F32_GEN steps, held against a teacher-forced forward
+MODEL_ARCH = "internlm2-1.8b"
+MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, MODEL_F32_GEN = 8, 2048, 32, 4
+#: the reference's attention tolerance (tests/test_kernels.py:102)
+MODEL_TOL = (2e-3, 2e-3)
+#: decode steps a CUDA graph replays to read the device's busy time
+MODEL_GRAPH_STEPS = 3
+#: kernel-name fragments of the matmul libraries (cuBLAS, CUTLASS) in a
+#: profile of the served model
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
 #: the kernels the calibration times (grid sweeps, stencil sweeps, the
 #: one-CTA pair)
 CALIBRATE_KERNELS = ("grid_map", "grid_reduce", "jacobi2d_grid",
@@ -874,6 +913,268 @@ def _energy_phase(machine, scaling: dict) -> tuple[list[str], dict]:
     return failures, report
 
 
+def _attention_at_model_shape(cfg, machine) -> tuple[list[str], dict]:
+    """The attention op alone at the LM's prefill shape in bf16, through
+    the compute loop (``gpu_compute_ecm.run``: the check against the plain
+    version, the kernel at every compiled prefill tiling, the plain
+    version, SDPA's efficient backend on KV repeated), plus SDPA with the
+    backend it picks itself on KV unrepeated (``enable_gqa``), and the
+    bound on the bf16 tensor cores and on FFMA."""
+    import torch.nn.functional as F
+
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.benchmarks.timing import time_call
+
+    dims = (MODEL_BATCH, MODEL_PROMPT, MODEL_PROMPT, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim_)
+    point = GC.Point("attention", dims, torch.bfloat16, causal=True)
+    report = GC.run(point=point)
+    failures = _check_compute_report(report)
+    tm = report["timings"]
+    q, k, v = (t.transpose(1, 2) for t in GC.make_inputs(point, "cuda"))
+    sdpa_ms = time_call(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))[0]
+    ffma_ms = tm["operations_ms"] * (machine.peak_bf16_tensor_flops
+                                     / machine.peak_f32_flops)
+    return failures, {
+        "dims": list(dims), "dtype": "bfloat16", "block": report["block"],
+        "check": report["check"],
+        **{key: tm[key] for key in ("ms", "op_ms", "measured_ms", "plain_ms",
+                                    "library", "library_ms", "bound_ms",
+                                    "bound_by", "bytes_ms", "operations_ms")},
+        "bound_ms_ffma": max(tm["bytes_ms"], ffma_ms),
+        "share_of_bound": tm["bound_ms"] / tm["ms"],
+        "share_of_ffma_bound": max(tm["bytes_ms"], ffma_ms) / tm["ms"],
+        "sdpa_own_backend_gqa_ms": sdpa_ms}
+
+
+def _contracted_fan_in(spec: dict, cfg) -> dict:
+    """The LM's spec tree with the attention projections scaled by the
+    fan-in they contract over: ``wq``, ``wk``, ``wv`` by d_model, ``wo`` by
+    heads x head_dim.  The reference's initializer (kept by the port's
+    ``materialize``) takes the fan-in from axis -2, which for a ``(d, h,
+    hd)`` projection is the head count: at internlm2-1.8b's width its
+    scores have a standard deviation near 180, the softmax is one-hot, and
+    rounding alone flips which key a row attends to, so two correct f32
+    attention paths part by whole units in the logits after 24 layers."""
+    attn = dict(spec["layers"]["attn"])
+    for name, fan_in in (("wq", cfg.d_model), ("wk", cfg.d_model),
+                         ("wv", cfg.d_model),
+                         ("wo", cfg.n_heads * cfg.head_dim_)):
+        attn[name] = dataclasses.replace(attn[name], scale=fan_in ** -0.5)
+    return spec | {"layers": spec["layers"] | {"attn": attn}}
+
+
+def _device_split(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel, from torch.profiler's
+    CUDA activity after a warm-up call: ms in the port's attention tile
+    kernel, in the matmul libraries (GEMM_NAMES) and in every other
+    kernel, the kernel count, and the five dearest kernels.  A profiler
+    the machine refuses, or one that records no device time, is reported
+    as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # noqa: BLE001 - a refused profiler is a reading not taken
+        return {"not_measured": f"{type(e).__name__}: {e}"}
+    total = sum(ms for _, ms, _ in rows)
+    if not total:
+        return {"not_measured": "the profiler recorded no device time"}
+    split = {"flash_tile_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    for name, ms, _ in rows:
+        fam = ("flash_tile_ms" if "flash_tile" in name else "gemm_ms"
+               if any(g in name.lower() for g in GEMM_NAMES) else "other_ms")
+        split[fam] += ms
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    return split | {"total_ms": total, "kernels": sum(n for *_, n in rows),
+                    "top": [{"kernel": k[:120], "ms": ms, "count": n}
+                            for k, ms, n in top]}
+
+
+def _model_phase(machine) -> tuple[list[str], dict]:
+    """Phase 10: internlm2-1.8b at full width and all 24 layers through
+    the port's serve function (``launch/serve.py``), random weights from
+    SEED materialized on the card by the port's ``materialize``, the
+    attention projections at their contracted fan-in
+    (:func:`_contracted_fan_in`).  f32 first (the gates): chunked, the
+    plain version, then flash, the kernel; the flash prefill's
+    last-position logits against the chunked ones, and its decode steps
+    against a teacher-forced dense forward of the tokens it was fed, each
+    within MODEL_TOL.  The same f32 prefills on the reference's own
+    initializer are reported beside them, not gated (see
+    :func:`_contracted_fan_in`).  Then the parameters cast once to bf16 (the
+    config's dtype; the f32 copy freed) and served both ways at
+    MODEL_GEN steps: prefill and decode times, the model FLOP rate, the
+    weight-bytes bound of a decode step, the device's idle share in
+    decode (a CUDA graph's replay of one step against the eager step),
+    and the bf16 flash-chunked logit difference, reported.  Returns what
+    failed and the record; ``launches`` counts the served runs' kernel
+    launches from 0."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.benchmarks.timing import time_graph
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.check import compare
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import materialize, tree_leaves
+
+    arch = get_arch(MODEL_ARCH)
+    cfg = arch.cfg
+    failures, rec = [], {"phase": "model", "arch": arch.name,
+                         "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "n_params": arch.n_params, "batch": MODEL_BATCH,
+                         "prompt": MODEL_PROMPT}
+    attn_failures, rec["attention"] = _attention_at_model_shape(cfg, machine)
+    failures += attn_failures
+    torch.cuda.empty_cache()
+
+    def variant(**kw):
+        return dataclasses.replace(arch, cfg=dataclasses.replace(cfg, **kw))
+
+    dev = torch.device("cuda")
+
+    def weights(spec):
+        return materialize(spec, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+
+    prompt = torch.from_numpy(arch.make_batch(ShapeSpec(
+        "cli_prefill", MODEL_PROMPT, MODEL_BATCH, "prefill"), seed=SEED)["tokens"])
+    kernels.reset_launches()
+    attn = kernels.FLASH_ATTENTION
+    rec["runs"] = {}
+
+    def run(dtype, impl, gen, params, tag=""):
+        before = dict(attn.launches_by_route)
+        served = serve(variant(dtype=dtype, attn_impl=impl), params,
+                       batch=MODEL_BATCH, prompt_len=MODEL_PROMPT, gen=gen,
+                       seed=SEED)
+        name = f"{str(dtype).removeprefix('torch.')} {impl}{tag}"
+        launched = {r: n - before[r] for r, n in attn.launches_by_route.items()}
+        want = {"tile": cfg.n_layers if impl == "flash" else 0, "split": 0}
+        if launched != want:
+            failures.append(f"model {name}: attention launches {launched}, "
+                            f"not {want}")
+        logits = [served.prefill_logits, *served.step_logits]
+        if not all(bool(torch.isfinite(t).all()) for t in logits):
+            failures.append(f"model {name}: a logit is not finite")
+        rec["runs"][name] = {
+            "prefill_s": served.prefill_s, "decode_s": served.decode_s,
+            "gen": gen, "attention_launches": launched,
+            "prefill_tokens_per_s": MODEL_BATCH * MODEL_PROMPT / served.prefill_s,
+            "decode_s_per_token": served.decode_s / gen if gen else None,
+            "decode_tokens_per_s": MODEL_BATCH * gen / served.decode_s
+            if gen else None}
+        return served
+
+    with GC.full_f32():
+        params = weights(arch.param_spec())
+        ref_init = [run(torch.float32, impl, 0, params, " (reference init)")
+                    for impl in ("chunked", "flash")]
+        diff = ref_init[1].prefill_logits - ref_init[0].prefill_logits
+        rec["f32_reference_init_flash_vs_chunked_max_abs"] = float(diff.abs().max())
+        del params, ref_init, diff
+        params = weights(_contracted_fan_in(arch.param_spec(), cfg))
+        chunked = run(torch.float32, "chunked", MODEL_F32_GEN, params)
+        flash = run(torch.float32, "flash", MODEL_F32_GEN, params)
+        chunked.cache = flash.cache = None
+        ok, err, tol = compare(flash.prefill_logits, chunked.prefill_logits,
+                               tol=MODEL_TOL)
+        rec["f32_flash_vs_chunked"] = {"ok": ok, "max_abs_err": err, "tol": tol}
+        if not ok:
+            failures.append(f"model f32: flash prefill logits off the chunked "
+                            f"ones by {err} (tol {tol})")
+        # the teacher-forced forward of the prompt and the fed tokens:
+        # positions MODEL_PROMPT - 1 .. + MODEL_F32_GEN
+        dense = variant(dtype=torch.float32, attn_impl="dense").cfg
+        toks = torch.cat([prompt.to(dev), flash.fed], dim=1)
+        hs, _ = lm.hidden_states(params, dense, toks)
+        full = lm.logits_fn(params, dense, hs[:, MODEL_PROMPT - 1:])
+        del hs
+        errs = []
+        for j, got in enumerate([flash.prefill_logits, *flash.step_logits]):
+            ok, err, tol = compare(got[:, 0], full[:, j], tol=MODEL_TOL)
+            errs.append(err)
+            if not ok:
+                failures.append(f"model f32: decode step {j} off the "
+                                f"teacher-forced forward by {err} (tol {tol})")
+        rec["f32_decode_vs_teacher_forced"] = {"max_abs_err": errs, "tol": tol}
+        del full, chunked, flash
+    params = lm.cast_params(params, cfg.dtype)
+    torch.cuda.empty_cache()
+    chunked = run(cfg.dtype, "chunked", MODEL_GEN, params)
+    chunked.cache = None
+    flash = run(cfg.dtype, "flash", MODEL_GEN, params)
+    diff = (flash.prefill_logits.float() - chunked.prefill_logits.float()).abs()
+    rec["bf16_flash_vs_chunked_max_abs"] = float(diff.max())
+    rec["bf16_tokens_equal_share"] = float(
+        (flash.tokens == chunked.tokens).float().mean())
+    rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    rec["attention_launches_by_route"] = dict(attn.launches_by_route)
+
+    # the device's busy time in one decode step: a CUDA graph replays the
+    # step (and its argmax) with no host in between
+    cache = dict(flash.cache)
+    tok = flash.tokens[:, -1:].to(dev)
+    flash_cfg = variant(attn_impl="flash").cfg
+
+    def step():
+        logits, _ = lm.decode_step(params, flash_cfg, cache, {"tokens": tok})
+        return logits[:, -1, :cfg.vocab].argmax(-1)
+
+    busy_ms = time_graph(step, launches=MODEL_GRAPH_STEPS)
+    rec["runs"]["bfloat16 flash"]["graph_decode_ms"] = busy_ms
+    tokens = {"tokens": prompt.to(dev)}
+    rec["device_split"] = {
+        "prefill": _device_split(lambda: lm.prefill(
+            params, flash_cfg, tokens, max_len=MODEL_PROMPT)),
+        "decode_step": _device_split(step)}
+    stats = rec["runs"]["bfloat16 flash"]
+    eager_ms = stats["decode_s_per_token"] * 1e3
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    table = params["embedding"]
+    weight_bytes = (weights - table.numel() * table.element_size()
+                    + MODEL_BATCH * table.shape[1] * table.element_size())
+    k = flash.cache["k"]
+    cache_bytes = 2 * k.numel() * k.element_size()
+    flops = arch.model_flops(ShapeSpec("prefill", MODEL_PROMPT, MODEL_BATCH,
+                                       "prefill"))
+    prefill_ms = stats["prefill_s"] * 1e3
+    rec["summary"] = {
+        "prefill_s": stats["prefill_s"],
+        "prefill_tokens_per_s": stats["prefill_tokens_per_s"],
+        "decode_s_per_token": stats["decode_s_per_token"],
+        "decode_tokens_per_s": stats["decode_tokens_per_s"],
+        "model_flops": flops,
+        "model_flop_per_s": flops / stats["prefill_s"],
+        "model_flop_share_of_bf16_peak": flops / stats["prefill_s"]
+        / machine.peak_bf16_tensor_flops,
+        "decode_weight_bytes": weight_bytes,
+        "decode_weight_bound_ms": machine.hbm_seconds(weight_bytes) * 1e3,
+        "decode_share_of_weight_bound": machine.hbm_seconds(weight_bytes) * 1e3
+        / eager_ms,
+        "decode_cache_bytes_read": cache_bytes,
+        "decode_share_of_weight_and_cache_bound": machine.hbm_seconds(
+            weight_bytes + cache_bytes) * 1e3 / eager_ms,
+        "decode_graph_ms": busy_ms, "decode_eager_ms": eager_ms,
+        "decode_idle_share": 1.0 - busy_ms / eager_ms,
+        "attention_ms_per_layer": rec["attention"]["ms"],
+        "attention_share_of_prefill": cfg.n_layers * rec["attention"]["ms"]
+        / prefill_ms,
+    }
+    return failures, rec
+
+
 def _check_compute_report(report: dict) -> list[str]:
     where = f"{report['op']} {report['dims']} {report['dtype']}"
     out, failures = report["output"], []
@@ -1139,13 +1440,30 @@ def main() -> int:
     for op, rec in energy.get("ops", {}).items():
         print(json.dumps({"phase": "energy", "op": op, **rec}))
     failures += energy_failures
+
+    # 10. the dense LM at full width, its served runs' launches from 0
+    t_path = time.perf_counter()
+    model_failures, model = _model_phase(
+        G.GPUMachineModel.from_device(torch.device("cuda")))
+    model_s = time.perf_counter() - t_path
+    print(json.dumps({k: v for k, v in model.items()
+                      if k not in ("runs", "attention", "summary", "device_split")}
+                     | {"s": model_s}))
+    print(json.dumps({"phase": "model", "runs": model["runs"]}))
+    print(json.dumps({"phase": "model", "attention": model["attention"]}))
+    print(json.dumps({"phase": "model", "summary": model["summary"]}))
+    print(json.dumps({"phase": "model", "device_split": model["device_split"]}))
+    failures += model_failures
+    torch.cuda.empty_cache()
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
-        "energy": energy_s}}))
+        "energy": energy_s, "model": model_s}}))
 
-    # 10. the kernels line; the matmul's launches add the power fit's
+    # 11. the kernels line; the matmul's launches add the power fit's, the
+    # attention's the model phase's
     launches["matmul"] += record["launches"]["matmul"]
+    launches["flash_attention"] += model["launches"]["flash_attention"]
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
               "reduce": [o for o in G.OPS if o in kernels.pipeline.REDUCE_OPS]}
     rows = []
@@ -1187,7 +1505,15 @@ def main() -> int:
                         "ms", "plain_ms", "library_ms", "bound_ms")}}
                 for pt in served}
         if k is kernels.FLASH_ATTENTION:
-            where["launches_by_route"] = attention_routes
+            where["launches_by_path"] = {
+                "compute": launches[k.name] - model["launches"][k.name],
+                "model": model["launches"][k.name]}
+            where["launches_by_route"] = {
+                r: n + model["attention_launches_by_route"][r]
+                for r, n in attention_routes.items()}
+            where["at_model_shape"] = {key: model["attention"][key] for key in (
+                "dims", "dtype", "block", "check", "ms", "plain_ms", "library_ms",
+                "sdpa_own_backend_gqa_ms", "bound_ms", "bound_ms_ffma")}
             where["by_route"] = {
                 kernels.attention.kernel.route_of(compute[pt]["block"][0]): {
                     "point": pt, "block": compute[pt]["block"],

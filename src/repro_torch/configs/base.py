@@ -1,0 +1,155 @@
+"""Architecture definitions: the uniform API every ported arch implements
+(the reference's ``repro/configs/base.py``).
+
+An :class:`ArchDef` binds a model family's functions (spec / loss /
+prefill / decode / cache-spec) to one concrete configuration, and knows
+how to build its inputs for each assigned input shape as numpy arrays.
+The reference's dry-run stand-ins (``abstract_batch``) wait for the
+port's dry-run (ROADMAP §1 item 7).
+
+Input shapes (assigned, global):
+
+=============  ========  ============
+shape          seq_len   global_batch
+=============  ========  ============
+train_4k       4,096     256
+prefill_32k    32,768    32
+decode_32k     32,768    128 (1 token)
+long_500k      524,288   1 (1 token)
+=============  ========  ============
+
+``long_500k`` requires sub-quadratic sequence mixing and is skipped (with
+a recorded reason) for full-attention architectures.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..models.common import ParamSpec, count_params
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def tokens_per_step(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class ArchDef:
+    """One selectable architecture (``--arch <name>``).  ``profile`` and
+    ``train_accum`` carry the reference's sharding profile and gradient
+    accumulation for the port's later train and mesh slices."""
+
+    name: str
+    family: str                    # dense
+    cfg: Any                       # model config dataclass
+    spec_fn: Callable
+    loss_fn: Callable
+    prefill_fn: Callable
+    decode_fn: Callable
+    cache_spec_fn: Callable
+    profile: str = "tp_dp"
+    sub_quadratic: bool = False    # may run long_500k
+    has_decoder: bool = True       # encoder-only archs skip decode shapes
+    source: str = ""               # provenance note ([arXiv/hf; tier])
+    train_accum: int = 1
+
+    # -- parameters ----------------------------------------------------
+    def param_spec(self):
+        return self.spec_fn(self.cfg)
+
+    @property
+    def n_params(self) -> int:
+        return count_params(self.param_spec())
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token: every parameter of a dense arch."""
+        return self.n_params
+
+    # -- model fns -----------------------------------------------------
+    def loss(self, params, batch):
+        return self.loss_fn(params, self.cfg, batch)
+
+    def prefill(self, params, batch, *, max_len: int | None = None):
+        return self.prefill_fn(params, self.cfg, batch, max_len=max_len)
+
+    def decode(self, params, cache, batch):
+        return self.decode_fn(params, self.cfg, cache, batch)
+
+    def cache_spec(self, batch_size: int, max_len: int):
+        return self.cache_spec_fn(self.cfg, batch_size, max_len)
+
+    # -- shape policy ----------------------------------------------------
+    def shape_supported(self, shape: ShapeSpec) -> tuple[bool, str]:
+        if shape.kind == "decode" and not self.has_decoder:
+            return False, "encoder-only: no decode step"
+        if shape.name == "long_500k" and not self.sub_quadratic:
+            return False, "full-attention arch: long_500k needs sub-quadratic mixing"
+        return True, ""
+
+    def cells(self) -> list[tuple[ShapeSpec, bool, str]]:
+        return [(s, *self.shape_supported(s)) for s in SHAPES.values()]
+
+    # -- inputs ----------------------------------------------------------
+    def batch_spec(self, shape: ShapeSpec) -> dict:
+        """ParamSpec tree of the step's *data* inputs (not params/cache)."""
+        b = shape.global_batch
+        text_s = self._text_len(shape)
+        out = {"tokens": ParamSpec((b, text_s), ("batch", None), init="zeros",
+                                   dtype=torch.int32)}
+        if shape.kind == "train":
+            label_s = text_s + getattr(self.cfg, "image_prefix", 0)
+            out["labels"] = ParamSpec((b, label_s), ("batch", None),
+                                      init="zeros", dtype=torch.int32)
+            out["mask"] = ParamSpec((b, label_s), ("batch", None),
+                                    init="ones", dtype=torch.float32)
+        return out
+
+    def _text_len(self, shape: ShapeSpec) -> int:
+        """Token-stream length (prefix positions are reserved)."""
+        if shape.kind == "decode":
+            return 1
+        return max(shape.seq_len - getattr(self.cfg, "image_prefix", 0), 1)
+
+    def make_batch(self, shape: ShapeSpec, seed: int = 0) -> dict:
+        """Concrete numpy batch for this shape, drawn as the reference
+        draws it (``Philox(key=[seed, 7])``), so both give the same
+        tokens bit for bit."""
+        g = np.random.Generator(np.random.Philox(key=[seed, 7]))
+        out = {}
+        for k, spec in self.batch_spec(shape).items():
+            if spec.dtype == torch.int32:
+                out[k] = g.integers(0, self.cfg.vocab,
+                                    size=spec.shape).astype(np.int32)
+            else:                                  # the train mask
+                out[k] = np.ones(spec.shape, np.float32)
+        return out
+
+    # -- useful-work accounting ------------------------------------------
+    def model_flops(self, shape: ShapeSpec) -> float:
+        """MODEL_FLOPS = 6·N·D (train) / 2·N·D (inference fwd), N = active."""
+        n = self.n_active_params
+        if shape.kind == "train":
+            return 6.0 * n * shape.tokens_per_step
+        if shape.kind == "prefill":
+            return 2.0 * n * shape.tokens_per_step
+        return 2.0 * n * shape.global_batch          # decode: 1 token/seq

@@ -1,9 +1,10 @@
 """Carry the reference's state across to the port.
 
-This system has no weights: its state is the input streams (and the
-stencils' grids, the matmul operands and the attention inputs q, k, v in
-the ``(B, S, H, d)`` layout: arrays of any shape, taken alike) and the
-Table I kernel specs.
+The state is the input streams (and the stencils' grids, the matmul
+operands and the attention inputs q, k, v in the ``(B, S, H, d)`` layout:
+arrays of any shape, taken alike), the Table I kernel specs, and the LM's
+parameter trees and KV caches (nested dicts of arrays, mapped leaf by
+leaf).
 Arrays arrive as numpy arrays (bf16 ones as
 ``np.asarray`` of a JAX array gives them, with the ``ml_dtypes`` bfloat16
 dtype, which ``torch.from_numpy`` does not take); specs as the dict
@@ -39,3 +40,21 @@ def spec_from_dict(d: dict) -> StreamKernelSpec:
     """A port spec from ``dataclasses.asdict`` of a reference spec; raises
     ``TypeError`` on a field the port's spec does not have."""
     return StreamKernelSpec(**d)
+
+
+def params_from_numpy(tree, *, device, dtype: torch.dtype | None = None):
+    """A reference parameter tree (nested dicts of numpy arrays) as the
+    port's, the same nesting, each leaf a tensor on ``device`` bit for
+    bit, then cast to ``dtype`` where one is given."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    return streams_from_numpy([tree], device=device, dtype=dtype)[0]
+
+
+def cache_from_numpy(cache: dict, *, device) -> dict:
+    """A reference KV cache (``k``, ``v`` arrays and a scalar ``length``)
+    as the port's: ``k`` and ``v`` bit for bit on ``device``, the length a
+    host int."""
+    k, v = streams_from_numpy([cache["k"], cache["v"]], device=device)
+    return {"k": k, "v": v, "length": int(cache["length"])}

@@ -81,10 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         out = ref.attention(*fused_inputs(q, k, v), causal=causal)
         return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
-    from ...core.autotune import rank
-
-    ranked = rank((sq, sk, d), H100_SXM, objective="attention", causal=causal)
-    bq, bk = card_blocks(asked, [r["block"] for r in ranked])
+    bq, bk = card_blocks(asked, ranked_blocks(sq, sk, d, causal=causal))
     dk = K.PADDED_HEAD_DIMS.get(d, d)
     if dk != d:
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
@@ -95,6 +92,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = K.flash_attention_tile(q, k, v, causal=causal, bq=bq, bk=bk,
                                      scale=d ** -0.5)
     return out[..., :d] if dk != d else out
+
+
+#: ``ranked_blocks``' memo: (dims, causal, machine) -> the ranked tilings
+_RANKED: dict[tuple, tuple] = {}
+
+
+def ranked_blocks(sq: int, sk: int, d: int, *, causal: bool = True,
+                  machine: GPUMachineModel = H100_SXM) -> tuple:
+    """The compiled tilings ``rank`` orders for one head of ``(sq, sk, d)``
+    on ``machine``, best first, ranked once per key: a model calls the op
+    at one shape per layer and per step.  The key holds the machine's
+    ``repr``, every field of it."""
+    key = ((sq, sk, d), causal, repr(machine))
+    if key not in _RANKED:
+        from ...core.autotune import rank
+
+        _RANKED[key] = tuple(r["block"] for r in rank(
+            (sq, sk, d), machine, objective="attention", causal=causal))
+    return _RANKED[key]
 
 
 def card_blocks(asked: tuple, ranked: list[tuple]) -> tuple:
@@ -121,9 +137,6 @@ def tuned_blocks(sq: int, sk: int, d: int, *, causal: bool = True,
     """The ``(bq, bk)`` that ``rank`` puts first for f32 attention on
     ``machine`` (candidates: the compiled tilings at the compiled head dim
     that runs ``d`` that fit the card's shared memory, the one-row tilings
-    only where they divide ``sk``).  The reference's on-disk cache of this pick is not
-    ported."""
-    from ...core.autotune import rank
-
-    return rank((sq, sk, d), machine, objective="attention",
-                causal=causal)[0]["block"]
+    only where they divide ``sk``), from :func:`ranked_blocks`' memo.  The
+    reference's on-disk cache of this pick is not ported."""
+    return ranked_blocks(sq, sk, d, causal=causal, machine=machine)[0]

@@ -66,14 +66,31 @@ def _card_blocks(dims: tuple, dtype: torch.dtype, asked: tuple) -> tuple:
     given."""
     if None not in asked:
         return asked
-    from ...core.autotune import rank
-
-    eb = torch.empty((), dtype=dtype).element_size()
-    for r in rank(dims, H100_SXM, objective="matmul", elem_bytes=eb):
-        if all(a is None or a == b for a, b in zip(asked[:2], r["block"])):
-            return tuple(b if a is None else a for a, b in zip(asked, r["block"]))
+    for block in ranked_blocks(dims, dtype):
+        if all(a is None or a == b for a, b in zip(asked[:2], block)):
+            return tuple(b if a is None else a for a, b in zip(asked, block))
     raise ValueError(f"no compiled {K.route_of(dtype)} matmul tiling of "
                      f"{dims} has the blocks {asked}")
+
+
+#: ``ranked_blocks``' memo: (dims, dtype, machine) -> the ranked tilings
+_RANKED: dict[tuple, tuple] = {}
+
+
+def ranked_blocks(dims: tuple, dtype: torch.dtype,
+                  machine: GPUMachineModel = H100_SXM) -> tuple:
+    """The compiled tilings of ``dtype``'s route that ``rank`` orders for
+    the product ``dims = (m, n, k)`` on ``machine``, best first, ranked
+    once per key.  The key holds the machine's ``repr``, every field of
+    it."""
+    key = (tuple(dims), dtype, repr(machine))
+    if key not in _RANKED:
+        from ...core.autotune import rank
+
+        eb = torch.empty((), dtype=dtype).element_size()
+        _RANKED[key] = tuple(r["block"] for r in rank(
+            tuple(dims), machine, objective="matmul", elem_bytes=eb))
+    return _RANKED[key]
 
 
 def matmul_workload(m: int, n: int, k: int, *, bm: int = K.DEFAULTS["ffma"][0],
@@ -92,8 +109,6 @@ def tuned_blocks(m: int, n: int, k: int, *,
     """The ``(bm, bn, bk)`` that ``rank`` puts first for a product of
     ``dtype`` operands on ``machine`` (candidates: the compiled tilings of
     the dtype's route that divide the problem and fit the card's shared
-    memory).  The reference's on-disk cache of this pick is not ported."""
-    from ...core.autotune import rank
-
-    eb = torch.empty((), dtype=dtype).element_size()
-    return rank((m, n, k), machine, objective="matmul", elem_bytes=eb)[0]["block"]
+    memory), from :func:`ranked_blocks`' memo.  The reference's on-disk
+    cache of this pick is not ported."""
+    return ranked_blocks((m, n, k), dtype, machine)[0]

@@ -1,0 +1,252 @@
+"""Shared model pieces: parameter specs, norms, RoPE, MLPs, embeddings and
+the LM losses (the reference's ``repro/models/common.py``).
+
+Parameters are declared as trees of :class:`ParamSpec` (nested dicts with
+specs as leaves); :func:`materialize` turns a spec tree into a tree of
+tensors on a device, drawn from a ``torch.Generator``.  Every function
+takes and returns tensors of the reference's shapes and dtypes, and
+rounds where the reference rounds.  The reference's logical-axis sharding
+(``shard_annotate``, ``set_activation_rules``), its optimization barrier
+(``grad_barrier``) and its dry-run stand-ins (``abstract``) have nothing
+to act on without a mesh or a backward: they wait for ROADMAP §1 items 4,
+5 and 7, and the port's forward leaves their calls out.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    """Declarative parameter: shape, logical axes, initializer."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"          # normal | zeros | ones
+    scale: float | None = None    # stddev override
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             f"in rank")
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of nested dicts, keys in sorted order
+    (the order ``jax.tree`` flattens a dict in)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts, keys in sorted order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _init_array(spec: ParamSpec, generator: torch.Generator, dtype, device):
+    dtype = dtype or spec.dtype
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    std = spec.scale
+    if std is None:
+        # fan-in scaled normal over the last-but-one dim by convention
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(spec.shape, generator=generator, device=device)
+    return (x * std).to(dtype)
+
+
+def materialize(spec_tree, generator: torch.Generator, dtype=None, *,
+                device):
+    """Spec tree -> tensor tree on ``device`` (the generator's device),
+    the leaves drawn from ``generator`` one after another in sorted-key
+    order.  The reference's fan-in-scaled normal, not its bits:
+    ``jax.random`` and ``torch.randn`` draw different numbers, so tests
+    carry the reference's own parameters across instead."""
+    return tree_map(lambda s: _init_array(s, generator, dtype, device),
+                    spec_tree)
+
+
+def count_params(spec_tree) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), ("embed",), init="ones")
+
+
+def rmsnorm(w, x, eps: float = 1e-6):
+    """RMSNorm with the reference's rounding: the sum of squares in f32,
+    the per-row rsqrt cast to the compute dtype, then ``w * (x * scale)``
+    in the compute dtype."""
+    dt = x.dtype
+    xf = x.float()
+    ss = torch.einsum("...d,...d->...", xf, xf)[..., None]
+    scale = torch.rsqrt(ss / x.shape[-1] + eps).to(dt)
+    return w.to(dt) * (x * scale)
+
+
+def layernorm_spec(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, correction=0, keepdim=True)
+    return (p["scale"] * (xf - mu) * torch.rsqrt(var + eps) + p["bias"]).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (with partial-dim support for GLM4)
+# ---------------------------------------------------------------------------
+
+
+def rope_angles(positions, head_dim: int, *, theta: float = 10000.0,
+                fraction: float = 1.0):
+    """Return (cos, sin) of shape (..., rot_dim/2) for given positions, and
+    the rotated dims ``rot``."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32,
+                        device=positions.device) / rot
+    inv = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * inv                  # (..., rot/2)
+    return torch.cos(ang), torch.sin(ang), rot
+
+
+def apply_rope(x, cos, sin, rot: int):
+    """x: (B, S, H, D); rotate the first ``rot`` dims in interleaved pairs
+    (``0::2`` with ``1::2``).  The rotation is computed in f32 (cos and sin
+    are f32 tensors, so a bf16 ``x`` is promoted, as in the reference) and
+    returned in f32; the caller casts back."""
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    r1 = x1 * c - x2 * s
+    r2 = x2 * c + x1 * s
+    xr = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
+    return torch.cat([xr, xp.to(xr.dtype)], dim=-1) if rot < x.shape[-1] else xr
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def swiglu_spec(d: int, d_ff: int) -> dict:
+    return {
+        "w_gate": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "w_up": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "w_down": ParamSpec((d_ff, d), ("mlp", "embed")),
+    }
+
+
+def _silu(x):
+    """``jax.nn.silu``: ``x * (1 / (1 + exp(-x)))``, each op rounded to
+    x's dtype as the reference rounds it (``F.silu`` rounds once, which
+    differs in the last bf16 place at a third of the points)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def swiglu(p, x):
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    return (_silu(g) * u) @ p["w_down"].to(x.dtype)
+
+
+def gelu_mlp_spec(d: int, d_ff: int) -> dict:
+    return {
+        "w_in": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "b_in": ParamSpec((d_ff,), ("mlp",), init="zeros"),
+        "w_out": ParamSpec((d_ff, d), ("mlp", "embed")),
+        "b_out": ParamSpec((d,), ("embed",), init="zeros"),
+    }
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation, each op in x's
+    dtype (the reference's constants round to it first)."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype)
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def gelu_mlp(p, x):
+    h = x @ p["w_in"].to(x.dtype) + p["b_in"].to(x.dtype)
+    h = _gelu(h)
+    return h @ p["w_out"].to(x.dtype) + p["b_out"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding / loss
+# ---------------------------------------------------------------------------
+
+
+def embedding_spec(vocab: int, d: int) -> ParamSpec:
+    return ParamSpec((vocab, d), ("vocab", "embed"), scale=1.0)
+
+
+def embed(table, tokens):
+    """Rows of ``table`` at ``tokens`` (any integer dtype)."""
+    rows = table.index_select(0, tokens.reshape(-1))
+    return rows.reshape(*tokens.shape, table.shape[-1])
+
+
+def unembed_spec(d: int, vocab: int) -> ParamSpec:
+    return ParamSpec((d, vocab), ("embed", "vocab"))
+
+
+def unembed(w, x):
+    return x @ w.to(x.dtype)
+
+
+def _xent_terms(lf, labels, z_loss: float):
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels[..., None].long())[..., 0]
+    per_tok = lse - ll
+    if z_loss:
+        per_tok = per_tok + z_loss * lse**2
+    return per_tok
+
+
+def masked_xent(logits, labels, mask=None, *, vocab: int,
+                vocab_padded: int | None = None, z_loss: float = 0.0):
+    """Stable masked cross entropy with padded-vocab masking (f32 math)."""
+    vpad = vocab_padded or vocab
+    lf = logits.float()
+    if vpad != vocab:
+        pad = torch.arange(vpad, device=lf.device) >= vocab
+        lf = lf.masked_fill(pad, -1e30)
+    per_tok = _xent_terms(lf, labels, z_loss)
+    if mask is None:
+        return per_tok.mean()
+    maskf = mask.float()
+    return (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
+
+
+def softmax_xent(logits, labels, *, z_loss: float = 0.0):
+    """Stable per-token cross entropy, mean over tokens (f32 math)."""
+    return _xent_terms(logits.float(), labels, z_loss).mean()

@@ -1,0 +1,260 @@
+"""Decoder-only transformer LM, dense (the reference's ``repro/models/lm.py``).
+
+Covers internlm2-1.8b, qwen1.5-110b, minitron-4b and glm4-9b (dense, GQA,
+optional QKV bias / partial RoPE), and a prefix of precomputed embeddings
+prepended to the token stream (``image_prefix`` / ``extra_embeds``).  The
+MoE FFN is not ported yet (ROADMAP §1 item 3): a config with ``moe`` set
+raises ``NotImplementedError``.
+
+Layers keep the reference's parameter layout: stacked on a leading
+"layers" axis (``scan_layers=True``, which the reference scans with
+``lax.scan``; here a loop over that axis), or one ``layer_{i}`` subtree
+each.  ``remat`` is carried for the reference's configs but does nothing:
+it chooses what the backward recomputes, and the port has no backward
+yet.  The KV cache is ``{"k", "v": (L, B, S_max, kvH, hd), "length": int}``
+with the length on the host; :func:`decode_step` writes into the cache
+tensors in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from .attention import AttnConfig, attention, attn_spec, decode_attention
+from .common import (
+    ParamSpec,
+    embed,
+    embedding_spec,
+    rmsnorm,
+    rmsnorm_spec,
+    swiglu,
+    swiglu_spec,
+    tree_map,
+    unembed,
+    unembed_spec,
+)
+from .common import masked_xent as _masked_xent
+
+
+def pad_vocab(vocab: int, multiple: int = 2048) -> int:
+    return ((vocab + multiple - 1) // multiple) * multiple
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_fraction: float = 1.0
+    rope_theta: float = 10000.0
+    moe: Any = None                    # not ported (ROADMAP §1 item 3)
+    attn_impl: str = "dense"           # dense | chunked | flash
+    attn_chunk: int = 1024
+    norm_eps: float = 1e-6
+    dtype: torch.dtype = torch.bfloat16
+    remat: str = "none"                # none | full | dots; no effect here
+    scan_layers: bool = True
+    image_prefix: int = 0              # # of prefix embedding positions
+    vocab_pad_multiple: int = 2048
+    z_loss: float = 0.0
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        return pad_vocab(self.vocab, self.vocab_pad_multiple)
+
+    @property
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim_,
+            qkv_bias=self.qkv_bias, rope_fraction=self.rope_fraction,
+            rope_theta=self.rope_theta, impl=self.attn_impl,
+            chunk_size=self.attn_chunk)
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: the MoE FFN is not ported yet "
+                                  f"(ROADMAP §1 item 3)")
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+
+def _layer_spec(cfg: LMConfig) -> dict:
+    _dense_only(cfg)
+    return {
+        "ln_attn": rmsnorm_spec(cfg.d_model),
+        "attn": attn_spec(cfg.attn_cfg),
+        "ln_ffn": rmsnorm_spec(cfg.d_model),
+        "mlp": swiglu_spec(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _stack_spec(spec, n: int):
+    return tree_map(
+        lambda s: ParamSpec((n, *s.shape), ("layers", *s.axes), init=s.init,
+                            scale=s.scale, dtype=s.dtype), spec)
+
+
+def lm_spec(cfg: LMConfig) -> dict:
+    layer = _layer_spec(cfg)
+    return {
+        "embedding": embedding_spec(cfg.vocab_padded, cfg.d_model),
+        "layers": _stack_spec(layer, cfg.n_layers) if cfg.scan_layers
+        else {f"layer_{i}": layer for i in range(cfg.n_layers)},
+        "ln_f": rmsnorm_spec(cfg.d_model),
+        "unembed": unembed_spec(cfg.d_model, cfg.vocab_padded),
+    }
+
+
+def cast_params(params, dtype: torch.dtype):
+    """Every floating parameter cast to ``dtype`` once (the compute dtype).
+    Every use of an LM parameter casts it to the compute dtype first (the
+    embedding after its gather, which commutes with the cast), so the
+    forward on the cast tree gives the same bits as on the f32 tree,
+    without a cast per use."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    params)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _layers(params, cfg: LMConfig) -> list:
+    """Each layer's parameter tree, in order: views along the stacked
+    leading axis, or the ``layer_{i}`` subtrees."""
+    if not cfg.scan_layers:
+        return [params["layers"][f"layer_{i}"] for i in range(cfg.n_layers)]
+    stacked = tree_map(lambda t: t.unbind(0), params["layers"])
+    return [tree_map(lambda ts, i=i: ts[i], stacked)
+            for i in range(cfg.n_layers)]
+
+
+def _ffn(p_layer, cfg: LMConfig, h):
+    _dense_only(cfg)
+    return swiglu(p_layer["mlp"], h)
+
+
+def _layer(p_l, cfg: LMConfig, h):
+    """One layer; returns the new residual stream and the layer's K, V."""
+    a, kv = attention(p_l["attn"], cfg.attn_cfg,
+                      rmsnorm(p_l["ln_attn"], h, cfg.norm_eps))
+    h = h + a
+    h = h + _ffn(p_l, cfg, rmsnorm(p_l["ln_ffn"], h, cfg.norm_eps))
+    return h, kv
+
+
+def _embed(params, cfg: LMConfig, tokens, extra_embeds):
+    h = embed(params["embedding"], tokens).to(cfg.dtype)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(cfg.dtype), h], dim=1)
+    return h
+
+
+def hidden_states(params, cfg: LMConfig, tokens, *, extra_embeds=None):
+    """Token (+ optional prefix) embeddings through all layers; returns
+    the final-normed states and the auxiliary loss (0.0: dense)."""
+    h = _embed(params, cfg, tokens, extra_embeds)
+    for p_l in _layers(params, cfg):
+        h, _ = _layer(p_l, cfg, h)
+    return rmsnorm(params["ln_f"], h, cfg.norm_eps), 0.0
+
+
+def logits_fn(params, cfg: LMConfig, h):
+    return unembed(params["unembed"], h)
+
+
+def loss_fn(params, cfg: LMConfig, batch):
+    """batch: tokens (B,S), labels (B,S), mask (B,S); ``patch_embeds``
+    (B,P,d), where given, is prepended and labels cover the full
+    (P + S_text) sequence."""
+    h, aux = hidden_states(params, cfg, batch["tokens"],
+                           extra_embeds=batch.get("patch_embeds"))
+    logits = logits_fn(params, cfg, h)
+    loss = masked_xent(logits, batch["labels"], batch.get("mask"), cfg)
+    loss = loss + 0.01 * aux
+    return loss, {"loss": loss, "aux_loss": aux}
+
+
+def masked_xent(logits, labels, mask, cfg: LMConfig):
+    return _masked_xent(logits, labels, mask, vocab=cfg.vocab,
+                        vocab_padded=cfg.vocab_padded, z_loss=cfg.z_loss)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode (KV cache)
+# ---------------------------------------------------------------------------
+
+
+def cache_spec(cfg: LMConfig, batch: int, max_len: int) -> dict:
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim_
+    shape = (cfg.n_layers, batch, max_len, kvh, hd)
+    axes = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+        "v": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
+        "length": ParamSpec((), (), init="zeros", dtype=torch.int32),
+    }
+
+
+def prefill(params, cfg: LMConfig, batch, *, max_len: int | None = None):
+    """Process the prompt, return (logits_last, cache).
+
+    Uses the full-sequence path and writes each layer's K/V into a cache
+    of ``max(max_len, S)`` positions, zero past the prompt (the
+    reference's right padding).  Only the stacked layer layout is
+    supported here, as in the reference.
+    """
+    if not cfg.scan_layers:
+        raise ValueError("prefill takes the stacked layer layout "
+                         "(scan_layers=True), as the reference's does")
+    h = _embed(params, cfg, batch["tokens"], batch.get("patch_embeds"))
+    b, s = h.shape[:2]
+    shape = (cfg.n_layers, b, max(s, max_len or 0), cfg.n_kv_heads,
+             cfg.head_dim_)
+    ks = torch.zeros(shape, dtype=cfg.dtype, device=h.device)
+    vs = torch.zeros_like(ks)
+    for i, p_l in enumerate(_layers(params, cfg)):
+        h, (k, v) = _layer(p_l, cfg, h)
+        ks[i, :, :s] = k
+        vs[i, :, :s] = v
+    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+    logits = logits_fn(params, cfg, h[:, -1:, :])
+    return logits, {"k": ks, "v": vs, "length": s}
+
+
+def decode_step(params, cfg: LMConfig, cache, batch):
+    """One-token decode.  batch: tokens (B,1).  cache as :func:`prefill`
+    returns it; its tensors are updated in place at ``length``, and the
+    returned cache holds them with ``length + 1``."""
+    if not cfg.scan_layers:
+        raise ValueError("decode_step takes the stacked layer layout "
+                         "(scan_layers=True), as the reference's does")
+    h = _embed(params, cfg, batch["tokens"], None)
+    length = cache["length"]
+    for i, p_l in enumerate(_layers(params, cfg)):
+        a, _, _ = decode_attention(
+            p_l["attn"], cfg.attn_cfg, rmsnorm(p_l["ln_attn"], h, cfg.norm_eps),
+            cache["k"][i], cache["v"][i], length)
+        h = h + a
+        h = h + _ffn(p_l, cfg, rmsnorm(p_l["ln_ffn"], h, cfg.norm_eps))
+    h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
+    logits = logits_fn(params, cfg, h)
+    return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}

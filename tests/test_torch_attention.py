@@ -523,3 +523,34 @@ def test_split_combine_arithmetic(causal, split_keys):
     scored_l = l.masked_fill(empty, float(split_keys))
     scored_acc = torch.where(empty[None, :, :, None], vsum[:, None], acc)
     assert torch.equal(ref.combine(m, scored_l, scored_acc), got)
+
+
+def test_card_path_ranks_each_shape_once(monkeypatch):
+    """The card path memoizes the ranking per (dims, causal, machine): a
+    second call at the same key does not call ``rank`` and takes the same
+    tiling; another key ranks anew."""
+    import repro_torch.core.autotune as autotune
+
+    calls = []
+
+    def counting_rank(*args, **kw):
+        calls.append(args[0])
+        return rank(*args, **kw)
+
+    monkeypatch.setattr(autotune, "rank", counting_rank)
+    monkeypatch.setattr(ops, "_RANKED", {})
+    rec = _Recorder()
+    monkeypatch.setattr(K, "flash_attention_tile", rec)
+    q = torch.empty((1, 384, 4, 128), device="meta")
+    k = torch.empty((1, 384, 2, 128), device="meta")
+    for _ in range(3):
+        ops.flash_attention(q, k, k, causal=True)
+    assert calls == [(384, 384, 128)]
+    assert len({(kw["bq"], kw["bk"]) for *_, kw in rec.calls}) == 1
+    assert ops.tuned_blocks(384, 384, 128) == ops.ranked_blocks(384, 384, 128)[0]
+    assert calls == [(384, 384, 128)]
+    ops.flash_attention(q, k, k, causal=False)
+    assert calls == [(384, 384, 128)] * 2
+    assert ops.ranked_blocks(384, 384, 128) == tuple(
+        r["block"] for r in rank((384, 384, 128), H100_SXM,
+                                 objective="attention", causal=True))

@@ -46,7 +46,12 @@ def test_port_files_exist():
               "core/diskcache.py", "core/saturation.py",
               "benchmarks/gpu_calibrate.py", "benchmarks/gpu_scaling_ecm.py",
               "launch/calibrate.py", "core/scaling.py", "core/energy.py",
-              "benchmarks/power.py", "benchmarks/gpu_energy_ecm.py"):
+              "benchmarks/power.py", "benchmarks/gpu_energy_ecm.py",
+              "models/common.py", "models/attention.py", "models/lm.py",
+              "configs/base.py", "configs/_lm_family.py", "configs/__init__.py",
+              "configs/internlm2_1_8b.py", "configs/minitron_4b.py",
+              "configs/glm4_9b.py", "configs/qwen1_5_110b.py",
+              "launch/serve.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -75,6 +80,10 @@ def test_import_leaves_jax_out():
         "import repro_torch.core.scaling, repro_torch.core.energy\n"
         "import repro_torch.benchmarks.power\n"
         "import repro_torch.benchmarks.gpu_energy_ecm\n"
+        "import repro_torch.models.common, repro_torch.models.attention\n"
+        "import repro_torch.models.lm, repro_torch.launch.serve\n"
+        "from repro_torch.configs import all_archs\n"
+        "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

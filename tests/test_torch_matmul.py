@@ -361,3 +361,35 @@ def test_compare_tol_mode_is_elementwise_and_nan_safe():
     assert not compare(nan, nan, tol=tol)[0]
     with pytest.raises(ValueError, match="not both"):
         compare(want, want, summed_from=want, tol=tol)
+
+
+def test_card_path_ranks_each_shape_once(monkeypatch):
+    """The card path memoizes the ranking per (dims, dtype, machine): a
+    second call at the same key does not call ``rank`` and takes the same
+    tiling; another dtype ranks anew."""
+    import repro_torch.core.autotune as autotune
+
+    real_rank, calls = autotune.rank, []
+
+    def counting_rank(*args, **kw):
+        calls.append((args[0], kw["elem_bytes"]))
+        return real_rank(*args, **kw)
+
+    monkeypatch.setattr(autotune, "rank", counting_rank)
+    monkeypatch.setattr(ops, "_RANKED", {})
+    rec = _Recorder()
+    monkeypatch.setattr(K, "matmul_tiled", rec)
+    x = torch.empty((256, 512), device="meta")
+    y = torch.empty((512, 384), device="meta")
+    for _ in range(3):
+        ops.matmul(x, y)
+    assert calls == [((256, 384, 512), 4)]
+    assert len({(kw["bm"], kw["bn"], kw["bk"]) for *_, kw in rec.calls}) == 1
+    assert ops.tuned_blocks(256, 384, 512) == ops.ranked_blocks(
+        (256, 384, 512), torch.float32)[0]
+    assert len(calls) == 1
+    ops.matmul(x.to(torch.bfloat16), y.to(torch.bfloat16))
+    assert calls[1:] == [((256, 384, 512), 2)]
+    assert ops.ranked_blocks((256, 384, 512), torch.float32) == tuple(
+        r["block"] for r in real_rank((256, 384, 512), H100_SXM,
+                                      objective="matmul", elem_bytes=4))

@@ -1,0 +1,98 @@
+"""The port's serve launcher (``repro_torch/launch/serve.py``) on the CPU
+at smoke size: its greedy tokens equal the reference's ``prefill`` +
+``decode_step`` loop on the same parameters in f32; its JSON has the
+reference launcher's keys; what is not ported raises."""
+import dataclasses
+import json
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_arch as ref_arch  # noqa: E402
+from repro.models.common import materialize as ref_materialize  # noqa: E402
+from repro_torch.configs import ShapeSpec, get_arch  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+BATCH, PROMPT, GEN = 2, 8, 4
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "glm4-9b"])
+def test_greedy_tokens_equal_the_reference_loop(name):
+    """f32 on both sides: the reference's prefill on the launcher's
+    prompt batch, then greedy argmax over the unpadded vocabulary through
+    its decode steps, with the launcher's cache length."""
+    ref = ref_arch(name, smoke=True)
+    jcfg = dataclasses.replace(ref.cfg, dtype=jnp.float32)
+    jparams = ref_materialize(ref.param_spec(), jax.random.key(0))
+    shape = ShapeSpec("cli_prefill", seq_len=PROMPT, global_batch=BATCH,
+                      kind="prefill")
+    batch = {k: jnp.asarray(v) for k, v in ref.make_batch(shape).items()}
+    logits, cache = ref.prefill_fn(jparams, jcfg, batch,
+                                   max_len=PROMPT + GEN + 8)
+    tok = jnp.argmax(logits[:, -1, :jcfg.vocab], -1)[:, None]
+    want = []
+    for _ in range(GEN):
+        logits, cache = ref.decode_fn(jparams, jcfg, cache,
+                                      {"tokens": tok.astype(jnp.int32)})
+        tok = jnp.argmax(logits[:, -1, :jcfg.vocab], -1)[:, None]
+        want.append(np.asarray(tok[:, 0]))
+
+    arch = get_arch(name, smoke=True)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, dtype=torch.float32))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    served = serve.serve(arch, params, batch=BATCH, prompt_len=PROMPT, gen=GEN)
+    assert served.tokens.tolist() == np.stack(want, 1).tolist()
+    assert served.cache["length"] == PROMPT + GEN
+    assert served.cache["k"].shape[2] == PROMPT + GEN + 8
+    assert served.fed[:, 1:].tolist() == served.tokens[:, :-1].tolist()
+    assert len(served.step_logits) == GEN
+    report = served.report(arch.name)
+    assert report["tokens"] == served.tokens.tolist()
+    assert report["decode_s_per_tok"] == round(served.decode_s / GEN, 4)
+
+
+def test_json_keys_equal_the_reference_launchers(capsys, monkeypatch):
+    """Both launchers at smoke size on the CPU print one JSON object with
+    the same keys; ``--gen 0`` has a null decode time and no tokens."""
+    from repro.launch import serve as ref_serve
+
+    argv = ["--batch", "2", "--prompt-len", "4", "--gen", "2"]
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    assert ref_serve.main() == 0
+    want = json.loads(capsys.readouterr().out)
+    assert serve.main([*argv, "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert list(got) == list(want) == ["arch", "prefill_s",
+                                       "decode_s_per_tok", "tokens"]
+    assert got["arch"] == want["arch"]
+    assert np.array(got["tokens"]).shape == np.array(want["tokens"]).shape == (2, 2)
+    assert serve.main(["--gen", "0", "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got["decode_s_per_tok"] is None and got["tokens"] == []
+
+
+def test_what_is_not_ported_raises(capsys):
+    with pytest.raises(NotImplementedError, match="item 6"):
+        serve.main(["--continuous", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        serve.main(["--mesh", "single-pod", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "whisper-base", "--device", "cpu"])
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_runs_on_the_card_unless_told_otherwise(monkeypatch):
+    """The default device is the card; without one the launcher raises
+    rather than falling back to the CPU."""
+    assert serve._parser().parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([])
