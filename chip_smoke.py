@@ -12,9 +12,10 @@ loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``), the
 compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``),
 Eq. 2 over the SMs (``repro_torch.benchmarks.gpu_scaling_ecm.run``),
 the energy over the SMs (``repro_torch.benchmarks.gpu_energy_ecm.run``)
-and the dense LM internlm2-1.8b through the serve launcher
-(``repro_torch.launch.serve.serve``), and holds every CUDA kernel against
-its plain PyTorch version.  Phases:
+and three LMs through the serve launcher
+(``repro_torch.launch.serve.serve``): the dense internlm2-1.8b, the MoE
+granite-moe-1b-a400m and the hybrid zamba2-1.2b; and holds every CUDA
+kernel against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -53,7 +54,8 @@ its plain PyTorch version.  Phases:
    and 200, GQA 2 and 1, d 64; causal and not; f32 and bf16) through the
    op with blocks ``None`` and given and through its wrapper at every
    compiled tiling, on walks of one KV tile, of fewer ring panels than
-   stages and of many tiles, and on strided q/k/v views, bit-equal to
+   stages and of many tiles, at the served MoE's and hybrid's heads (d 64,
+   16 / 8 and 32 / 32, causal), and on strided q/k/v views, bit-equal to
    their contiguous copies; the split-KV decode in f32
    and bf16 with Sk one tile, one split and many splits, causal ``bq = 1``
    with wholly masked splits (their ``l`` exactly 0), GQA 1/2/4/8, d 16,
@@ -126,13 +128,32 @@ its plain PyTorch version.  Phases:
    reads, the device's idle share in decode (a CUDA graph's replay of one
    step against the eager step), the attention kernel's share of prefill,
    and the bf16 flash-chunked logit difference, reported, not gated;
-11. one JSON line with the ten kernels (the matmul and attention rows
+11. granite-moe-1b-a400m at full width and all 24 layers (d 1024, 32
+   experts, top 8, on the one-shard ``shard_map`` dispatch), as phase 10
+   (the op alone at B 8, S 2048, 16 heads, 8 KV heads, d 64): the f32
+   runs at ``capacity_factor = n_experts / top_k``, so nothing drops and
+   the 8 x 2052-token forward routes as the 8-token decode steps do; the
+   kernel held layer by layer on the model's own activations (flash
+   against chunked attention on the same input within 2e-3, the flash
+   output carried on); the routing decisions the flash and chunked
+   prefills, and the decode steps and the teacher-forced forward, take
+   differently counted, and each whole-model comparison gated only where
+   none it spans flipped (reported otherwise); the bf16 runs at the
+   config's capacity factor 1.25, with each layer's dropped share and
+   busiest expert, and the device time of the dispatch against the
+   expert products and the router;
+12. zamba2-1.2b at full width and all 38 Mamba2 layers (d 2048), as
+   phase 10: the shared attention block (32 heads, 32 KV heads, d 64)
+   launches the tile route 7 times a flash prefill, once an application;
+   decode carries the SSM, conv and KV caches; the device time of one
+   Mamba2 layer and of its SSD chunk loop at the prefill's shape;
+13. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
-   attention's per path with the model phase's beside the compute
-   loop's and its time at the model's shape, the combine's with the
+   attention's per path with each model phase's beside the compute
+   loop's and its time at each model's shape, the combine's with the
    decode's split plan), then the ``ok`` line.
 
-The calibration, the Eq. 2 sweep, the energy sweep and the model's
+The calibration, the Eq. 2 sweep, the energy sweep and the models'
 served runs count their launches from 0 too, each kernel they run at
 least once; the matmul's count in the kernels line adds the power fit's
 launches to the compute loop's, the attention's the served runs'.  The
@@ -142,6 +163,7 @@ Any failure exits non-zero and prints no ``ok`` line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -227,22 +249,27 @@ RAGGED_ATTENTION = tuple((1, s, s, 4, hkv, 64) for s in (48, 100, 200)
                          for hkv in (2, 4))
 #: the tile route's walks over the KV tiles, at every compiled tiling, f32
 #: and bf16: name -> ((b, sq, sk, h, hkv, d), causal); at d = 64 a 128 x 64
-#: tile is two ring panels, so one KV tile is fewer panels than stages
+#: tile is two ring panels, so one KV tile is fewer panels than stages;
+#: the served MoE's and hybrid's heads at d 64 (granite-moe 16 / 8,
+#: zamba2 32 / 32), causal, at a small S
 TILE_WALKS = {"one_kv_tile": ((1, 64, 64, 2, 1, 128), True),
               "fewer_panels_than_stages": ((2, 64, 64, 4, 2, 64), True),
               "many_kv_tiles": ((1, 128, 2048, 4, 2, 128), False),
-              "ragged_many_tiles": ((1, 300, 1000, 2, 1, 128), False)}
+              "ragged_many_tiles": ((1, 300, 1000, 2, 1, 128), False),
+              "d64_gqa2_16_heads": ((2, 256, 256, 16, 8, 64), True),
+              "d64_mha_32_heads": ((2, 256, 256, 32, 32, 64), True)}
 #: blocks left at None on the card, and head dims 16 and 32 on the tile
 #: route: (b, sq, sk, h, hkv, d), causal
 NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
                         ((1, 192, 192, 4, 2, 64), False),
                         ((2, 256, 256, 8, 2, 16), True),
                         ((2, 256, 256, 8, 2, 32), False))
-#: the model phase: internlm2-1.8b at full width and depth, served
-#: through the port's launcher for a prompt batch of MODEL_BATCH x
+#: the model phases and the arch each serves at full width and depth
+#: through the port's launcher, for a prompt batch of MODEL_BATCH x
 #: MODEL_PROMPT tokens and MODEL_GEN greedy decode steps; the f32 gate run
 #: decodes MODEL_F32_GEN steps, held against a teacher-forced forward
-MODEL_ARCH = "internlm2-1.8b"
+MODEL_PHASES = {10: "internlm2-1.8b", 11: "granite-moe-1b-a400m",
+                12: "zamba2-1.2b"}
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, MODEL_F32_GEN = 8, 2048, 32, 4
 #: the reference's attention tolerance (tests/test_kernels.py:102)
 MODEL_TOL = (2e-3, 2e-3)
@@ -913,20 +940,21 @@ def _energy_phase(machine, scaling: dict) -> tuple[list[str], dict]:
     return failures, report
 
 
-def _attention_at_model_shape(cfg, machine) -> tuple[list[str], dict]:
-    """The attention op alone at the LM's prefill shape in bf16, through
-    the compute loop (``gpu_compute_ecm.run``: the check against the plain
-    version, the kernel at every compiled prefill tiling, the plain
-    version, SDPA's efficient backend on KV repeated), plus SDPA with the
-    backend it picks itself on KV unrepeated (``enable_gqa``), and the
-    bound on the bf16 tensor cores and on FFMA."""
+def _attention_at_model_shape(acfg, machine) -> tuple[list[str], dict]:
+    """The attention op alone at a served model's prefill shape in bf16
+    (``acfg``: its attention config), through the compute loop
+    (``gpu_compute_ecm.run``: the check against the plain version, the
+    kernel at every compiled prefill tiling, the plain version, SDPA's
+    efficient backend on KV repeated), plus SDPA with the backend it picks
+    itself on KV unrepeated (``enable_gqa``), and the bound on the bf16
+    tensor cores and on FFMA."""
     import torch.nn.functional as F
 
     from repro_torch.benchmarks import gpu_compute_ecm as GC
     from repro_torch.benchmarks.timing import time_call
 
-    dims = (MODEL_BATCH, MODEL_PROMPT, MODEL_PROMPT, cfg.n_heads,
-            cfg.n_kv_heads, cfg.head_dim_)
+    dims = (MODEL_BATCH, MODEL_PROMPT, MODEL_PROMPT, acfg.n_heads,
+            acfg.n_kv_heads, acfg.head_dim)
     point = GC.Point("attention", dims, torch.bfloat16, causal=True)
     report = GC.run(point=point)
     failures = _check_compute_report(report)
@@ -948,21 +976,23 @@ def _attention_at_model_shape(cfg, machine) -> tuple[list[str], dict]:
         "sdpa_own_backend_gqa_ms": sdpa_ms}
 
 
-def _contracted_fan_in(spec: dict, cfg) -> dict:
-    """The LM's spec tree with the attention projections scaled by the
-    fan-in they contract over: ``wq``, ``wk``, ``wv`` by d_model, ``wo`` by
-    heads x head_dim.  The reference's initializer (kept by the port's
+def _contracted_fan_in(spec: dict, path: tuple, acfg) -> dict:
+    """The model's spec tree with the attention projections of the
+    subtree at ``path`` (``("layers", "attn")``, zamba2's ``("shared",
+    "attn")``; ``acfg`` its attention config) scaled by the fan-in they
+    contract over: ``wq``, ``wk``, ``wv`` by d_model, ``wo`` by heads x
+    head_dim.  The reference's initializer (kept by the port's
     ``materialize``) takes the fan-in from axis -2, which for a ``(d, h,
     hd)`` projection is the head count: at internlm2-1.8b's width its
     scores have a standard deviation near 180, the softmax is one-hot, and
     rounding alone flips which key a row attends to, so two correct f32
     attention paths part by whole units in the logits after 24 layers."""
-    attn = dict(spec["layers"]["attn"])
-    for name, fan_in in (("wq", cfg.d_model), ("wk", cfg.d_model),
-                         ("wv", cfg.d_model),
-                         ("wo", cfg.n_heads * cfg.head_dim_)):
-        attn[name] = dataclasses.replace(attn[name], scale=fan_in ** -0.5)
-    return spec | {"layers": spec["layers"] | {"attn": attn}}
+    if not path:
+        fan_in = {"wq": acfg.d_model, "wk": acfg.d_model, "wv": acfg.d_model,
+                  "wo": acfg.n_heads * acfg.head_dim}
+        return {k: dataclasses.replace(p, scale=fan_in[k] ** -0.5)
+                if k in fan_in else p for k, p in spec.items()}
+    return spec | {path[0]: _contracted_fan_in(spec[path[0]], path[1:], acfg)}
 
 
 def _device_split(fn) -> dict:
@@ -1000,25 +1030,161 @@ def _device_split(fn) -> dict:
                             for k, ms, n in top]}
 
 
-def _model_phase(machine) -> tuple[list[str], dict]:
-    """Phase 10: internlm2-1.8b at full width and all 24 layers through
-    the port's serve function (``launch/serve.py``), random weights from
-    SEED materialized on the card by the port's ``materialize``, the
-    attention projections at their contracted fan-in
-    (:func:`_contracted_fan_in`).  f32 first (the gates): chunked, the
-    plain version, then flash, the kernel; the flash prefill's
-    last-position logits against the chunked ones, and its decode steps
-    against a teacher-forced dense forward of the tokens it was fed, each
-    within MODEL_TOL.  The same f32 prefills on the reference's own
-    initializer are reported beside them, not gated (see
-    :func:`_contracted_fan_in`).  Then the parameters cast once to bf16 (the
-    config's dtype; the f32 copy freed) and served both ways at
-    MODEL_GEN steps: prefill and decode times, the model FLOP rate, the
-    weight-bytes bound of a decode step, the device's idle share in
-    decode (a CUDA graph's replay of one step against the eager step),
-    and the bf16 flash-chunked logit difference, reported.  Returns what
-    failed and the record; ``launches`` counts the served runs' kernel
-    launches from 0."""
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every MoE routing decision made inside the block: the ids ``(N,
+    k)`` of each ``moe._route`` call, in call order (a prefill's first,
+    one a layer, then each decode step's)."""
+    from repro_torch.models import moe
+
+    route, calls = moe._route, []
+
+    def recording(p, cfg, xf):
+        out = route(p, cfg, xf)
+        calls.append(out[1])
+        return out
+
+    moe._route = recording
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def _route_flips(a, b) -> int:
+    """Tokens whose set of k experts differs between two ``(N, k)`` id
+    tensors."""
+    return int((a.sort(dim=-1).values != b.sort(dim=-1).values).any(-1).sum())
+
+
+def _attention_walk(params, cfg, tokens) -> tuple[list[str], list[float]]:
+    """The kernel's gate on the model's own activations: ``lm.prefill``'s
+    layer loop by hand on the flash path; at each layer the flash
+    attention output against the chunked one on the same input, within
+    MODEL_TOL, the flash output carried on.  A routing flip in one layer
+    cannot spoil a later layer's comparison, as it would between two whole
+    runs.  Returns what failed and each layer's max abs difference."""
+    from repro_torch.kernels.check import compare
+    from repro_torch.models import lm
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import rmsnorm
+
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    h = lm._embed(params, cfg, tokens, None)
+    failures, errs = [], []
+    for i, p_l in enumerate(lm._layers(params, cfg)):
+        x = rmsnorm(p_l["ln_attn"], h, cfg.norm_eps)
+        got, _ = attention(p_l["attn"], flash.attn_cfg, x)
+        want, _ = attention(p_l["attn"], chunked.attn_cfg, x)
+        ok, err, tol = compare(got, want, tol=MODEL_TOL)
+        errs.append(err)
+        if not ok:
+            failures.append(f"layer {i}: flash attention off the chunked one "
+                            f"by {err} (tol {tol})")
+        h = h + got
+        h = h + lm._ffn(p_l, flash, rmsnorm(p_l["ln_ffn"], h, cfg.norm_eps))[0]
+    return failures, errs
+
+
+def _moe_loads(calls, cfg) -> dict:
+    """Per layer of a prefill's routing (its first ``n_layers`` calls):
+    the share of the N*k assignments past their expert's capacity (the
+    dispatch drops them) and the busiest expert's load over the mean."""
+    from repro_torch.models import moe
+
+    e = cfg.moe.n_experts
+    dropped, peak = [], []
+    for ids in calls[:cfg.n_layers]:
+        cap = moe._capacity(ids.shape[0], cfg.moe)
+        counts = moe._counts(ids.reshape(-1), e)
+        dropped.append(float((counts - cap).clamp_min(0).sum()) / ids.numel())
+        peak.append(float(counts.max()) / float(counts.float().mean()))
+    return {"capacity": moe._capacity(calls[0].shape[0], cfg.moe),
+            "dropped_share_per_layer": dropped,
+            "dropped_share_max": max(dropped),
+            "max_over_mean_load_per_layer": peak}
+
+
+def _moe_timing(p_moe, cfg, d_model: int) -> dict:
+    """Device ms of the MoE FFN at the prefill's N = B x S tokens (bf16,
+    the first layer's weights, inputs N(0, 1) as after the RMSNorm): the
+    whole FFN, its router, its expert products on the ``(E, cap, d)``
+    buffer, and the dispatch (sort, gathers, scatters, combine) as the
+    rest."""
+    from repro_torch.benchmarks.timing import time_call
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((MODEL_BATCH, MODEL_PROMPT, d_model), generator=g,
+                    device="cuda").to(cfg.dtype)
+    cap = moe._capacity(MODEL_BATCH * MODEL_PROMPT, m)
+    buf = torch.randn((m.n_experts, cap, d_model), generator=g,
+                      device="cuda").to(cfg.dtype)
+    ms = {"ffn_ms": time_call(lambda: moe.moe_ffn(p_moe, m, x), inner=5)[0],
+          "router_ms": time_call(lambda: moe._route(
+              p_moe, m, x.reshape(-1, d_model)), inner=5)[0],
+          "expert_products_ms": time_call(lambda: moe._expert_ffn(
+              p_moe["w_gate"], p_moe["w_up"], p_moe["w_down"], buf), inner=5)[0]}
+    ms["dispatch_ms"] = ms["ffn_ms"] - ms["router_ms"] - ms["expert_products_ms"]
+    return ms | {"n_layers": cfg.n_layers, "tokens": MODEL_BATCH * MODEL_PROMPT,
+                 "capacity": cap}
+
+
+def _ssd_timing(p_layer, cfg) -> dict:
+    """Device ms of one Mamba2 layer at the prefill's shape (bf16, the
+    first layer's weights, input N(0, 1) as after the RMSNorm) and of its
+    SSD chunk loop (``_ssd_chunked``) alone on inputs of its shapes."""
+    from repro_torch.benchmarks.timing import time_call
+    from repro_torch.models import mamba2
+
+    m = cfg.mamba_cfg
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(cfg.dtype)
+
+    b, s = MODEL_BATCH, MODEL_PROMPT
+    u = randn(b, s, cfg.d_model)
+    x = randn(b, s, m.n_heads, m.head_dim)
+    bmat, cmat = randn(b, s, m.n_groups, m.d_state), randn(b, s, m.n_groups, m.d_state)
+    dt = mamba2._softplus(randn(b, s, m.n_heads).float())
+    a_log = torch.zeros(m.n_heads, device="cuda")
+    ms = {"layer_ms": time_call(lambda: mamba2.mamba2_layer(p_layer, m, u),
+                                inner=3)[0],
+          "ssd_ms": time_call(lambda: mamba2._ssd_chunked(
+              m, x, bmat, cmat, dt, a_log), inner=3)[0]}
+    return ms | {"ssd_share_of_layer": ms["ssd_ms"] / ms["layer_ms"],
+                 "n_layers": cfg.n_layers, "chunk": m.chunk,
+                 "chunks": -(-s // m.chunk)}
+
+
+def _model_phase(name: str, machine) -> tuple[list[str], dict]:
+    """Phases 10-12: the arch ``name`` at full width and depth through the
+    port's serve function (``launch/serve.py``), random weights from SEED
+    materialized on the card by the port's ``materialize``, the attention
+    projections at their contracted fan-in (:func:`_contracted_fan_in`).
+
+    f32 first (the gates): chunked, the plain version, then flash, the
+    kernel; the flash prefill's last-position logits against the chunked
+    ones, and its decode steps against a teacher-forced dense forward of
+    the tokens it was fed, each within MODEL_TOL.  An MoE runs these at
+    ``capacity_factor = n_experts / top_k`` (nothing can drop, so the
+    8 x 2052-token forward routes as the 8-token decode steps do), holds
+    the kernel layer by layer (:func:`_attention_walk`), and counts the
+    routing decisions the two runs take differently: a whole-model
+    comparison is gated only where no decision it spans flipped, and
+    reported otherwise.  The same f32 prefills on the reference's own
+    initializer are reported beside them, not gated.  Then the parameters
+    cast once to bf16 (the config's dtype; the f32 copy freed) and served
+    both ways at MODEL_GEN steps: prefill and decode times, the model FLOP
+    rate (active parameters), the weight-bytes bound of a decode step, the
+    device's idle share in decode (a CUDA graph's replay of one step
+    against the eager step), the bf16 flash-chunked logit difference, an
+    MoE's dropped share per layer and the device time of its dispatch, a
+    hybrid's SSD chunk loop.  Returns what failed and the record;
+    ``launches`` counts the served runs' kernel launches from 0."""
     from repro_torch import kernels
     from repro_torch.benchmarks import gpu_compute_ecm as GC
     from repro_torch.benchmarks.timing import time_graph
@@ -1026,16 +1192,23 @@ def _model_phase(machine) -> tuple[list[str], dict]:
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels.check import compare
     from repro_torch.launch.serve import serve
-    from repro_torch.models import lm
-    from repro_torch.models.common import materialize, tree_leaves
+    from repro_torch.models import lm, zamba2
+    from repro_torch.models.common import (cast_params, materialize,
+                                           tree_leaves, unembed, unstack)
 
-    arch = get_arch(MODEL_ARCH)
+    arch = get_arch(name)
     cfg = arch.cfg
-    failures, rec = [], {"phase": "model", "arch": arch.name,
-                         "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                         "n_params": arch.n_params, "batch": MODEL_BATCH,
-                         "prompt": MODEL_PROMPT}
-    attn_failures, rec["attention"] = _attention_at_model_shape(cfg, machine)
+    hybrid = arch.family == "hybrid"
+    moe = getattr(cfg, "moe", None)
+    n_attn = cfg.n_shared if hybrid else cfg.n_layers
+    failures, rec = [], {"phase": f"model {arch.name}", "arch": arch.name,
+                         "family": arch.family, "n_layers": cfg.n_layers,
+                         "d_model": cfg.d_model, "n_params": arch.n_params,
+                         "n_active_params": arch.n_active_params,
+                         "attention_applications": n_attn,
+                         "batch": MODEL_BATCH, "prompt": MODEL_PROMPT}
+    attn_failures, rec["attention"] = _attention_at_model_shape(
+        cfg.attn_cfg, machine)
     failures += attn_failures
     torch.cuda.empty_cache()
 
@@ -1048,27 +1221,29 @@ def _model_phase(machine) -> tuple[list[str], dict]:
         return materialize(spec, torch.Generator(device=dev).manual_seed(SEED),
                            device=dev)
 
+    def hidden(params, c, tokens):
+        return (zamba2 if hybrid else lm).hidden_states(params, c, tokens)[0]
+
     prompt = torch.from_numpy(arch.make_batch(ShapeSpec(
         "cli_prefill", MODEL_PROMPT, MODEL_BATCH, "prefill"), seed=SEED)["tokens"])
-    kernels.reset_launches()
     attn = kernels.FLASH_ATTENTION
     rec["runs"] = {}
 
-    def run(dtype, impl, gen, params, tag=""):
+    def run(dtype, impl, gen, params, tag="", **kw):
         before = dict(attn.launches_by_route)
-        served = serve(variant(dtype=dtype, attn_impl=impl), params,
+        served = serve(variant(dtype=dtype, attn_impl=impl, **kw), params,
                        batch=MODEL_BATCH, prompt_len=MODEL_PROMPT, gen=gen,
                        seed=SEED)
-        name = f"{str(dtype).removeprefix('torch.')} {impl}{tag}"
+        run_name = f"{str(dtype).removeprefix('torch.')} {impl}{tag}"
         launched = {r: n - before[r] for r, n in attn.launches_by_route.items()}
-        want = {"tile": cfg.n_layers if impl == "flash" else 0, "split": 0}
+        want = {"tile": n_attn if impl == "flash" else 0, "split": 0}
         if launched != want:
-            failures.append(f"model {name}: attention launches {launched}, "
-                            f"not {want}")
+            failures.append(f"model {name} {run_name}: attention launches "
+                            f"{launched}, not {want}")
         logits = [served.prefill_logits, *served.step_logits]
         if not all(bool(torch.isfinite(t).all()) for t in logits):
-            failures.append(f"model {name}: a logit is not finite")
-        rec["runs"][name] = {
+            failures.append(f"model {name} {run_name}: a logit is not finite")
+        rec["runs"][run_name] = {
             "prefill_s": served.prefill_s, "decode_s": served.decode_s,
             "gen": gen, "attention_launches": launched,
             "prefill_tokens_per_s": MODEL_BATCH * MODEL_PROMPT / served.prefill_s,
@@ -1077,76 +1252,126 @@ def _model_phase(machine) -> tuple[list[str], dict]:
             if gen else None}
         return served
 
+    # an MoE's f32 gates at capacity N: nothing drops
+    gate_kw = {} if moe is None else {"moe": dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k)}
+    path = ("shared", "attn") if hybrid else ("layers", "attn")
     with GC.full_f32():
-        params = weights(arch.param_spec())
-        ref_init = [run(torch.float32, impl, 0, params, " (reference init)")
-                    for impl in ("chunked", "flash")]
+        f32_cfg = variant(dtype=torch.float32, **gate_kw).cfg
+        params = weights(_contracted_fan_in(arch.param_spec(), path,
+                                            cfg.attn_cfg))
+        if moe is not None:   # before the count: a comparison, not the path
+            walk_failures, errs = _attention_walk(params, f32_cfg, prompt.to(dev))
+            failures += [f"model {name} f32 walk, {f}" for f in walk_failures]
+            rec["f32_attention_by_layer"] = {"max_abs_err": errs, "tol": MODEL_TOL}
+        kernels.reset_launches()
+        ref_params = weights(arch.param_spec())
+        ref_init = [run(torch.float32, impl, 0, ref_params, " (reference init)",
+                        **gate_kw) for impl in ("chunked", "flash")]
         diff = ref_init[1].prefill_logits - ref_init[0].prefill_logits
         rec["f32_reference_init_flash_vs_chunked_max_abs"] = float(diff.abs().max())
-        del params, ref_init, diff
-        params = weights(_contracted_fan_in(arch.param_spec(), cfg))
-        chunked = run(torch.float32, "chunked", MODEL_F32_GEN, params)
-        flash = run(torch.float32, "flash", MODEL_F32_GEN, params)
+        del ref_params, ref_init, diff
+        with _recorded_routes() as routes:
+            chunked = run(torch.float32, "chunked", MODEL_F32_GEN, params, **gate_kw)
+            n_calls = len(routes)
+            flash = run(torch.float32, "flash", MODEL_F32_GEN, params, **gate_kw)
+            # the teacher-forced forward of the prompt and the fed tokens:
+            # positions MODEL_PROMPT - 1 .. + MODEL_F32_GEN
+            dense = variant(dtype=torch.float32, attn_impl="dense", **gate_kw).cfg
+            toks = torch.cat([prompt.to(dev), flash.fed], dim=1)
+            full = unembed(params["unembed"],
+                           hidden(params, dense, toks)[:, MODEL_PROMPT - 1:])
         chunked.cache = flash.cache = None
+        # each whole-model comparison is gated where no routing decision
+        # it spans flipped: flash against chunked, the prefill's; decode
+        # step j against the teacher-forced forward, every position up to
+        # its own (the prompt's through the cache)
+        flips = {"prefill": 0, "decode_steps": [0] * (MODEL_F32_GEN + 1)}
+        if moe is not None:
+            layers, b, p = cfg.n_layers, MODEL_BATCH, MODEL_PROMPT
+            c_routes, f_routes = routes[:n_calls], routes[n_calls:2 * n_calls]
+            tf_routes = [t.view(b, p + MODEL_F32_GEN, -1) for t in routes[2 * n_calls:]]
+            flips["prefill"] = sum(_route_flips(c, f) for c, f in
+                                   zip(c_routes[:layers], f_routes[:layers]))
+            seen = sum(_route_flips(f, t[:, :p].reshape(b * p, -1))
+                       for f, t in zip(f_routes[:layers], tf_routes))
+            flips["prefill_vs_teacher_forced"] = seen
+            flips["decode_steps"][0] = seen
+            for j in range(1, MODEL_F32_GEN + 1):
+                step = f_routes[layers * j:layers * (j + 1)]
+                seen += sum(_route_flips(d, t[:, p - 1 + j])
+                            for d, t in zip(step, tf_routes))
+                flips["decode_steps"][j] = seen
+            flips["decisions_prefill"] = b * p * layers
+            rec["f32_route_flips"] = flips
+        del routes
         ok, err, tol = compare(flash.prefill_logits, chunked.prefill_logits,
                                tol=MODEL_TOL)
-        rec["f32_flash_vs_chunked"] = {"ok": ok, "max_abs_err": err, "tol": tol}
-        if not ok:
-            failures.append(f"model f32: flash prefill logits off the chunked "
-                            f"ones by {err} (tol {tol})")
-        # the teacher-forced forward of the prompt and the fed tokens:
-        # positions MODEL_PROMPT - 1 .. + MODEL_F32_GEN
-        dense = variant(dtype=torch.float32, attn_impl="dense").cfg
-        toks = torch.cat([prompt.to(dev), flash.fed], dim=1)
-        hs, _ = lm.hidden_states(params, dense, toks)
-        full = lm.logits_fn(params, dense, hs[:, MODEL_PROMPT - 1:])
-        del hs
-        errs = []
+        gated = flips["prefill"] == 0
+        rec["f32_flash_vs_chunked"] = {"ok": ok, "max_abs_err": err, "tol": tol,
+                                       "gated": gated}
+        if gated and not ok:
+            failures.append(f"model {name} f32: flash prefill logits off the "
+                            f"chunked ones by {err} (tol {tol})")
+        errs, gates = [], []
         for j, got in enumerate([flash.prefill_logits, *flash.step_logits]):
             ok, err, tol = compare(got[:, 0], full[:, j], tol=MODEL_TOL)
             errs.append(err)
-            if not ok:
-                failures.append(f"model f32: decode step {j} off the "
+            gates.append(flips["decode_steps"][j] == 0)
+            if gates[-1] and not ok:
+                failures.append(f"model {name} f32: decode step {j} off the "
                                 f"teacher-forced forward by {err} (tol {tol})")
-        rec["f32_decode_vs_teacher_forced"] = {"max_abs_err": errs, "tol": tol}
+        rec["f32_decode_vs_teacher_forced"] = {"max_abs_err": errs, "tol": tol,
+                                               "gated": gates}
         del full, chunked, flash
-    params = lm.cast_params(params, cfg.dtype)
+    params = cast_params(params, cfg.dtype)
     torch.cuda.empty_cache()
     chunked = run(cfg.dtype, "chunked", MODEL_GEN, params)
     chunked.cache = None
-    flash = run(cfg.dtype, "flash", MODEL_GEN, params)
+    with _recorded_routes() as routes:
+        flash = run(cfg.dtype, "flash", MODEL_GEN, params)
     diff = (flash.prefill_logits.float() - chunked.prefill_logits.float()).abs()
     rec["bf16_flash_vs_chunked_max_abs"] = float(diff.max())
     rec["bf16_tokens_equal_share"] = float(
         (flash.tokens == chunked.tokens).float().mean())
     rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
     rec["attention_launches_by_route"] = dict(attn.launches_by_route)
+    del chunked
+
+    if moe is not None:
+        rec["moe"] = _moe_loads(routes, cfg) | _moe_timing(
+            lm._layers(params, cfg)[0]["moe"], cfg, cfg.d_model)
+    if hybrid:
+        rec["ssd"] = _ssd_timing(unstack(params["layers"], cfg.n_layers)[0]["mamba"],
+                                 cfg)
+    del routes
 
     # the device's busy time in one decode step: a CUDA graph replays the
     # step (and its argmax) with no host in between
     cache = dict(flash.cache)
     tok = flash.tokens[:, -1:].to(dev)
-    flash_cfg = variant(attn_impl="flash").cfg
+    flash_arch = variant(attn_impl="flash")
 
     def step():
-        logits, _ = lm.decode_step(params, flash_cfg, cache, {"tokens": tok})
+        logits, _ = flash_arch.decode(params, cache, {"tokens": tok})
         return logits[:, -1, :cfg.vocab].argmax(-1)
 
     busy_ms = time_graph(step, launches=MODEL_GRAPH_STEPS)
-    rec["runs"]["bfloat16 flash"]["graph_decode_ms"] = busy_ms
+    rec["runs"][f"{str(cfg.dtype).removeprefix('torch.')} flash"][
+        "graph_decode_ms"] = busy_ms
     tokens = {"tokens": prompt.to(dev)}
     rec["device_split"] = {
-        "prefill": _device_split(lambda: lm.prefill(
-            params, flash_cfg, tokens, max_len=MODEL_PROMPT)),
+        "prefill": _device_split(lambda: flash_arch.prefill(
+            params, tokens, max_len=MODEL_PROMPT)),
         "decode_step": _device_split(step)}
-    stats = rec["runs"]["bfloat16 flash"]
+    stats = rec["runs"][f"{str(cfg.dtype).removeprefix('torch.')} flash"]
     eager_ms = stats["decode_s_per_token"] * 1e3
-    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    weights_b = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     table = params["embedding"]
-    weight_bytes = (weights - table.numel() * table.element_size()
+    weight_bytes = (weights_b - table.numel() * table.element_size()
                     + MODEL_BATCH * table.shape[1] * table.element_size())
-    k = flash.cache["k"]
-    cache_bytes = 2 * k.numel() * k.element_size()
+    cache_bytes = sum(flash.cache[key].numel() * flash.cache[key].element_size()
+                      for key in ("k", "v"))
     flops = arch.model_flops(ShapeSpec("prefill", MODEL_PROMPT, MODEL_BATCH,
                                        "prefill"))
     prefill_ms = stats["prefill_s"] * 1e3
@@ -1168,8 +1393,8 @@ def _model_phase(machine) -> tuple[list[str], dict]:
             weight_bytes + cache_bytes) * 1e3 / eager_ms,
         "decode_graph_ms": busy_ms, "decode_eager_ms": eager_ms,
         "decode_idle_share": 1.0 - busy_ms / eager_ms,
-        "attention_ms_per_layer": rec["attention"]["ms"],
-        "attention_share_of_prefill": cfg.n_layers * rec["attention"]["ms"]
+        "attention_ms_per_application": rec["attention"]["ms"],
+        "attention_share_of_prefill": n_attn * rec["attention"]["ms"]
         / prefill_ms,
     }
     return failures, rec
@@ -1441,29 +1666,33 @@ def main() -> int:
         print(json.dumps({"phase": "energy", "op": op, **rec}))
     failures += energy_failures
 
-    # 10. the dense LM at full width, its served runs' launches from 0
-    t_path = time.perf_counter()
-    model_failures, model = _model_phase(
-        G.GPUMachineModel.from_device(torch.device("cuda")))
-    model_s = time.perf_counter() - t_path
-    print(json.dumps({k: v for k, v in model.items()
-                      if k not in ("runs", "attention", "summary", "device_split")}
-                     | {"s": model_s}))
-    print(json.dumps({"phase": "model", "runs": model["runs"]}))
-    print(json.dumps({"phase": "model", "attention": model["attention"]}))
-    print(json.dumps({"phase": "model", "summary": model["summary"]}))
-    print(json.dumps({"phase": "model", "device_split": model["device_split"]}))
-    failures += model_failures
-    torch.cuda.empty_cache()
+    # 10-12. the served LMs at full width, each one's served runs'
+    # launches counted from 0
+    machine = G.GPUMachineModel.from_device(torch.device("cuda"))
+    models, model_s = {}, {}
+    for number, name in MODEL_PHASES.items():
+        t_path = time.perf_counter()
+        model_failures, model = _model_phase(name, machine)
+        model_s[name] = time.perf_counter() - t_path
+        tag = {"phase": f"{number} model", "arch": name}
+        print(json.dumps({k: v for k, v in model.items() if k not in (
+            "runs", "attention", "summary", "device_split")} | {"s": model_s[name]}))
+        for key in ("runs", "attention", "summary", "device_split"):
+            print(json.dumps(tag | {key: model[key]}))
+        failures += model_failures
+        models[name] = model
+        torch.cuda.empty_cache()
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
-        "energy": energy_s, "model": model_s}}))
+        "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 11. the kernels line; the matmul's launches add the power fit's, the
-    # attention's the model phase's
+    # 13. the kernels line; the matmul's launches add the power fit's, the
+    # attention's the model phases'
     launches["matmul"] += record["launches"]["matmul"]
-    launches["flash_attention"] += model["launches"]["flash_attention"]
+    model_launches = {name: m["launches"]["flash_attention"]
+                      for name, m in models.items()}
+    launches["flash_attention"] += sum(model_launches.values())
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
               "reduce": [o for o in G.OPS if o in kernels.pipeline.REDUCE_OPS]}
     rows = []
@@ -1506,14 +1735,18 @@ def main() -> int:
                 for pt in served}
         if k is kernels.FLASH_ATTENTION:
             where["launches_by_path"] = {
-                "compute": launches[k.name] - model["launches"][k.name],
-                "model": model["launches"][k.name]}
+                "compute": launches[k.name] - sum(model_launches.values()),
+                **{f"model {n}": v for n, v in model_launches.items()}}
             where["launches_by_route"] = {
-                r: n + model["attention_launches_by_route"][r]
+                r: n + sum(m["attention_launches_by_route"][r]
+                           for m in models.values())
                 for r, n in attention_routes.items()}
-            where["at_model_shape"] = {key: model["attention"][key] for key in (
-                "dims", "dtype", "block", "check", "ms", "plain_ms", "library_ms",
-                "sdpa_own_backend_gqa_ms", "bound_ms", "bound_ms_ffma")}
+            where["at_model_shape"] = {
+                name: {key: m["attention"][key] for key in (
+                    "dims", "dtype", "block", "check", "ms", "plain_ms",
+                    "library_ms", "sdpa_own_backend_gqa_ms", "bound_ms",
+                    "bound_ms_ffma")} | {"launches": model_launches[name]}
+                for name, m in models.items()}
             where["by_route"] = {
                 kernels.attention.kernel.route_of(compute[pt]["block"][0]): {
                     "point": pt, "block": compute[pt]["block"],

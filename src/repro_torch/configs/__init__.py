@@ -3,9 +3,9 @@ reference's ``repro/configs``).
 
 ``get_arch(name)`` returns the full-size :class:`~.base.ArchDef`;
 ``get_arch(name, smoke=True)`` the reduced same-family config the CPU
-tests use.  The four dense LMs are ported; asking for one of the
-reference's other archs raises ``KeyError`` naming the ROADMAP item that
-ports it.
+tests use.  The dense, MoE, multimodal and hybrid LMs are ported; asking
+for one of the reference's other archs raises ``KeyError`` naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -14,16 +14,19 @@ import importlib
 from .base import SHAPES, ArchDef, ShapeSpec
 
 _MODULES = {
+    "zamba2-1.2b": "zamba2_1_2b",
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen1.5-110b": "qwen1_5_110b",
     "minitron-4b": "minitron_4b",
     "glm4-9b": "glm4_9b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "pixtral-12b": "pixtral_12b",
 }
 #: the reference's archs not ported yet, and the ROADMAP §1 item that
-#: ports them (MoE, hybrid, recurrent, multimodal and audio families)
+#: ports them (the recurrent and audio families)
 NOT_PORTED = {name: "ROADMAP §1 item 3" for name in (
-    "zamba2-1.2b", "granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
-    "xlstm-125m", "pixtral-12b", "whisper-base")}
+    "xlstm-125m", "whisper-base")}
 
 ARCH_NAMES = tuple(_MODULES)
 

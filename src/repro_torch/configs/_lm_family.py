@@ -1,4 +1,5 @@
-"""Shared constructor for the dense decoder-only LM architectures."""
+"""Shared constructor for the dense, MoE and multimodal decoder-only LM
+architectures."""
 from __future__ import annotations
 
 from ..models import lm
@@ -7,7 +8,8 @@ from .base import ArchDef
 
 def lm_arch(name: str, cfg: lm.LMConfig, *, family: str = "dense",
             profile: str = "tp_dp", source: str = "",
-            train_accum: int = 1) -> ArchDef:
+            extra_inputs: dict | None = None, train_accum: int = 1,
+            moment_dtype: str = "f32") -> ArchDef:
     return ArchDef(
         name=name,
         family=family,
@@ -20,5 +22,7 @@ def lm_arch(name: str, cfg: lm.LMConfig, *, family: str = "dense",
         profile=profile,
         sub_quadratic=False,
         source=source,
+        extra_inputs=extra_inputs or {},
         train_accum=train_accum,
+        moment_dtype=moment_dtype,
     )

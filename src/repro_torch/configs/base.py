@@ -23,13 +23,14 @@ a recorded reason) for full-attention architectures.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from ..models.common import ParamSpec, count_params
+from ..models.common import ParamSpec, count_params, tree_leaves
 
 
 @dataclass(frozen=True)
@@ -54,12 +55,13 @@ SHAPES: dict[str, ShapeSpec] = {
 
 @dataclass(frozen=True)
 class ArchDef:
-    """One selectable architecture (``--arch <name>``).  ``profile`` and
-    ``train_accum`` carry the reference's sharding profile and gradient
-    accumulation for the port's later train and mesh slices."""
+    """One selectable architecture (``--arch <name>``).  ``profile``,
+    ``train_accum`` and ``moment_dtype`` carry the reference's sharding
+    profile, gradient accumulation and Adam moment storage for the port's
+    later train and mesh slices (ROADMAP §1 items 4 and 5)."""
 
     name: str
-    family: str                    # dense
+    family: str                    # dense | moe | hybrid | vlm
     cfg: Any                       # model config dataclass
     spec_fn: Callable
     loss_fn: Callable
@@ -70,7 +72,11 @@ class ArchDef:
     sub_quadratic: bool = False    # may run long_500k
     has_decoder: bool = True       # encoder-only archs skip decode shapes
     source: str = ""               # provenance note ([arXiv/hf; tier])
+    #: extra per-shape batch entries: name -> fn(shape, cfg) -> ParamSpec
+    #: or None (no entry at that shape)
+    extra_inputs: dict = field(default_factory=dict)
     train_accum: int = 1
+    moment_dtype: str = "f32"      # f32 | bf16 | int8
 
     # -- parameters ----------------------------------------------------
     def param_spec(self):
@@ -82,8 +88,18 @@ class ArchDef:
 
     @property
     def n_active_params(self) -> int:
-        """Active params per token: every parameter of a dense arch."""
-        return self.n_params
+        """Active params per token (MoE: experts scaled by top_k/n_experts)."""
+        spec = self.param_spec()
+        moe = getattr(self.cfg, "moe", None)
+        if moe is None:
+            return count_params(spec)
+        total = 0
+        for s in tree_leaves(spec):
+            n = int(math.prod(s.shape))
+            if "experts" in s.axes:     # expert-parallel weights
+                n = int(n * moe.top_k / moe.n_experts)
+            total += n
+        return total
 
     # -- model fns -----------------------------------------------------
     def loss(self, params, batch):
@@ -122,6 +138,10 @@ class ArchDef:
                                       init="zeros", dtype=torch.int32)
             out["mask"] = ParamSpec((b, label_s), ("batch", None),
                                     init="ones", dtype=torch.float32)
+        for k, fn in self.extra_inputs.items():
+            spec = fn(shape, self.cfg)
+            if spec is not None:
+                out[k] = spec
         return out
 
     def _text_len(self, shape: ShapeSpec) -> int:
@@ -132,16 +152,20 @@ class ArchDef:
 
     def make_batch(self, shape: ShapeSpec, seed: int = 0) -> dict:
         """Concrete numpy batch for this shape, drawn as the reference
-        draws it (``Philox(key=[seed, 7])``), so both give the same
-        tokens bit for bit."""
+        draws it (``Philox(key=[seed, 7])``, the entries in its order), so
+        both give the same arrays bit for bit: tokens and labels as
+        integers, the mask as ones, float inputs (pixtral's patch
+        embeddings) as f32 normals times 0.02."""
         g = np.random.Generator(np.random.Philox(key=[seed, 7]))
         out = {}
         for k, spec in self.batch_spec(shape).items():
             if spec.dtype == torch.int32:
                 out[k] = g.integers(0, self.cfg.vocab,
                                     size=spec.shape).astype(np.int32)
-            else:                                  # the train mask
+            elif spec.init == "ones":
                 out[k] = np.ones(spec.shape, np.float32)
+            else:
+                out[k] = g.standard_normal(spec.shape).astype(np.float32) * 0.02
         return out
 
     # -- useful-work accounting ------------------------------------------

@@ -3,8 +3,8 @@
 The state is the input streams (and the stencils' grids, the matmul
 operands and the attention inputs q, k, v in the ``(B, S, H, d)`` layout:
 arrays of any shape, taken alike), the Table I kernel specs, and the LM's
-parameter trees and KV caches (nested dicts of arrays, mapped leaf by
-leaf).
+parameter trees and decode caches (nested dicts of arrays, mapped leaf
+by leaf).
 Arrays arrive as numpy arrays (bf16 ones as
 ``np.asarray`` of a JAX array gives them, with the ``ml_dtypes`` bfloat16
 dtype, which ``torch.from_numpy`` does not take); specs as the dict
@@ -53,8 +53,8 @@ def params_from_numpy(tree, *, device, dtype: torch.dtype | None = None):
 
 
 def cache_from_numpy(cache: dict, *, device) -> dict:
-    """A reference KV cache (``k``, ``v`` arrays and a scalar ``length``)
-    as the port's: ``k`` and ``v`` bit for bit on ``device``, the length a
-    host int."""
-    k, v = streams_from_numpy([cache["k"], cache["v"]], device=device)
-    return {"k": k, "v": v, "length": int(cache["length"])}
+    """A reference decode cache (arrays and a scalar ``length``: the LM's
+    ``k``, ``v``; zamba2's ``ssm``, ``conv``, ``k``, ``v``) as the port's:
+    every array bit for bit on ``device``, the length a host int."""
+    return {k: int(v) if k == "length" else
+            streams_from_numpy([v], device=device)[0] for k, v in cache.items()}

@@ -1,13 +1,14 @@
-"""Serving launcher: batched prefill + decode with a KV cache (the static
-path of the reference's ``repro/launch/serve.py``).
+"""Serving launcher: batched prefill + decode with a KV or state cache
+(the static path of the reference's ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b --batch 4 \\
         --prompt-len 16 --gen 8 [--no-smoke] [--device cuda]
 
 materializes the arch's parameters from ``--seed`` on the device, casts
-them once to the compute dtype (:func:`~repro_torch.models.lm.cast_params`:
+them once to the compute dtype (:func:`~repro_torch.models.common.cast_params`:
 the same bits as the reference's cast at every use), runs prefill on the
-reference's synthetic prompt batch (``ArchDef.make_batch``) and decodes
+reference's synthetic prompt batch (every array ``ArchDef.make_batch``
+draws: the tokens, and pixtral's patch embeddings) and decodes
 ``--gen`` tokens greedily (argmax over the unpadded vocabulary), then
 prints the reference's JSON: ``arch``, ``prefill_s``, ``decode_s_per_tok``
 and ``tokens``.  It runs on the card unless ``--device cpu`` is passed.
@@ -27,8 +28,7 @@ import torch
 
 from ..configs import get_arch
 from ..configs.base import ArchDef, ShapeSpec
-from ..models.common import materialize
-from ..models.lm import cast_params
+from ..models.common import cast_params, materialize
 
 
 @dataclass
@@ -67,16 +67,16 @@ def _sync(device: torch.device) -> None:
 def serve(arch: ArchDef, params, *, batch: int, prompt_len: int, gen: int,
           seed: int = 0) -> Served:
     """Prefill a ``batch x prompt_len`` prompt of ``arch.make_batch`` drawn
-    from ``seed``, then ``gen`` greedy decode steps, on the device the
-    parameters lie on, with a cache of ``prompt_len + gen + 8`` positions
-    (the reference's).  The times run from a device sync to a device
-    sync."""
+    from ``seed`` (every array it draws), then ``gen`` greedy decode steps,
+    on the device the parameters lie on, with a cache of ``prompt_len +
+    gen + 8`` positions (the reference's).  The times run from a device
+    sync to a device sync."""
     device = params["embedding"].device
     vocab = arch.cfg.vocab
     shape = ShapeSpec("cli_prefill", seq_len=prompt_len, global_batch=batch,
                       kind="prefill")
-    tokens = torch.from_numpy(arch.make_batch(shape, seed=seed)["tokens"])
-    prompt = {"tokens": tokens.to(device)}
+    prompt = {k: torch.from_numpy(v).to(device)
+              for k, v in arch.make_batch(shape, seed=seed).items()}
     max_len = prompt_len + gen + 8
 
     _sync(device)

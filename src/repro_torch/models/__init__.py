@@ -1,5 +1,7 @@
-"""The port's models (the reference's ``repro/models``): the dense decoder
-LM (:mod:`.lm`), its attention (:mod:`.attention`) and the shared pieces
-(:mod:`.common`).  Parameters are trees of nested dicts of tensors, as the
-reference's are of arrays, so ``convert.params_from_numpy`` carries a
-reference tree across leaf by leaf."""
+"""The port's models (the reference's ``repro/models``): the decoder LM
+(:mod:`.lm`) with its attention (:mod:`.attention`) and MoE FFN
+(:mod:`.moe`), the zamba2 hybrid (:mod:`.zamba2`) on the Mamba2 layer
+(:mod:`.mamba2`), and the shared pieces (:mod:`.common`).  Parameters are
+trees of nested dicts of tensors, as the reference's are of arrays, so
+``convert.params_from_numpy`` carries a reference tree across leaf by
+leaf."""

@@ -54,6 +54,13 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def unstack(tree, n: int) -> list:
+    """A tree of tensors stacked on a leading axis of ``n`` (the
+    reference's scanned layers) as ``n`` trees of views, in order."""
+    stacked = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda ts, i=i: ts[i], stacked) for i in range(n)]
+
+
 def _init_array(spec: ParamSpec, generator: torch.Generator, dtype, device):
     dtype = dtype or spec.dtype
     if spec.init == "zeros":
@@ -82,6 +89,24 @@ def materialize(spec_tree, generator: torch.Generator, dtype=None, *,
 
 def count_params(spec_tree) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
+
+
+#: the leaves every use casts to f32, not to the compute dtype: the MoE
+#: router (``router_dtype``) and the Mamba2 decay, step bias and skip
+F32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
+
+
+def cast_params(params, dtype: torch.dtype):
+    """Every floating parameter cast once to ``dtype`` (the compute
+    dtype), but the :data:`F32_LEAVES`, which stay as they are.  Every
+    other use of a model parameter casts it to the compute dtype first
+    (the embedding after its gather, which commutes with the cast), so
+    the forward on the cast tree gives the same bits as on the f32 tree,
+    without a cast per use."""
+    if isinstance(params, dict):
+        return {k: v if k in F32_LEAVES else cast_params(v, dtype)
+                for k, v in params.items()}
+    return params.to(dtype) if params.is_floating_point() else params
 
 
 # ---------------------------------------------------------------------------

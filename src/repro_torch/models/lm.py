@@ -1,10 +1,10 @@
-"""Decoder-only transformer LM, dense (the reference's ``repro/models/lm.py``).
+"""Decoder-only transformer LM (the reference's ``repro/models/lm.py``).
 
 Covers internlm2-1.8b, qwen1.5-110b, minitron-4b and glm4-9b (dense, GQA,
-optional QKV bias / partial RoPE), and a prefix of precomputed embeddings
-prepended to the token stream (``image_prefix`` / ``extra_embeds``).  The
-MoE FFN is not ported yet (ROADMAP §1 item 3): a config with ``moe`` set
-raises ``NotImplementedError``.
+optional QKV bias / partial RoPE), granite-moe / qwen3-moe (the MoE FFN of
+:mod:`.moe`, its load-balance aux loss summed over the layers) and
+pixtral-12b (a prefix of precomputed patch embeddings prepended to the
+token stream: ``image_prefix`` / ``extra_embeds``).
 
 Layers keep the reference's parameter layout: stacked on a leading
 "layers" axis (``scan_layers=True``, which the reference scans with
@@ -18,7 +18,6 @@ tensors in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
 
 import torch
 
@@ -34,8 +33,10 @@ from .common import (
     tree_map,
     unembed,
     unembed_spec,
+    unstack,
 )
 from .common import masked_xent as _masked_xent
+from .moe import MoEConfig, moe_ffn, moe_spec
 
 
 def pad_vocab(vocab: int, multiple: int = 2048) -> int:
@@ -55,7 +56,7 @@ class LMConfig:
     qkv_bias: bool = False
     rope_fraction: float = 1.0
     rope_theta: float = 10000.0
-    moe: Any = None                    # not ported (ROADMAP §1 item 3)
+    moe: MoEConfig | None = None
     attn_impl: str = "dense"           # dense | chunked | flash
     attn_chunk: int = 1024
     norm_eps: float = 1e-6
@@ -84,25 +85,22 @@ class LMConfig:
             chunk_size=self.attn_chunk)
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN is not ported yet "
-                                  f"(ROADMAP §1 item 3)")
-
-
 # ---------------------------------------------------------------------------
 # parameter specs
 # ---------------------------------------------------------------------------
 
 
 def _layer_spec(cfg: LMConfig) -> dict:
-    _dense_only(cfg)
-    return {
+    spec = {
         "ln_attn": rmsnorm_spec(cfg.d_model),
         "attn": attn_spec(cfg.attn_cfg),
         "ln_ffn": rmsnorm_spec(cfg.d_model),
-        "mlp": swiglu_spec(cfg.d_model, cfg.d_ff),
     }
+    if cfg.moe is not None:
+        spec["moe"] = moe_spec(cfg.d_model, cfg.moe)
+    else:
+        spec["mlp"] = swiglu_spec(cfg.d_model, cfg.d_ff)
+    return spec
 
 
 def _stack_spec(spec, n: int):
@@ -122,16 +120,6 @@ def lm_spec(cfg: LMConfig) -> dict:
     }
 
 
-def cast_params(params, dtype: torch.dtype):
-    """Every floating parameter cast to ``dtype`` once (the compute dtype).
-    Every use of an LM parameter casts it to the compute dtype first (the
-    embedding after its gather, which commutes with the cast), so the
-    forward on the cast tree gives the same bits as on the f32 tree,
-    without a cast per use."""
-    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
-                    params)
-
-
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -142,23 +130,25 @@ def _layers(params, cfg: LMConfig) -> list:
     leading axis, or the ``layer_{i}`` subtrees."""
     if not cfg.scan_layers:
         return [params["layers"][f"layer_{i}"] for i in range(cfg.n_layers)]
-    stacked = tree_map(lambda t: t.unbind(0), params["layers"])
-    return [tree_map(lambda ts, i=i: ts[i], stacked)
-            for i in range(cfg.n_layers)]
+    return unstack(params["layers"], cfg.n_layers)
 
 
 def _ffn(p_layer, cfg: LMConfig, h):
-    _dense_only(cfg)
-    return swiglu(p_layer["mlp"], h)
+    """The layer's FFN and its aux loss (0.0 for the dense MLP).  The MoE
+    runs on one model shard (the reference's host mesh)."""
+    if cfg.moe is not None:
+        return moe_ffn(p_layer["moe"], cfg.moe, h)
+    return swiglu(p_layer["mlp"], h), 0.0
 
 
 def _layer(p_l, cfg: LMConfig, h):
-    """One layer; returns the new residual stream and the layer's K, V."""
+    """One layer; returns the new residual stream, the layer's K, V and
+    its aux loss."""
     a, kv = attention(p_l["attn"], cfg.attn_cfg,
                       rmsnorm(p_l["ln_attn"], h, cfg.norm_eps))
     h = h + a
-    h = h + _ffn(p_l, cfg, rmsnorm(p_l["ln_ffn"], h, cfg.norm_eps))
-    return h, kv
+    f, aux = _ffn(p_l, cfg, rmsnorm(p_l["ln_ffn"], h, cfg.norm_eps))
+    return h + f, kv, aux
 
 
 def _embed(params, cfg: LMConfig, tokens, extra_embeds):
@@ -170,11 +160,15 @@ def _embed(params, cfg: LMConfig, tokens, extra_embeds):
 
 def hidden_states(params, cfg: LMConfig, tokens, *, extra_embeds=None):
     """Token (+ optional prefix) embeddings through all layers; returns
-    the final-normed states and the auxiliary loss (0.0: dense)."""
+    the final-normed states and the aux loss summed over the layers (0.0
+    for a dense config)."""
     h = _embed(params, cfg, tokens, extra_embeds)
+    auxes = []
     for p_l in _layers(params, cfg):
-        h, _ = _layer(p_l, cfg, h)
-    return rmsnorm(params["ln_f"], h, cfg.norm_eps), 0.0
+        h, _, aux = _layer(p_l, cfg, h)
+        auxes.append(aux)
+    aux = torch.stack(auxes).sum() if cfg.moe is not None else 0.0
+    return rmsnorm(params["ln_f"], h, cfg.norm_eps), aux
 
 
 def logits_fn(params, cfg: LMConfig, h):
@@ -232,7 +226,7 @@ def prefill(params, cfg: LMConfig, batch, *, max_len: int | None = None):
     ks = torch.zeros(shape, dtype=cfg.dtype, device=h.device)
     vs = torch.zeros_like(ks)
     for i, p_l in enumerate(_layers(params, cfg)):
-        h, (k, v) = _layer(p_l, cfg, h)
+        h, (k, v), _ = _layer(p_l, cfg, h)
         ks[i, :, :s] = k
         vs[i, :, :s] = v
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
@@ -254,7 +248,7 @@ def decode_step(params, cfg: LMConfig, cache, batch):
             p_l["attn"], cfg.attn_cfg, rmsnorm(p_l["ln_attn"], h, cfg.norm_eps),
             cache["k"][i], cache["v"][i], length)
         h = h + a
-        h = h + _ffn(p_l, cfg, rmsnorm(p_l["ln_ffn"], h, cfg.norm_eps))
+        h = h + _ffn(p_l, cfg, rmsnorm(p_l["ln_ffn"], h, cfg.norm_eps))[0]
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = logits_fn(params, cfg, h)
     return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}

@@ -51,7 +51,10 @@ def test_port_files_exist():
               "configs/base.py", "configs/_lm_family.py", "configs/__init__.py",
               "configs/internlm2_1_8b.py", "configs/minitron_4b.py",
               "configs/glm4_9b.py", "configs/qwen1_5_110b.py",
-              "launch/serve.py"):
+              "launch/serve.py", "models/moe.py", "models/mamba2.py",
+              "models/zamba2.py", "configs/granite_moe_1b.py",
+              "configs/qwen3_moe_235b.py", "configs/pixtral_12b.py",
+              "configs/zamba2_1_2b.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -82,6 +85,8 @@ def test_import_leaves_jax_out():
         "import repro_torch.benchmarks.gpu_energy_ecm\n"
         "import repro_torch.models.common, repro_torch.models.attention\n"
         "import repro_torch.models.lm, repro_torch.launch.serve\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba2\n"
+        "import repro_torch.models.zamba2\n"
         "from repro_torch.configs import all_archs\n"
         "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -1,15 +1,17 @@
-"""The port's dense decoder LM (``repro_torch/models/lm.py``) against the
-reference's (``repro/models/lm.py``) on the four dense smoke configs: the
-reference's own parameters (its ``materialize``), carried across with
-``convert.params_from_numpy``, and the same tokens through
-``hidden_states`` + ``logits_fn``, ``prefill`` and three ``decode_step``s
-on both sides; f32 (the config's dtype replaced on both sides) at the
-reference's attention tolerance (2e-3, tests/test_kernels.py:102), bf16
-(the configs' own) at its decode-consistency tolerance (6e-2,
-tests/test_decode_consistency.py:27).  Then the port on its own: decode
-against its teacher-forced forward, the unstacked layer layout against
-the stacked one, and the parameters cast once against cast at every use,
-bit for bit."""
+"""The port's decoder LM (``repro_torch/models/lm.py``) against the
+reference's (``repro/models/lm.py``) on the smoke configs of the dense,
+MoE (granite-moe, qwen3-moe: the scatter dispatch, its aux loss) and
+multimodal (pixtral) archs: the reference's own parameters (its
+``materialize``), carried across with ``convert.params_from_numpy``, and
+the same tokens through ``hidden_states`` + ``logits_fn``, ``prefill``
+and three ``decode_step``s on both sides; f32 (the config's dtype
+replaced on both sides) at the reference's attention tolerance (2e-3,
+tests/test_kernels.py:102), bf16 (the configs' own) at its
+decode-consistency tolerance (6e-2, tests/test_decode_consistency.py:27).
+pixtral also with its patch embeddings prepended.  Then the port on its
+own: decode against its teacher-forced forward, the unstacked layer
+layout against the stacked one, and the parameters cast once against
+cast at every use, bit for bit."""
 import dataclasses
 
 import numpy as np
@@ -23,16 +25,19 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_arch as ref_arch  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models.common import materialize as ref_materialize  # noqa: E402
-from repro_torch.configs import ARCH_NAMES, get_arch  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, ShapeSpec, get_arch  # noqa: E402
 from repro_torch.convert import cache_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.kernels.check import compare  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.common import cast_params, tree_leaves, tree_map  # noqa: E402
 
 #: port dtype, reference dtype, tolerance
 DTYPES = {"f32": (torch.float32, jnp.float32, 2e-3),
           "bf16": (torch.bfloat16, jnp.bfloat16, 6e-2)}
 PROMPT, STEPS, MAX_LEN = 8, 3, 16
+#: the archs of this module (zamba2 has its own, test_torch_zamba2.py)
+LM_ARCHS = tuple(n for n in ARCH_NAMES
+                 if get_arch(n, smoke=True).family != "hybrid")
 #: the reference's forward, compiled once per config (static)
 _REF = {"hidden_states": jax.jit(jlm.hidden_states, static_argnums=1),
         "logits_fn": jax.jit(jlm.logits_fn, static_argnums=1),
@@ -50,7 +55,7 @@ def ref_params():
     """The reference's parameters of each smoke config, as numpy (f32)."""
     return {n: jax.tree.map(np.asarray, ref_materialize(
         ref_arch(n, smoke=True).param_spec(), jax.random.key(0)))
-        for n in ARCH_NAMES}
+        for n in LM_ARCHS}
 
 
 def _tokens(cfg, seed: int, n: int = PROMPT + STEPS) -> np.ndarray:
@@ -63,13 +68,13 @@ def reference(ref_params):
     """Per (arch, dtype): the configs, the tokens, and the reference's
     logits of the full forward, the prefill and each decode step."""
     out = {}
-    for i, name in enumerate(ARCH_NAMES):
+    for i, name in enumerate(LM_ARCHS):
         for dt, (tdt, jdt, _) in DTYPES.items():
             jcfg = dataclasses.replace(ref_arch(name, smoke=True).cfg, dtype=jdt)
             cfg = dataclasses.replace(get_arch(name, smoke=True).cfg, dtype=tdt)
             p = jax.tree.map(jnp.asarray, ref_params[name])
             toks = _tokens(cfg, seed=i)
-            h, _ = _REF["hidden_states"](p, jcfg, jnp.asarray(toks))
+            h, aux = _REF["hidden_states"](p, jcfg, jnp.asarray(toks))
             full = _f32(_REF["logits_fn"](p, jcfg, h))
             logits, cache = _REF["prefill"](
                 p, jcfg, {"tokens": jnp.asarray(toks[:, :PROMPT])},
@@ -80,7 +85,7 @@ def reference(ref_params):
                     p, jcfg, cache, {"tokens": jnp.asarray(toks[:, t:t + 1])})
                 steps.append(_f32(logits))
             out[name, dt] = {"cfg": cfg, "tokens": toks, "full": full,
-                             "steps": steps, "cache": jax.tree.map(np.asarray, cache)}
+                             "aux": float(aux), "steps": steps, "cache": jax.tree.map(np.asarray, cache)}
     return out
 
 
@@ -105,19 +110,24 @@ def _prefill_decode(params, cfg, toks):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_forward_matches_reference(name, dt, reference, ref_params):
     case = reference[name, dt]
     params = params_from_numpy(ref_params[name], device="cpu")
     h, aux = lm.hidden_states(params, case["cfg"], torch.from_numpy(case["tokens"]))
     logits = lm.logits_fn(params, case["cfg"], h)
-    assert aux == 0.0 and logits.dtype == DTYPES[dt][0]
+    assert logits.dtype == DTYPES[dt][0]
+    if case["cfg"].moe is None:
+        assert aux == 0.0 == case["aux"]
+    else:   # the routers run in f32 in both dtypes
+        assert aux.dtype == torch.float32 and case["aux"] > 0
+        _close(aux, np.float32(case["aux"]), 2e-3)
     assert tuple(logits.shape) == (2, PROMPT + STEPS, case["cfg"].vocab_padded)
     _close(logits, case["full"], DTYPES[dt][2])
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_prefill_and_decode_match_reference(name, dt, reference, ref_params):
     """The prefill's last-position logits, then three decode steps; the
     cache ends as the reference's (length on the host)."""
@@ -135,7 +145,7 @@ def test_prefill_and_decode_match_reference(name, dt, reference, ref_params):
         _close(cache[key], want[key].float().numpy(), DTYPES[dt][2])
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_decode_matches_own_teacher_forced_forward(name, ref_params):
     """At the config's own dtype (bf16): prefill + decode reproduce the
     port's teacher-forced logits (tests/test_decode_consistency.py)."""
@@ -149,7 +159,7 @@ def test_decode_matches_own_teacher_forced_forward(name, ref_params):
         _close(got[:, 0], full[:, PROMPT - 1 + j], 6e-2)
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_unstacked_layers_equal_stacked(name, ref_params):
     """``scan_layers=False`` declares one ``layer_{i}`` subtree per layer
     and runs the same forward, bit for bit."""
@@ -170,15 +180,20 @@ def test_unstacked_layers_equal_stacked(name, ref_params):
         lm.prefill(unstacked, cfg, {"tokens": toks})
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_cast_once_equals_cast_at_use(name, ref_params):
     """The parameters cast once to the compute dtype give the logits of
     the f32 parameters cast at every use, bit for bit: full forward,
     prefill and decode."""
     cfg = get_arch(name, smoke=True).cfg
     f32 = params_from_numpy(ref_params[name], device="cpu")
-    once = lm.cast_params(f32, cfg.dtype)
-    assert all(t.dtype == cfg.dtype for t in tree_leaves(once))
+    once = cast_params(f32, cfg.dtype)
+    # the MoE router stays f32 (its use casts it to f32)
+    dtypes = [t.dtype for t in tree_leaves(once)]
+    assert dtypes.count(torch.float32) == (cfg.moe is not None)
+    assert dtypes.count(cfg.dtype) == len(dtypes) - (cfg.moe is not None)
+    if cfg.moe is not None:
+        assert once["layers"]["moe"]["router"].dtype == torch.float32
     toks = _tokens(cfg, seed=5)
     ha, _ = lm.hidden_states(f32, cfg, torch.from_numpy(toks))
     hb, _ = lm.hidden_states(once, cfg, torch.from_numpy(toks))
@@ -207,8 +222,38 @@ def test_prefix_embeddings_match_reference(ref_params):
     _close(got, _f32(h), 2e-3)
 
 
-def test_moe_config_raises():
-    cfg = dataclasses.replace(get_arch("internlm2-1.8b", smoke=True).cfg,
-                              moe=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        lm.lm_spec(cfg)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_patch_embeds_match_reference(dt, ref_params):
+    """pixtral with its batch as the serve launcher draws it
+    (``make_batch``: 8 patch embeddings, then the tokens): the forward
+    with the patches prepended, the prefill over both and three decode
+    steps, against the reference's."""
+    name = "pixtral-12b"
+    tdt, jdt, tol = DTYPES[dt]
+    ref = ref_arch(name, smoke=True)
+    jcfg = dataclasses.replace(ref.cfg, dtype=jdt)
+    cfg = dataclasses.replace(get_arch(name, smoke=True).cfg, dtype=tdt)
+    shape = ShapeSpec("cli_prefill", PROMPT + cfg.image_prefix, 2, "prefill")
+    batch = get_arch(name, smoke=True).make_batch(shape, seed=2)
+    assert batch["patch_embeds"].shape == (2, cfg.image_prefix, cfg.d_model)
+    p = jax.tree.map(jnp.asarray, ref_params[name])
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    params = params_from_numpy(ref_params[name], device="cpu")
+    h, _ = _REF["hidden_states"](p, jcfg, jbatch["tokens"],
+                                 extra_embeds=jbatch["patch_embeds"])
+    got, _ = lm.hidden_states(params, cfg, tbatch["tokens"],
+                              extra_embeds=tbatch["patch_embeds"])
+    assert tuple(got.shape) == (2, PROMPT + cfg.image_prefix, cfg.d_model)
+    _close(got, _f32(h), tol)
+    toks = _tokens(cfg, seed=2, n=STEPS)
+    logits, cache = _REF["prefill"](p, jcfg, jbatch, max_len=MAX_LEN + 8)
+    got, got_cache = lm.prefill(params, cfg, tbatch, max_len=MAX_LEN + 8)
+    assert got_cache["length"] == PROMPT + cfg.image_prefix
+    _close(got, _f32(logits), tol)
+    for t in range(STEPS):
+        logits, cache = _REF["decode_step"](
+            p, jcfg, cache, {"tokens": jnp.asarray(toks[:, t:t + 1])})
+        got, got_cache = lm.decode_step(
+            params, cfg, got_cache, {"tokens": torch.from_numpy(toks[:, t:t + 1])})
+        _close(got, _f32(logits), tol)

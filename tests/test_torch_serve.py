@@ -1,7 +1,9 @@
 """The port's serve launcher (``repro_torch/launch/serve.py``) on the CPU
 at smoke size: its greedy tokens equal the reference's ``prefill`` +
-``decode_step`` loop on the same parameters in f32; its JSON has the
-reference launcher's keys; what is not ported raises."""
+``decode_step`` loop on the same parameters in f32, for the dense, MoE,
+multimodal (the patch embeddings of ``make_batch`` fed with the tokens)
+and hybrid archs; its JSON has the reference launcher's keys; what is
+not ported raises."""
 import dataclasses
 import json
 import sys
@@ -23,11 +25,14 @@ from repro_torch.launch import serve  # noqa: E402
 BATCH, PROMPT, GEN = 2, 8, 4
 
 
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "glm4-9b"])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "glm4-9b",
+                                  "granite-moe-1b-a400m", "pixtral-12b",
+                                  "zamba2-1.2b"])
 def test_greedy_tokens_equal_the_reference_loop(name):
     """f32 on both sides: the reference's prefill on the launcher's
-    prompt batch, then greedy argmax over the unpadded vocabulary through
-    its decode steps, with the launcher's cache length."""
+    prompt batch (every array of ``make_batch``), then greedy argmax over
+    the unpadded vocabulary through its decode steps, with the launcher's
+    cache length."""
     ref = ref_arch(name, smoke=True)
     jcfg = dataclasses.replace(ref.cfg, dtype=jnp.float32)
     jparams = ref_materialize(ref.param_spec(), jax.random.key(0))
@@ -50,7 +55,8 @@ def test_greedy_tokens_equal_the_reference_loop(name):
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     served = serve.serve(arch, params, batch=BATCH, prompt_len=PROMPT, gen=GEN)
     assert served.tokens.tolist() == np.stack(want, 1).tolist()
-    assert served.cache["length"] == PROMPT + GEN
+    prefix = getattr(arch.cfg, "image_prefix", 0)
+    assert served.cache["length"] == max(PROMPT - prefix, 1) + prefix + GEN
     assert served.cache["k"].shape[2] == PROMPT + GEN + 8
     assert served.fed[:, 1:].tolist() == served.tokens[:, :-1].tolist()
     assert len(served.step_logits) == GEN
