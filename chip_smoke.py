@@ -12,10 +12,11 @@ loop (``repro_torch.benchmarks.gpu_stencil_ecm.run``), the
 compute-bound loop (``repro_torch.benchmarks.gpu_compute_ecm.run``),
 Eq. 2 over the SMs (``repro_torch.benchmarks.gpu_scaling_ecm.run``),
 the energy over the SMs (``repro_torch.benchmarks.gpu_energy_ecm.run``)
-and three LMs through the serve launcher
+and five models through the serve launcher
 (``repro_torch.launch.serve.serve``): the dense internlm2-1.8b, the MoE
-granite-moe-1b-a400m and the hybrid zamba2-1.2b; and holds every CUDA
-kernel against its plain PyTorch version.  Phases:
+granite-moe-1b-a400m, the hybrid zamba2-1.2b, the encoder-decoder
+whisper-base and the recurrent xlstm-125m; and holds every CUDA kernel
+against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -147,7 +148,27 @@ kernel against its plain PyTorch version.  Phases:
    launches the tile route 7 times a flash prefill, once an application;
    decode carries the SSM, conv and KV caches; the device time of one
    Mamba2 layer and of its SSD chunk loop at the prefill's shape;
-13. one JSON line with the ten kernels (the matmul and attention rows
+13. whisper-base at full width and depth (6 + 6 layers, d 512, 8 heads of
+   64) at 1500 frames (Whisper's 30-second window) and the 11-token
+   prompt the reference's batch spec gives: first the op alone at the
+   encoder's shape (B 8, 1500, MHA, non-causal: a ragged last KV tile on
+   every row block), bf16 and f32, within the reference's tolerance of
+   its plain version, timed beside SDPA and its bounds; the encoder's
+   attention layer by layer, flash against chunked; then served as phase
+   10: the tile route exactly 12 times a flash prefill (6 encoder, 6
+   decoder self-attention of 11 rows) and the split route never (the
+   cross-attention is dense under flash, as in the reference), the f32
+   flash prefill within 2e-3 of the chunked one and 4 decode steps of a
+   teacher-forced ``encode`` + ``decode_train``; bf16 frames/s and prompt
+   tokens/s, decode eager and as a graph, the device split;
+14. xlstm-125m at full width and depth (12 blocks of d 768, sLSTM at 3
+   and 7) at a 2048-token prompt: one mLSTM layer chunkwise against its
+   recurrence in f32 (2e-3), the served prefill and 4 decode steps
+   against the teacher-forced forward (2e-3), then bf16 times, the device
+   ms and launches of the mLSTM chunk loop and the sLSTM loop, decode
+   eager and as a graph; no attention kernel to launch (its count held
+   at 0);
+15. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
    attention's per path with each model phase's beside the compute
    loop's and its time at each model's shape, the combine's with the
@@ -251,13 +272,15 @@ RAGGED_ATTENTION = tuple((1, s, s, 4, hkv, 64) for s in (48, 100, 200)
 #: and bf16: name -> ((b, sq, sk, h, hkv, d), causal); at d = 64 a 128 x 64
 #: tile is two ring panels, so one KV tile is fewer panels than stages;
 #: the served MoE's and hybrid's heads at d 64 (granite-moe 16 / 8,
-#: zamba2 32 / 32), causal, at a small S
+#: zamba2 32 / 32), causal, at a small S; whisper's encoder heads (8 / 8,
+#: d 64), non-causal, with a ragged last tile as at its 1500 frames
 TILE_WALKS = {"one_kv_tile": ((1, 64, 64, 2, 1, 128), True),
               "fewer_panels_than_stages": ((2, 64, 64, 4, 2, 64), True),
               "many_kv_tiles": ((1, 128, 2048, 4, 2, 128), False),
               "ragged_many_tiles": ((1, 300, 1000, 2, 1, 128), False),
               "d64_gqa2_16_heads": ((2, 256, 256, 16, 8, 64), True),
-              "d64_mha_32_heads": ((2, 256, 256, 32, 32, 64), True)}
+              "d64_mha_32_heads": ((2, 256, 256, 32, 32, 64), True),
+              "d64_mha_ragged_non_causal": ((2, 300, 300, 8, 8, 64), False)}
 #: blocks left at None on the card, and head dims 16 and 32 on the tile
 #: route: (b, sq, sk, h, hkv, d), causal
 NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
@@ -269,12 +292,20 @@ NONE_BLOCK_ATTENTION = (((1, 192, 192, 4, 2, 64), True),
 #: MODEL_PROMPT tokens and MODEL_GEN greedy decode steps; the f32 gate run
 #: decodes MODEL_F32_GEN steps, held against a teacher-forced forward
 MODEL_PHASES = {10: "internlm2-1.8b", 11: "granite-moe-1b-a400m",
-                12: "zamba2-1.2b"}
+                12: "zamba2-1.2b", 13: "whisper-base", 14: "xlstm-125m"}
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, MODEL_F32_GEN = 8, 2048, 32, 4
 #: the reference's attention tolerance (tests/test_kernels.py:102)
 MODEL_TOL = (2e-3, 2e-3)
 #: decode steps a CUDA graph replays to read the device's busy time
 MODEL_GRAPH_STEPS = 3
+#: whisper-base's frames: Whisper's 30-second window (arXiv:2212.04356
+#: §2.2), which the launcher serves as ``--prompt-len 1500`` (the
+#: reference's batch spec then gives an 11-token prompt); its chunked runs
+#: take chunks of 750, the largest divisor of 1500 not above the config's
+#: 1024 (the chunked attention's chunk divides the length, as the
+#: reference's asserts)
+WHISPER_FRAMES = 1500
+WHISPER_CHUNK = 750
 #: kernel-name fragments of the matmul libraries (cuBLAS, CUTLASS) in a
 #: profile of the served model
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
@@ -1160,6 +1191,87 @@ def _ssd_timing(p_layer, cfg) -> dict:
                  "chunks": -(-s // m.chunk)}
 
 
+def _nbytes(tree) -> int:
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+class _Runs:
+    """The served runs of one model phase through the port's launcher
+    (``launch/serve.py`` ``serve``) at MODEL_BATCH x ``prompt_len``: each
+    run's times and rates in ``runs``, the attention kernel's launches
+    by route held to ``tiles`` tile launches for an ``attn_impl="flash"``
+    run and none otherwise, and every logit finite; ``failures`` collects
+    what did not hold."""
+
+    def __init__(self, name: str, arch, prompt_len: int, tiles: int,
+                 rates: dict):
+        self.name, self.arch, self.prompt_len = name, arch, prompt_len
+        self.tiles, self.rates = tiles, rates
+        self.runs, self.failures = {}, []
+
+    def variant(self, **kw):
+        return dataclasses.replace(self.arch, cfg=dataclasses.replace(
+            self.arch.cfg, **kw))
+
+    def __call__(self, params, gen: int, tag: str = "", **kw):
+        from repro_torch import kernels
+        from repro_torch.launch.serve import serve
+
+        attn = kernels.FLASH_ATTENTION
+        before = dict(attn.launches_by_route)
+        arch = self.variant(**kw)
+        served = serve(arch, params, batch=MODEL_BATCH,
+                       prompt_len=self.prompt_len, gen=gen, seed=SEED)
+        impl = getattr(arch.cfg, "attn_impl", None)
+        run_name = f"{str(arch.cfg.dtype).removeprefix('torch.')} " \
+                   f"{impl or 'model'}{tag}"
+        launched = {r: n - before[r] for r, n in attn.launches_by_route.items()}
+        want = {"tile": self.tiles if impl == "flash" else 0, "split": 0}
+        if launched != want:
+            self.failures.append(f"model {self.name} {run_name}: attention "
+                                 f"launches {launched}, not {want}")
+        logits = [served.prefill_logits, *served.step_logits]
+        if not all(bool(torch.isfinite(t).all()) for t in logits):
+            self.failures.append(f"model {self.name} {run_name}: a logit is "
+                                 f"not finite")
+        self.runs[run_name] = {
+            "prefill_s": served.prefill_s, "decode_s": served.decode_s,
+            "gen": gen, "attention_launches": launched,
+            **{f"prefill_{k}_per_s": n / served.prefill_s
+               for k, n in self.rates.items()},
+            "decode_s_per_token": served.decode_s / gen if gen else None,
+            "decode_tokens_per_s": MODEL_BATCH * gen / served.decode_s
+            if gen else None}
+        return served
+
+    def gate(self, what: str, got, want) -> dict:
+        from repro_torch.kernels.check import compare
+
+        ok, err, tol = compare(got, want, tol=MODEL_TOL)
+        if not ok:
+            self.failures.append(f"model {self.name} f32: {what} off by {err} "
+                                 f"(tol {tol})")
+        return {"ok": ok, "max_abs_err": err, "tol": tol}
+
+
+def _decode_idle(arch, params, served, vocab: int) -> tuple[float, object]:
+    """The device's busy ms in one decode step: a CUDA graph replays the
+    step (and its argmax) on a copy of ``served``'s cache with no host in
+    between; returns it and the step."""
+    from repro_torch.benchmarks.timing import time_graph
+
+    cache = dict(served.cache)
+    tok = served.tokens[:, -1:].to("cuda")
+
+    def step():
+        logits, _ = arch.decode(params, cache, {"tokens": tok})
+        return logits[:, -1, :vocab].argmax(-1)
+
+    return time_graph(step, launches=MODEL_GRAPH_STEPS), step
+
+
 def _model_phase(name: str, machine) -> tuple[list[str], dict]:
     """Phases 10-12: the arch ``name`` at full width and depth through the
     port's serve function (``launch/serve.py``), random weights from SEED
@@ -1187,14 +1299,12 @@ def _model_phase(name: str, machine) -> tuple[list[str], dict]:
     ``launches`` counts the served runs' kernel launches from 0."""
     from repro_torch import kernels
     from repro_torch.benchmarks import gpu_compute_ecm as GC
-    from repro_torch.benchmarks.timing import time_graph
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels.check import compare
-    from repro_torch.launch.serve import serve
     from repro_torch.models import lm, zamba2
-    from repro_torch.models.common import (cast_params, materialize,
-                                           tree_leaves, unembed, unstack)
+    from repro_torch.models.common import (cast_params, materialize, unembed,
+                                           unstack)
 
     arch = get_arch(name)
     cfg = arch.cfg
@@ -1211,10 +1321,6 @@ def _model_phase(name: str, machine) -> tuple[list[str], dict]:
         cfg.attn_cfg, machine)
     failures += attn_failures
     torch.cuda.empty_cache()
-
-    def variant(**kw):
-        return dataclasses.replace(arch, cfg=dataclasses.replace(cfg, **kw))
-
     dev = torch.device("cuda")
 
     def weights(spec):
@@ -1226,31 +1332,12 @@ def _model_phase(name: str, machine) -> tuple[list[str], dict]:
 
     prompt = torch.from_numpy(arch.make_batch(ShapeSpec(
         "cli_prefill", MODEL_PROMPT, MODEL_BATCH, "prefill"), seed=SEED)["tokens"])
-    attn = kernels.FLASH_ATTENTION
-    rec["runs"] = {}
+    runs = _Runs(name, arch, MODEL_PROMPT, n_attn,
+                 {"tokens": MODEL_BATCH * MODEL_PROMPT})
+    variant = runs.variant
 
     def run(dtype, impl, gen, params, tag="", **kw):
-        before = dict(attn.launches_by_route)
-        served = serve(variant(dtype=dtype, attn_impl=impl, **kw), params,
-                       batch=MODEL_BATCH, prompt_len=MODEL_PROMPT, gen=gen,
-                       seed=SEED)
-        run_name = f"{str(dtype).removeprefix('torch.')} {impl}{tag}"
-        launched = {r: n - before[r] for r, n in attn.launches_by_route.items()}
-        want = {"tile": n_attn if impl == "flash" else 0, "split": 0}
-        if launched != want:
-            failures.append(f"model {name} {run_name}: attention launches "
-                            f"{launched}, not {want}")
-        logits = [served.prefill_logits, *served.step_logits]
-        if not all(bool(torch.isfinite(t).all()) for t in logits):
-            failures.append(f"model {name} {run_name}: a logit is not finite")
-        rec["runs"][run_name] = {
-            "prefill_s": served.prefill_s, "decode_s": served.decode_s,
-            "gen": gen, "attention_launches": launched,
-            "prefill_tokens_per_s": MODEL_BATCH * MODEL_PROMPT / served.prefill_s,
-            "decode_s_per_token": served.decode_s / gen if gen else None,
-            "decode_tokens_per_s": MODEL_BATCH * gen / served.decode_s
-            if gen else None}
-        return served
+        return runs(params, gen, tag, dtype=dtype, attn_impl=impl, **kw)
 
     # an MoE's f32 gates at capacity N: nothing drops
     gate_kw = {} if moe is None else {"moe": dataclasses.replace(
@@ -1335,7 +1422,8 @@ def _model_phase(name: str, machine) -> tuple[list[str], dict]:
     rec["bf16_tokens_equal_share"] = float(
         (flash.tokens == chunked.tokens).float().mean())
     rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
-    rec["attention_launches_by_route"] = dict(attn.launches_by_route)
+    rec["attention_launches_by_route"] = dict(
+        kernels.FLASH_ATTENTION.launches_by_route)
     del chunked
 
     if moe is not None:
@@ -1346,32 +1434,21 @@ def _model_phase(name: str, machine) -> tuple[list[str], dict]:
                                  cfg)
     del routes
 
-    # the device's busy time in one decode step: a CUDA graph replays the
-    # step (and its argmax) with no host in between
-    cache = dict(flash.cache)
-    tok = flash.tokens[:, -1:].to(dev)
     flash_arch = variant(attn_impl="flash")
-
-    def step():
-        logits, _ = flash_arch.decode(params, cache, {"tokens": tok})
-        return logits[:, -1, :cfg.vocab].argmax(-1)
-
-    busy_ms = time_graph(step, launches=MODEL_GRAPH_STEPS)
-    rec["runs"][f"{str(cfg.dtype).removeprefix('torch.')} flash"][
-        "graph_decode_ms"] = busy_ms
+    busy_ms, step = _decode_idle(flash_arch, params, flash, cfg.vocab)
+    stats = runs.runs[f"{str(cfg.dtype).removeprefix('torch.')} flash"]
+    stats["graph_decode_ms"] = busy_ms
     tokens = {"tokens": prompt.to(dev)}
     rec["device_split"] = {
         "prefill": _device_split(lambda: flash_arch.prefill(
             params, tokens, max_len=MODEL_PROMPT)),
         "decode_step": _device_split(step)}
-    stats = rec["runs"][f"{str(cfg.dtype).removeprefix('torch.')} flash"]
+    rec["runs"] = runs.runs
     eager_ms = stats["decode_s_per_token"] * 1e3
-    weights_b = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     table = params["embedding"]
-    weight_bytes = (weights_b - table.numel() * table.element_size()
+    weight_bytes = (_nbytes(params) - _nbytes(table)
                     + MODEL_BATCH * table.shape[1] * table.element_size())
-    cache_bytes = sum(flash.cache[key].numel() * flash.cache[key].element_size()
-                      for key in ("k", "v"))
+    cache_bytes = _nbytes({key: flash.cache[key] for key in ("k", "v")})
     flops = arch.model_flops(ShapeSpec("prefill", MODEL_PROMPT, MODEL_BATCH,
                                        "prefill"))
     prefill_ms = stats["prefill_s"] * 1e3
@@ -1397,7 +1474,405 @@ def _model_phase(name: str, machine) -> tuple[list[str], dict]:
         "attention_share_of_prefill": n_attn * rec["attention"]["ms"]
         / prefill_ms,
     }
-    return failures, rec
+    return failures + runs.failures, rec
+
+
+def _attention_at_encoder_shape(acfg, machine) -> tuple[list[str], dict]:
+    """The attention op alone at whisper-base's encoder shape (B 8, 1500
+    frames, 8 heads of 64, MHA, non-causal: the last of 12 KV tiles of 128
+    ragged), in bf16 and f32: the model's own call (one block of the whole
+    sequence, so the ranking's tiling) held against the plain version
+    within the reference's tolerance, and timed beside the kernel at every
+    compiled tile tiling, the plain version, SDPA's efficient backend
+    (``gpu_compute_ecm``'s yardstick) and the backend SDPA picks itself,
+    with the bound on the type's peak and, for bf16, on FFMA."""
+    import torch.nn.functional as F
+
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.benchmarks.timing import time_call
+    from repro_torch.kernels.attention import kernel as AK
+    from repro_torch.kernels.attention import ops as AO
+    from repro_torch.kernels.attention import ref as AR
+    from repro_torch.kernels.check import compare
+
+    s = WHISPER_FRAMES
+    dims = (MODEL_BATCH, s, s, acfg.n_heads, acfg.n_kv_heads, acfg.head_dim)
+    block = AO.card_blocks((s, s), AO.ranked_blocks(s, s, acfg.head_dim,
+                                                    causal=False))
+    failures, out = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        point = GC.Point("attention", dims, dtype, causal=False)
+        inputs = GC.make_inputs(point, "cuda")
+        operands = AO.fused_inputs(*inputs)
+
+        def call(inputs=inputs):
+            return AO.flash_attention(*inputs, causal=False, bq=s, bk=s)
+
+        with GC.full_f32():
+            want = GC.plain_op(point, inputs)
+        check = compare(call(), want, tol=GC.TOLERANCE["attention"][dtype])
+        del want
+        if not check[0]:
+            failures.append(f"encoder attention {name}: err {check[1]} "
+                            f"tol {check[2]}")
+        measured = {str(list(t)): time_call(GC._kernel_call(point, inputs, t))[0]
+                    for t in AK.TILINGS if t[0] > 1}
+        library, library_call = GC._library(point, operands)
+        q, k, v = (t.transpose(1, 2) for t in inputs)
+        with GC.full_f32():
+            plain_ms = time_call(lambda: AR.attention(*operands, causal=False))[0]
+            library_ms = time_call(library_call)[0]
+            sdpa_ms = time_call(lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True))[0]
+        lim = GC.bound(point, machine)
+        ffma_ms = lim["operations_ms"] * (
+            machine.peak_bf16_tensor_flops / machine.peak_f32_flops
+            if dtype == torch.bfloat16 else 1.0)
+        ms = measured[str(list(block))]
+        out[name] = {
+            "dims": list(dims), "dtype": name, "causal": False,
+            "block": list(block), "check": check, "ms": ms,
+            "op_ms": time_call(call)[0], "measured_ms": measured,
+            "plain_ms": plain_ms, "library": library, "library_ms": library_ms,
+            "sdpa_own_backend_gqa_ms": sdpa_ms, **lim,
+            "bound_ms_ffma": max(lim["bytes_ms"], ffma_ms),
+            "share_of_bound": lim["bound_ms"] / ms,
+            "share_of_ffma_bound": max(lim["bytes_ms"], ffma_ms) / ms}
+        del inputs, operands, q, k, v
+        torch.cuda.empty_cache()
+    return failures, out
+
+
+def _encoder_walk(params, cfg, frames) -> tuple[list[str], list[float]]:
+    """The kernel's gate on whisper's own encoder activations:
+    ``whisper.encode``'s layer loop by hand on the flash path; at each
+    layer the flash attention output (the tile route, non-causal) against
+    the chunked one on the same input, within MODEL_TOL, the flash output
+    carried on.  Returns what failed and each layer's max abs
+    difference."""
+    from repro_torch.kernels.check import compare
+    from repro_torch.models import whisper
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import gelu_mlp, layernorm, unstack
+
+    flash = dataclasses.replace(cfg, attn_impl="flash").attn_cfg(causal=False)
+    chunked = dataclasses.replace(cfg, attn_impl="chunked",
+                                  attn_chunk=WHISPER_CHUNK).attn_cfg(causal=False)
+    h = frames.to(cfg.dtype)
+    h = h + whisper._sinusoid(h.shape[1], cfg.d_model, h.device).to(cfg.dtype)[None]
+    failures, errs = [], []
+    for i, p_l in enumerate(unstack(params["enc"]["layers"], cfg.n_layers)):
+        x = layernorm(p_l["ln_attn"], h, cfg.norm_eps)
+        got, _ = attention(p_l["attn"], flash, x)
+        want, _ = attention(p_l["attn"], chunked, x)
+        ok, err, tol = compare(got, want, tol=MODEL_TOL)
+        errs.append(err)
+        if not ok:
+            failures.append(f"encoder layer {i}: flash attention off the "
+                            f"chunked one by {err} (tol {tol})")
+        h = h + got
+        h = h + gelu_mlp(p_l["mlp"], layernorm(p_l["ln_ffn"], h, cfg.norm_eps))
+    return failures, errs
+
+
+def _whisper_phase(name: str, machine) -> tuple[list[str], dict]:
+    """Phase 13: whisper-base at full width and depth (6 + 6 layers, d
+    512) through the port's serve function at WHISPER_FRAMES frames and
+    its 11-token prompt, random weights from SEED materialized on the
+    card, the three attention subtrees' projections at their contracted
+    fan-in.  First the attention op alone at the encoder's shape
+    (:func:`_attention_at_encoder_shape`).  f32 (the gates): the encoder's
+    attention layer by layer, flash against chunked
+    (:func:`_encoder_walk`); the served prefill chunked (the plain
+    version) and flash (the tile route: 6 non-causal encoder launches and
+    6 causal decoder self-attention launches of 11 rows, the split route
+    never: the cross-attention is dense under flash, and decode is the
+    plain cache path), the flash prefill's logits against the chunked
+    ones, and 4 decode steps against a teacher-forced dense pass
+    (``encode`` then ``decode_train``) of the tokens fed, each within
+    MODEL_TOL; the same f32 prefills on the reference's own initializer
+    reported beside them.  Then the parameters cast once to bf16 (the
+    layernorms kept in f32) and served both ways at MODEL_GEN steps:
+    prefill time and frames/s and prompt tokens/s, decode time a token,
+    eager and as a CUDA graph (the idle share), the decode's weight and
+    cache bytes against HBM, the device split of prefill and decode."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import whisper
+    from repro_torch.models.common import cast_params, materialize
+
+    arch = get_arch(name)
+    cfg = arch.cfg
+    acfg = cfg.attn_cfg(causal=False)
+    dev = torch.device("cuda")
+    prompt = {k: torch.from_numpy(v).to(dev) for k, v in arch.make_batch(
+        ShapeSpec("cli_prefill", WHISPER_FRAMES, MODEL_BATCH, "prefill"),
+        seed=SEED).items()}
+    n_tok = prompt["tokens"].shape[1]
+    rec = {"phase": f"model {arch.name}", "arch": arch.name,
+           "family": arch.family, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": arch.n_params,
+           "n_active_params": arch.n_active_params,
+           "attention_applications": 2 * cfg.n_layers, "batch": MODEL_BATCH,
+           "frames": WHISPER_FRAMES, "prompt_tokens": n_tok,
+           "chunked_attn_chunk": WHISPER_CHUNK}
+    failures, enc_attn = _attention_at_encoder_shape(acfg, machine)
+    rec["attention"] = enc_attn["bfloat16"] | {"f32": enc_attn["float32"]}
+    torch.cuda.empty_cache()
+    runs = _Runs(name, arch, WHISPER_FRAMES, 2 * cfg.n_layers,
+                 {"frames": MODEL_BATCH * WHISPER_FRAMES,
+                  "prompt_tokens": MODEL_BATCH * n_tok})
+    chunked_kw = {"attn_impl": "chunked", "attn_chunk": WHISPER_CHUNK}
+    flash_kw = {"attn_impl": "flash"}
+
+    def weights(spec):
+        return materialize(spec, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+
+    spec = arch.param_spec()
+    for path in (("enc", "layers", "attn"), ("dec", "layers", "self_attn"),
+                 ("dec", "layers", "cross_attn")):
+        spec = _contracted_fan_in(spec, path, acfg)
+    with GC.full_f32():
+        f32 = torch.float32
+        params = weights(spec)
+        # before the count: a comparison, not the path
+        walk_failures, errs = _encoder_walk(
+            params, runs.variant(dtype=f32).cfg, prompt["frames"])
+        failures += [f"model {name} f32 walk, {f}" for f in walk_failures]
+        rec["f32_encoder_attention_by_layer"] = {"max_abs_err": errs,
+                                                 "tol": MODEL_TOL}
+        kernels.reset_launches()
+        ref_params = weights(arch.param_spec())
+        ref_init = [runs(ref_params, 0, " (reference init)", dtype=f32, **kw)
+                    for kw in (chunked_kw, flash_kw)]
+        rec["f32_reference_init_flash_vs_chunked_max_abs"] = float(
+            (ref_init[1].prefill_logits - ref_init[0].prefill_logits).abs().max())
+        del ref_params, ref_init
+        chunked = runs(params, MODEL_F32_GEN, dtype=f32, **chunked_kw)
+        flash = runs(params, MODEL_F32_GEN, dtype=f32, **flash_kw)
+        chunked.cache = flash.cache = None
+        # the teacher-forced pass of the prompt and the fed tokens:
+        # positions n_tok - 1 .. + MODEL_F32_GEN
+        dense = runs.variant(dtype=f32, attn_impl="dense").cfg
+        toks = torch.cat([prompt["tokens"], flash.fed], dim=1)
+        enc = whisper.encode(params, dense, prompt["frames"])
+        full = whisper._logits(params, dense, whisper.decode_train(
+            params, dense, toks, enc)[:, n_tok - 1:])
+        del enc
+        rec["f32_flash_vs_chunked"] = runs.gate(
+            "flash prefill logits against the chunked ones",
+            flash.prefill_logits, chunked.prefill_logits)
+        rec["f32_decode_vs_teacher_forced"] = [
+            runs.gate(f"decode step {j} against the teacher-forced pass",
+                      got[:, 0], full[:, j])
+            for j, got in enumerate([flash.prefill_logits, *flash.step_logits])]
+        del full, chunked, flash
+    params = cast_params(params, cfg.dtype)
+    torch.cuda.empty_cache()
+    chunked = runs(params, MODEL_GEN, **chunked_kw)
+    chunked.cache = None
+    flash = runs(params, MODEL_GEN, **flash_kw)
+    rec["bf16_flash_vs_chunked_max_abs"] = float(
+        (flash.prefill_logits.float() - chunked.prefill_logits.float()).abs().max())
+    rec["bf16_tokens_equal_share"] = float(
+        (flash.tokens == chunked.tokens).float().mean())
+    rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    rec["attention_launches_by_route"] = dict(kernels.FLASH_ATTENTION.launches_by_route)
+    del chunked
+    flash_arch = runs.variant(**flash_kw)
+    busy_ms, step = _decode_idle(flash_arch, params, flash, cfg.vocab)
+    rec["device_split"] = {
+        "prefill": _device_split(lambda: flash_arch.prefill(
+            params, prompt, max_len=n_tok)),
+        "decode_step": _device_split(step)}
+    stats = runs.runs[f"{str(cfg.dtype).removeprefix('torch.')} flash"]
+    stats["graph_decode_ms"] = busy_ms
+    eager_ms = stats["decode_s_per_token"] * 1e3
+    # a decode step reads the decoder's layers but the cross K/V
+    # projections (their K/V are cached), the tied embedding whole (the
+    # logits), and the whole self and cross caches
+    dec = params["dec"]
+    weight_bytes = (_nbytes(dec) - _nbytes(dec["pos"])
+                    - _nbytes({k: dec["layers"]["cross_attn"][k]
+                               for k in ("wk", "wv")}))
+    cache_bytes = _nbytes({k: flash.cache[k] for k in (
+        "self_k", "self_v", "cross_k", "cross_v")})
+    flops = arch.model_flops(ShapeSpec("prefill", WHISPER_FRAMES, MODEL_BATCH,
+                                       "prefill"))
+    rec["runs"] = runs.runs
+    rec["summary"] = {
+        "prefill_s": stats["prefill_s"],
+        "prefill_frames_per_s": stats["prefill_frames_per_s"],
+        "prefill_prompt_tokens_per_s": stats["prefill_prompt_tokens_per_s"],
+        "decode_s_per_token": stats["decode_s_per_token"],
+        "decode_tokens_per_s": stats["decode_tokens_per_s"],
+        "model_flops": flops,
+        "model_flops_note": "2 N B S, the reference's model_flops, with S "
+                            "the frames",
+        "model_flop_per_s": flops / stats["prefill_s"],
+        "model_flop_share_of_bf16_peak": flops / stats["prefill_s"]
+        / machine.peak_bf16_tensor_flops,
+        "decode_weight_bytes": weight_bytes,
+        "decode_cache_bytes_read": cache_bytes,
+        "decode_share_of_weight_and_cache_bound": machine.hbm_seconds(
+            weight_bytes + cache_bytes) * 1e3 / eager_ms,
+        "decode_graph_ms": busy_ms, "decode_eager_ms": eager_ms,
+        "decode_idle_share": 1.0 - busy_ms / eager_ms,
+        "attention_ms_per_application": rec["attention"]["ms"],
+        "encoder_attention_share_of_prefill": cfg.n_layers
+        * rec["attention"]["ms"] / (stats["prefill_s"] * 1e3),
+    }
+    return failures + runs.failures, rec
+
+
+def _loop_timing(fn) -> dict:
+    """Device ms of one call of a loop of small launches (``time_call``,
+    one call a repeat) beside the host's enqueue time, and its kernel
+    count and device split from the profiler."""
+    from repro_torch.benchmarks.timing import time_call
+
+    ms, host_us = time_call(fn, inner=1)
+    split = _device_split(fn)
+    return {"ms": ms, "host_ms": host_us / 1e3,
+            "kernels": split.get("kernels"),
+            "kernel_ms": split.get("total_ms"),
+            "top": split.get("top", split.get("not_measured"))}
+
+
+def _xlstm_phase(name: str, machine) -> tuple[list[str], dict]:
+    """Phase 14: xlstm-125m at full width and depth (12 blocks of d 768, 4
+    heads, sLSTM at 3 and 7) through the port's serve function at
+    MODEL_BATCH x MODEL_PROMPT tokens, random weights from SEED
+    materialized on the card (the reference's initializer: no attention
+    here).  f32 (the gates): one mLSTM layer at the prefill's shape,
+    chunkwise (``_mlstm_chunked``, chunk 256) against the recurrence
+    (``_mlstm_core``) on the same input, at the reference's tolerance
+    (2e-3; m at 1e-4, as tests/test_chunked_equivalence.py holds it); the
+    served prefill and 4 decode steps (each mLSTM on its recurrence)
+    against the teacher-forced forward of the tokens fed, within
+    MODEL_TOL.  Then the parameters cast once to bf16 (the sLSTM's
+    recurrent weights kept in f32) and served at MODEL_GEN steps: prefill
+    time and tokens/s, decode time a token eager and as a CUDA graph (the
+    idle share), and the device ms, host ms and launches of the mLSTM
+    chunk loop and of the sLSTM loop at the prefill's shape.  The flash
+    kernel has nothing to launch here: the count is held at 0."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.benchmarks.timing import time_call
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.check import compare
+    from repro_torch.models import xlstm, xlstm_lm
+    from repro_torch.models.common import cast_params, materialize, unembed
+
+    arch = get_arch(name)
+    cfg, bc = arch.cfg, arch.cfg.block_cfg
+    dev = torch.device("cuda")
+    rec = {"phase": f"model {arch.name}", "arch": arch.name,
+           "family": arch.family, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": arch.n_params,
+           "n_active_params": arch.n_active_params,
+           "slstm_at": list(cfg.slstm_at), "mlstm_head_dim": bc.head_dim,
+           "chunk": bc.chunk, "batch": MODEL_BATCH, "prompt": MODEL_PROMPT}
+    prompt = torch.from_numpy(arch.make_batch(ShapeSpec(
+        "cli_prefill", MODEL_PROMPT, MODEL_BATCH, "prefill"), seed=SEED)["tokens"])
+    runs = _Runs(name, arch, MODEL_PROMPT, 0,
+                 {"tokens": MODEL_BATCH * MODEL_PROMPT})
+    failures = []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.randn((MODEL_BATCH, MODEL_PROMPT, cfg.d_model), generator=g,
+                    device=dev)
+    with GC.full_f32():
+        params = materialize(arch.param_spec(), torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        first = next(f"layer_{i}" for i in range(cfg.n_layers)
+                     if not cfg.is_slstm(i))
+        _, core_in = xlstm._mlstm_project(params["layers"][first]["mlstm"], bc, u)
+        got, (c1, _, m1) = xlstm._mlstm_chunked(*core_in, chunk=bc.chunk)
+        want, (c0, _, m0) = xlstm._mlstm_core(*core_in)
+        gate = {"h": compare(got, want, tol=(2e-3, 2e-3)),
+                "C": compare(c1, c0, tol=(2e-3, 2e-3)),
+                "m": compare(m1, m0, tol=(1e-4, 1e-4))}
+        rec["f32_mlstm_chunked_vs_recurrence"] = gate | {"layer": first}
+        failures += [f"model {name} f32: mLSTM chunked off the recurrence in "
+                     f"{k} by {v[1]} (tol {v[2]})" for k, v in gate.items()
+                     if not v[0]]
+        del core_in, got, want, c0, c1
+        kernels.reset_launches()
+        f32 = runs.variant(dtype=torch.float32).cfg
+        served = runs(params, MODEL_F32_GEN, dtype=torch.float32)
+        served.cache = None
+        toks = torch.cat([prompt.to(dev), served.fed], dim=1)
+        full = unembed(params["unembed"], xlstm_lm.hidden_states(
+            params, f32, toks)[:, MODEL_PROMPT - 1:])
+        rec["f32_decode_vs_teacher_forced"] = [
+            runs.gate(f"decode step {j} against the teacher-forced forward",
+                      got[:, 0], full[:, j])
+            for j, got in enumerate([served.prefill_logits, *served.step_logits])]
+        del full, served
+    params = cast_params(params, cfg.dtype)
+    torch.cuda.empty_cache()
+    served = runs(params, MODEL_GEN)
+    rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    rec["attention_launches_by_route"] = dict(kernels.FLASH_ATTENTION.launches_by_route)
+    # the two loops at the prefill's shape, bf16, the first layer of each kind
+    x = u.to(cfg.dtype)
+    p_m = params["layers"][first]["mlstm"]
+    p_s = params["layers"][f"layer_{cfg.slstm_at[0]}"]["slstm"]
+    _, core_in = xlstm._mlstm_project(p_m, bc, x)
+    rec["loops"] = {
+        "mlstm_chunks": _loop_timing(lambda: xlstm._mlstm_chunked(
+            *core_in, chunk=bc.chunk)) | {"chunks": -(-MODEL_PROMPT // bc.chunk),
+                                          "layers": cfg.n_layers - len(cfg.slstm_at)},
+        "slstm_steps": _loop_timing(lambda: xlstm._slstm_core(p_s, bc, x))
+        | {"steps": MODEL_PROMPT, "layers": len(cfg.slstm_at)},
+        "mlstm_layer_ms": time_call(lambda: xlstm.mlstm_block(p_m, bc, x),
+                                    inner=1)[0],
+        "slstm_layer_ms": time_call(lambda: xlstm.slstm_block(p_s, bc, x),
+                                    inner=1)[0]}
+    del core_in, x, u
+    busy_ms, step = _decode_idle(arch, params, served, cfg.vocab)
+    tokens = {"tokens": prompt.to(dev)}
+    rec["device_split"] = {
+        "prefill": _device_split(lambda: arch.prefill(params, tokens)),
+        "decode_step": _device_split(step)}
+    stats = runs.runs[f"{str(cfg.dtype).removeprefix('torch.')} model"]
+    stats["graph_decode_ms"] = busy_ms
+    eager_ms = stats["decode_s_per_token"] * 1e3
+    table = params["embedding"]
+    weight_bytes = (_nbytes(params) - _nbytes(table)
+                    + MODEL_BATCH * table.shape[1] * table.element_size())
+    state_bytes = _nbytes({k: v for k, v in served.cache.items() if k != "length"})
+    flops = arch.model_flops(ShapeSpec("prefill", MODEL_PROMPT, MODEL_BATCH,
+                                       "prefill"))
+    prefill_ms = stats["prefill_s"] * 1e3
+    loops = rec["loops"]
+    rec["runs"] = runs.runs
+    rec["summary"] = {
+        "prefill_s": stats["prefill_s"],
+        "prefill_tokens_per_s": stats["prefill_tokens_per_s"],
+        "decode_s_per_token": stats["decode_s_per_token"],
+        "decode_tokens_per_s": stats["decode_tokens_per_s"],
+        "model_flops": flops,
+        "model_flop_per_s": flops / stats["prefill_s"],
+        "model_flop_share_of_bf16_peak": flops / stats["prefill_s"]
+        / machine.peak_bf16_tensor_flops,
+        "decode_weight_bytes": weight_bytes,
+        "decode_state_bytes": state_bytes,
+        "decode_share_of_weight_and_state_bound": machine.hbm_seconds(
+            weight_bytes + 2 * state_bytes) * 1e3 / eager_ms,
+        "decode_graph_ms": busy_ms, "decode_eager_ms": eager_ms,
+        "decode_idle_share": 1.0 - busy_ms / eager_ms,
+        "slstm_loops_share_of_prefill": loops["slstm_steps"]["layers"]
+        * loops["slstm_steps"]["ms"] / prefill_ms,
+        "mlstm_chunk_loops_share_of_prefill": loops["mlstm_chunks"]["layers"]
+        * loops["mlstm_chunks"]["ms"] / prefill_ms,
+    }
+    return failures + runs.failures, rec
 
 
 def _check_compute_report(report: dict) -> list[str]:
@@ -1666,19 +2141,22 @@ def main() -> int:
         print(json.dumps({"phase": "energy", "op": op, **rec}))
     failures += energy_failures
 
-    # 10-12. the served LMs at full width, each one's served runs'
+    # 10-14. the served models at full width, each one's served runs'
     # launches counted from 0
     machine = G.GPUMachineModel.from_device(torch.device("cuda"))
     models, model_s = {}, {}
+    phase_of = {"whisper-base": _whisper_phase, "xlstm-125m": _xlstm_phase}
+    apart = ("runs", "attention", "loops", "summary", "device_split")
     for number, name in MODEL_PHASES.items():
         t_path = time.perf_counter()
-        model_failures, model = _model_phase(name, machine)
+        model_failures, model = phase_of.get(name, _model_phase)(name, machine)
         model_s[name] = time.perf_counter() - t_path
         tag = {"phase": f"{number} model", "arch": name}
-        print(json.dumps({k: v for k, v in model.items() if k not in (
-            "runs", "attention", "summary", "device_split")} | {"s": model_s[name]}))
-        for key in ("runs", "attention", "summary", "device_split"):
-            print(json.dumps(tag | {key: model[key]}))
+        print(json.dumps({k: v for k, v in model.items() if k not in apart}
+                         | {"s": model_s[name]}))
+        for key in apart:
+            if key in model:
+                print(json.dumps(tag | {key: model[key]}))
         failures += model_failures
         models[name] = model
         torch.cuda.empty_cache()
@@ -1687,7 +2165,7 @@ def main() -> int:
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
         "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 13. the kernels line; the matmul's launches add the power fit's, the
+    # 15. the kernels line; the matmul's launches add the power fit's, the
     # attention's the model phases'
     launches["matmul"] += record["launches"]["matmul"]
     model_launches = {name: m["launches"]["flash_attention"]
@@ -1746,7 +2224,9 @@ def main() -> int:
                     "dims", "dtype", "block", "check", "ms", "plain_ms",
                     "library_ms", "sdpa_own_backend_gqa_ms", "bound_ms",
                     "bound_ms_ffma")} | {"launches": model_launches[name]}
-                for name, m in models.items()}
+                | {key: m["attention"][key] for key in ("causal", "f32")
+                   if key in m["attention"]}
+                for name, m in models.items() if "attention" in m}
             where["by_route"] = {
                 kernels.attention.kernel.route_of(compute[pt]["block"][0]): {
                     "point": pt, "block": compute[pt]["block"],

@@ -3,9 +3,9 @@ reference's ``repro/configs``).
 
 ``get_arch(name)`` returns the full-size :class:`~.base.ArchDef`;
 ``get_arch(name, smoke=True)`` the reduced same-family config the CPU
-tests use.  The dense, MoE, multimodal and hybrid LMs are ported; asking
-for one of the reference's other archs raises ``KeyError`` naming the
-ROADMAP item that ports it.
+tests use.  Every arch of the reference is ported: the dense, MoE,
+multimodal and hybrid LMs, the recurrent xLSTM and the encoder-decoder
+whisper.  An unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -21,20 +21,15 @@ _MODULES = {
     "glm4-9b": "glm4_9b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "xlstm-125m": "xlstm_125m",
     "pixtral-12b": "pixtral_12b",
+    "whisper-base": "whisper_base",
 }
-#: the reference's archs not ported yet, and the ROADMAP §1 item that
-#: ports them (the recurrent and audio families)
-NOT_PORTED = {name: "ROADMAP §1 item 3" for name in (
-    "xlstm-125m", "whisper-base")}
 
 ARCH_NAMES = tuple(_MODULES)
 
 
 def get_arch(name: str, *, smoke: bool = False) -> ArchDef:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet ({NOT_PORTED[name]}); "
-                       f"ported: {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)
@@ -45,5 +40,5 @@ def all_archs(*, smoke: bool = False) -> dict[str, ArchDef]:
     return {n: get_arch(n, smoke=smoke) for n in ARCH_NAMES}
 
 
-__all__ = ["SHAPES", "ArchDef", "ShapeSpec", "ARCH_NAMES", "NOT_PORTED",
-           "get_arch", "all_archs"]
+__all__ = ["SHAPES", "ArchDef", "ShapeSpec", "ARCH_NAMES", "get_arch",
+           "all_archs"]

@@ -61,7 +61,7 @@ class ArchDef:
     later train and mesh slices (ROADMAP §1 items 4 and 5)."""
 
     name: str
-    family: str                    # dense | moe | hybrid | vlm
+    family: str                    # dense | moe | hybrid | ssm | vlm | audio
     cfg: Any                       # model config dataclass
     spec_fn: Callable
     loss_fn: Callable
@@ -75,6 +75,9 @@ class ArchDef:
     #: extra per-shape batch entries: name -> fn(shape, cfg) -> ParamSpec
     #: or None (no entry at that shape)
     extra_inputs: dict = field(default_factory=dict)
+    #: full override of batch_spec: fn(shape, cfg) -> dict[str, ParamSpec]
+    #: (whisper's frames and prompt)
+    batch_spec_fn: Callable | None = None
     train_accum: int = 1
     moment_dtype: str = "f32"      # f32 | bf16 | int8
 
@@ -128,6 +131,8 @@ class ArchDef:
     # -- inputs ----------------------------------------------------------
     def batch_spec(self, shape: ShapeSpec) -> dict:
         """ParamSpec tree of the step's *data* inputs (not params/cache)."""
+        if self.batch_spec_fn is not None:
+            return self.batch_spec_fn(shape, self.cfg)
         b = shape.global_batch
         text_s = self._text_len(shape)
         out = {"tokens": ParamSpec((b, text_s), ("batch", None), init="zeros",
@@ -155,7 +160,7 @@ class ArchDef:
         draws it (``Philox(key=[seed, 7])``, the entries in its order), so
         both give the same arrays bit for bit: tokens and labels as
         integers, the mask as ones, float inputs (pixtral's patch
-        embeddings) as f32 normals times 0.02."""
+        embeddings, whisper's frames) as f32 normals times 0.02."""
         g = np.random.Generator(np.random.Philox(key=[seed, 7]))
         out = {}
         for k, spec in self.batch_spec(shape).items():

@@ -53,8 +53,10 @@ def params_from_numpy(tree, *, device, dtype: torch.dtype | None = None):
 
 
 def cache_from_numpy(cache: dict, *, device) -> dict:
-    """A reference decode cache (arrays and a scalar ``length``: the LM's
-    ``k``, ``v``; zamba2's ``ssm``, ``conv``, ``k``, ``v``) as the port's:
-    every array bit for bit on ``device``, the length a host int."""
-    return {k: int(v) if k == "length" else
-            streams_from_numpy([v], device=device)[0] for k, v in cache.items()}
+    """A reference decode cache (arrays, or dicts of them, and a scalar
+    ``length``: the LM's ``k``, ``v``; zamba2's ``ssm``, ``conv``, ``k``,
+    ``v``; whisper's ``self_*`` and ``cross_*``; xLSTM's ``layer_{i}``
+    state dicts) as the port's: every array bit for bit on ``device``, the
+    length a host int."""
+    return {k: int(v) if k == "length" else params_from_numpy(v, device=device)
+            for k, v in cache.items()}

@@ -8,14 +8,16 @@ materializes the arch's parameters from ``--seed`` on the device, casts
 them once to the compute dtype (:func:`~repro_torch.models.common.cast_params`:
 the same bits as the reference's cast at every use), runs prefill on the
 reference's synthetic prompt batch (every array ``ArchDef.make_batch``
-draws: the tokens, and pixtral's patch embeddings) and decodes
+draws: the tokens, pixtral's patch embeddings, whisper's frames) and decodes
 ``--gen`` tokens greedily (argmax over the unpadded vocabulary), then
 prints the reference's JSON: ``arch``, ``prefill_s``, ``decode_s_per_tok``
 and ``tokens``.  It runs on the card unless ``--device cpu`` is passed.
 ``--smoke`` (the default, as in the reference) takes the arch's reduced
-config, ``--no-smoke`` its full one.  ``--continuous`` (the
-continuous-batching engine, ROADMAP §1 item 6) and a ``--mesh`` other than
-``host`` (ROADMAP §1 item 5) are not ported and raise.
+config, ``--no-smoke`` its full one.  An encoder-only arch
+(``has_decoder`` false) is skipped, as the reference skips it.
+``--continuous`` (the continuous-batching engine, ROADMAP §1 item 6) and
+a ``--mesh`` other than ``host`` (ROADMAP §1 item 5) are not ported and
+raise.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from ..configs import get_arch
 from ..configs.base import ArchDef, ShapeSpec
-from ..models.common import cast_params, materialize
+from ..models.common import cast_params, materialize, tree_leaves
 
 
 @dataclass
@@ -71,7 +73,7 @@ def serve(arch: ArchDef, params, *, batch: int, prompt_len: int, gen: int,
     on the device the parameters lie on, with a cache of ``prompt_len +
     gen + 8`` positions (the reference's).  The times run from a device
     sync to a device sync."""
-    device = params["embedding"].device
+    device = tree_leaves(params)[0].device
     vocab = arch.cfg.vocab
     shape = ShapeSpec("cli_prefill", seq_len=prompt_len, global_batch=batch,
                       kind="prefill")
@@ -138,6 +140,9 @@ def main(argv=None) -> int:
         arch = get_arch(args.arch, smoke=args.smoke)
     except KeyError as e:
         ap.error(str(e))
+    if not arch.has_decoder:
+        print(f"{arch.name}: encoder-only, nothing to serve")
+        return 0
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to serve on "

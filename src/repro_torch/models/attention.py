@@ -165,7 +165,11 @@ def attention(p, cfg: AttnConfig, x, *, positions=None):
     n_rep = cfg.n_heads // cfg.n_kv_heads
     if cfg.impl == "flash":
         from ..kernels.attention.ops import flash_attention
-        out = flash_attention(q, k, v, causal=cfg.causal)
+        # one block of the whole sequence: the op's rule (blocks divide
+        # the lengths) takes it at any S, where the reference's default
+        # 512 refuses whisper's 1500 frames; the card runs the ranking's
+        # first tiling either way, masking the ragged edge
+        out = flash_attention(q, k, v, causal=cfg.causal, bq=s, bk=s)
     elif cfg.impl == "chunked":
         out = _chunked_attn(q, k, v, causal=cfg.causal, chunk=cfg.chunk_size)
     else:

@@ -91,9 +91,12 @@ def count_params(spec_tree) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(spec_tree))
 
 
-#: the leaves every use casts to f32, not to the compute dtype: the MoE
-#: router (``router_dtype``) and the Mamba2 decay, step bias and skip
-F32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
+#: the leaves every use takes in f32, not in the compute dtype: the MoE
+#: router (``router_dtype``), the Mamba2 decay, step bias and skip,
+#: layernorm's scale and bias (applied uncast to the f32 activations) and
+#: the sLSTM's recurrent weights
+F32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip", "scale",
+                        "bias", "r_z", "r_i", "r_f", "r_o"})
 
 
 def cast_params(params, dtype: torch.dtype):

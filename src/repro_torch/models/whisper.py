@@ -1,0 +1,287 @@
+"""Whisper-style encoder-decoder transformer backbone (arXiv:2212.04356;
+the reference's ``repro/models/whisper.py``).
+
+The conv/mel audio frontend is a stub, as in the reference: the batch
+carries precomputed frame embeddings ``(B, S_frames, d)``, the output the
+two-conv frontend would give.  Everything downstream is real: a
+bidirectional pre-LN encoder with sinusoidal positions, a causal decoder
+with learned positions and cross-attention, and a tied unembedding.
+
+Layers are stacked on a leading "layers" axis (the reference scans them
+with ``lax.scan``; here a loop over that axis).  ``remat`` is carried for
+the reference's configs and does nothing: the port has no backward yet.
+:func:`prefill` encodes the frames once and caches each layer's
+cross-attention K/V; :func:`decode_step` grows the self-attention cache a
+token at a time, in place.  The cache is ``{"self_k", "self_v", "cross_k",
+"cross_v": (L, B, S, H, hd), "length": int}`` with the length on the host.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from .attention import (
+    AttnConfig,
+    _chunked_attn,
+    _dense_attn,
+    _out_proj,
+    _project,
+    attention,
+    attn_spec,
+    decode_attention,
+)
+from .common import (
+    ParamSpec,
+    embed,
+    gelu_mlp,
+    gelu_mlp_spec,
+    layernorm,
+    layernorm_spec,
+    masked_xent,
+    unembed,
+    unstack,
+)
+from .lm import _stack_spec, pad_vocab
+
+
+@dataclass(frozen=True)
+class WhisperConfig:
+    name: str
+    n_layers: int                  # encoder layers == decoder layers
+    d_model: int
+    n_heads: int
+    d_ff: int
+    vocab: int
+    max_frames: int = 32768        # stub-frontend frame positions
+    max_text: int = 32768
+    attn_impl: str = "chunked"     # dense | chunked | flash
+    attn_chunk: int = 1024
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    remat: str = "none"            # no effect here: the port has no backward
+    vocab_pad_multiple: int = 2048
+    z_loss: float = 0.0
+
+    @property
+    def head_dim_(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        return pad_vocab(self.vocab, self.vocab_pad_multiple)
+
+    def attn_cfg(self, *, causal: bool) -> AttnConfig:
+        return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
+                          n_kv_heads=self.n_heads, head_dim=self.head_dim_,
+                          causal=causal, rope_fraction=0.0,
+                          impl=self.attn_impl, chunk_size=self.attn_chunk)
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+
+def whisper_spec(cfg: WhisperConfig) -> dict:
+    enc_layer = {
+        "ln_attn": layernorm_spec(cfg.d_model),
+        "attn": attn_spec(cfg.attn_cfg(causal=False)),
+        "ln_ffn": layernorm_spec(cfg.d_model),
+        "mlp": gelu_mlp_spec(cfg.d_model, cfg.d_ff),
+    }
+    dec_layer = {
+        "ln_self": layernorm_spec(cfg.d_model),
+        "self_attn": attn_spec(cfg.attn_cfg(causal=True)),
+        "ln_cross": layernorm_spec(cfg.d_model),
+        "cross_attn": attn_spec(cfg.attn_cfg(causal=False)),
+        "ln_ffn": layernorm_spec(cfg.d_model),
+        "mlp": gelu_mlp_spec(cfg.d_model, cfg.d_ff),
+    }
+    return {
+        "enc": {
+            "layers": _stack_spec(enc_layer, cfg.n_layers),
+            "ln_f": layernorm_spec(cfg.d_model),
+        },
+        "dec": {
+            # tied embedding/unembedding at 1/sqrt(d): the tied logits
+            # start O(1)
+            "embedding": ParamSpec((cfg.vocab_padded, cfg.d_model),
+                                   ("vocab", "embed"),
+                                   scale=cfg.d_model ** -0.5),
+            "pos": ParamSpec((cfg.max_text, cfg.d_model), (None, "embed"),
+                             scale=0.01),
+            "layers": _stack_spec(dec_layer, cfg.n_layers),
+            "ln_f": layernorm_spec(cfg.d_model),
+        },
+    }
+
+
+def _sinusoid(s: int, d: int, device=None) -> torch.Tensor:
+    """``(s, d)`` f32: sines then cosines of ``d // 2`` frequencies."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos * torch.exp(-math.log(10000.0) * dim / max(d // 2 - 1, 1))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+
+def encode(params, cfg: WhisperConfig, frames):
+    """frames: (B, S_f, d) stub frontend output -> encoder states.  The
+    self-attention is bidirectional: under ``attn_impl="flash"`` the
+    kernel's tile route runs with the causal skip off."""
+    h = frames.to(cfg.dtype)
+    h = h + _sinusoid(h.shape[1], cfg.d_model, h.device).to(cfg.dtype)[None]
+    acfg = cfg.attn_cfg(causal=False)
+    for p_l in unstack(params["enc"]["layers"], cfg.n_layers):
+        a, _ = attention(p_l["attn"], acfg,
+                         layernorm(p_l["ln_attn"], h, cfg.norm_eps))
+        h = h + a
+        h = h + gelu_mlp(p_l["mlp"], layernorm(p_l["ln_ffn"], h, cfg.norm_eps))
+    return layernorm(params["enc"]["ln_f"], h, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+
+def _cross_attention(p, cfg: WhisperConfig, x, enc_k, enc_v):
+    """x: (B, Sq, d) decoder states attending to the encoder's K/V.
+    Chunked (online softmax) under ``attn_impl="chunked"`` when Sq > 1,
+    else dense, under ``"flash"`` too, as in the reference: the kernel
+    never takes the cross-attention."""
+    dt = x.dtype
+    q = _project(x, p["wq"].to(dt))
+    if cfg.attn_impl == "chunked" and q.shape[1] > 1:
+        out = _chunked_attn(q, enc_k, enc_v, causal=False, chunk=cfg.attn_chunk)
+    else:
+        out = _dense_attn(q, enc_k, enc_v, causal=False)
+    return _out_proj(out, p["wo"].to(dt))
+
+
+def _enc_kv(p_l, cfg: WhisperConfig, enc_out):
+    dt = enc_out.dtype
+    return (_project(enc_out, p_l["cross_attn"]["wk"].to(dt)),
+            _project(enc_out, p_l["cross_attn"]["wv"].to(dt)))
+
+
+def _dec_layer(p_l, cfg: WhisperConfig, h, enc_kv, *, self_cache=None,
+               cache_len: int | None = None):
+    """One decoder layer; returns the new residual stream and the layer's
+    self-attention (k, v): the prompt's, or the cache written in place at
+    ``cache_len``."""
+    acfg = cfg.attn_cfg(causal=True)
+    x = layernorm(p_l["ln_self"], h, cfg.norm_eps)
+    if self_cache is None:
+        a, new_cache = attention(p_l["self_attn"], acfg, x)
+    else:
+        a, ck, cv = decode_attention(p_l["self_attn"], acfg, x, *self_cache,
+                                     cache_len)
+        new_cache = (ck, cv)
+    h = h + a
+    x = layernorm(p_l["ln_cross"], h, cfg.norm_eps)
+    h = h + _cross_attention(p_l["cross_attn"], cfg, x, *enc_kv)
+    h = h + gelu_mlp(p_l["mlp"], layernorm(p_l["ln_ffn"], h, cfg.norm_eps))
+    return h, new_cache
+
+
+def _embed(params, cfg: WhisperConfig, tokens, start: int = 0):
+    """Token embeddings plus the learned positions ``start ..``."""
+    s = tokens.shape[1]
+    h = embed(params["dec"]["embedding"], tokens).to(cfg.dtype)
+    return h + params["dec"]["pos"][start:start + s].to(cfg.dtype)[None]
+
+
+def decode_train(params, cfg: WhisperConfig, tokens, enc_out):
+    """Teacher-forced decoder pass (training)."""
+    h = _embed(params, cfg, tokens)
+    for p_l in unstack(params["dec"]["layers"], cfg.n_layers):
+        h, _ = _dec_layer(p_l, cfg, h, _enc_kv(p_l, cfg, enc_out))
+    return layernorm(params["dec"]["ln_f"], h, cfg.norm_eps)
+
+
+def loss_fn(params, cfg: WhisperConfig, batch):
+    """batch: frames (B,S_f,d), tokens (B,S_t), labels, mask."""
+    enc_out = encode(params, cfg, batch["frames"])
+    h = decode_train(params, cfg, batch["tokens"], enc_out)
+    logits = _logits(params, cfg, h)
+    loss = masked_xent(logits, batch["labels"], batch.get("mask"),
+                       vocab=cfg.vocab, vocab_padded=cfg.vocab_padded,
+                       z_loss=cfg.z_loss)
+    return loss, {"loss": loss, "aux_loss": 0.0}
+
+
+def _logits(params, cfg: WhisperConfig, h):
+    """The tied unembedding: the decoder's embedding, transposed."""
+    return unembed(params["dec"]["embedding"].t(), h)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode (inference)
+# ---------------------------------------------------------------------------
+
+
+def cache_spec(cfg: WhisperConfig, batch: int, max_len: int,
+               n_frames: int | None = None) -> dict:
+    h, hd = cfg.n_heads, cfg.head_dim_
+    nf = n_frames or cfg.max_frames
+    self_shape = (cfg.n_layers, batch, max_len, h, hd)
+    cross_shape = (cfg.n_layers, batch, nf, h, hd)
+    axes = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {
+        "self_k": ParamSpec(self_shape, axes, init="zeros", dtype=cfg.dtype),
+        "self_v": ParamSpec(self_shape, axes, init="zeros", dtype=cfg.dtype),
+        "cross_k": ParamSpec(cross_shape, axes, init="zeros", dtype=cfg.dtype),
+        "cross_v": ParamSpec(cross_shape, axes, init="zeros", dtype=cfg.dtype),
+        "length": ParamSpec((), (), init="zeros", dtype=torch.int32),
+    }
+
+
+def prefill(params, cfg: WhisperConfig, batch, *, max_len: int | None = None):
+    """Encode the frames, prefill the decoder on the prompt tokens; returns
+    (last-token logits, cache).  The self-attention K/V go into a cache of
+    ``max(max_len, S)`` positions, zero past the prompt (the reference's
+    right padding); the cross K/V keep the frames' length."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    b, s = tokens.shape
+    enc_out = encode(params, cfg, frames)
+    h = _embed(params, cfg, tokens)
+    dev = h.device
+    self_shape = (cfg.n_layers, b, max(s, max_len or 0), cfg.n_heads,
+                  cfg.head_dim_)
+    ks = torch.zeros(self_shape, dtype=cfg.dtype, device=dev)
+    vs = torch.zeros_like(ks)
+    cross_shape = (cfg.n_layers, b, enc_out.shape[1], cfg.n_heads,
+                   cfg.head_dim_)
+    cks = torch.empty(cross_shape, dtype=cfg.dtype, device=dev)
+    cvs = torch.empty_like(cks)
+    for i, p_l in enumerate(unstack(params["dec"]["layers"], cfg.n_layers)):
+        enc_kv = _enc_kv(p_l, cfg, enc_out)
+        h, (k, v) = _dec_layer(p_l, cfg, h, enc_kv)
+        ks[i, :, :s] = k
+        vs[i, :, :s] = v
+        cks[i], cvs[i] = enc_kv
+    h = layernorm(params["dec"]["ln_f"], h, cfg.norm_eps)
+    logits = _logits(params, cfg, h[:, -1:, :])
+    return logits, {"self_k": ks, "self_v": vs, "cross_k": cks,
+                    "cross_v": cvs, "length": s}
+
+
+def decode_step(params, cfg: WhisperConfig, cache, batch):
+    """One-token decode with the cached self and cross K/V.  batch: tokens
+    (B, 1); the self cache is written in place at ``length`` (a host int),
+    and the returned cache holds the same tensors with ``length + 1``."""
+    length = cache["length"]
+    h = _embed(params, cfg, batch["tokens"], start=length)
+    for i, p_l in enumerate(unstack(params["dec"]["layers"], cfg.n_layers)):
+        h, _ = _dec_layer(p_l, cfg, h, (cache["cross_k"][i], cache["cross_v"][i]),
+                          self_cache=(cache["self_k"][i], cache["self_v"][i]),
+                          cache_len=length)
+    h = layernorm(params["dec"]["ln_f"], h, cfg.norm_eps)
+    return _logits(params, cfg, h), cache | {"length": length + 1}

@@ -54,7 +54,9 @@ def test_port_files_exist():
               "launch/serve.py", "models/moe.py", "models/mamba2.py",
               "models/zamba2.py", "configs/granite_moe_1b.py",
               "configs/qwen3_moe_235b.py", "configs/pixtral_12b.py",
-              "configs/zamba2_1_2b.py"):
+              "configs/zamba2_1_2b.py", "models/xlstm.py",
+              "models/xlstm_lm.py", "models/whisper.py",
+              "configs/xlstm_125m.py", "configs/whisper_base.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -87,6 +89,8 @@ def test_import_leaves_jax_out():
         "import repro_torch.models.lm, repro_torch.launch.serve\n"
         "import repro_torch.models.moe, repro_torch.models.mamba2\n"
         "import repro_torch.models.zamba2\n"
+        "import repro_torch.models.xlstm, repro_torch.models.xlstm_lm\n"
+        "import repro_torch.models.whisper\n"
         "from repro_torch.configs import all_archs\n"
         "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -35,9 +35,11 @@ from repro_torch.models.common import cast_params, tree_leaves, tree_map  # noqa
 DTYPES = {"f32": (torch.float32, jnp.float32, 2e-3),
           "bf16": (torch.bfloat16, jnp.bfloat16, 6e-2)}
 PROMPT, STEPS, MAX_LEN = 8, 3, 16
-#: the archs of this module (zamba2 has its own, test_torch_zamba2.py)
+#: the archs of this module, those built on ``lm.LMConfig`` (zamba2,
+#: xlstm-125m and whisper-base have their own: test_torch_zamba2.py,
+#: test_torch_xlstm.py, test_torch_whisper.py)
 LM_ARCHS = tuple(n for n in ARCH_NAMES
-                 if get_arch(n, smoke=True).family != "hybrid")
+                 if isinstance(get_arch(n, smoke=True).cfg, lm.LMConfig))
 #: the reference's forward, compiled once per config (static)
 _REF = {"hidden_states": jax.jit(jlm.hidden_states, static_argnums=1),
         "logits_fn": jax.jit(jlm.logits_fn, static_argnums=1),

@@ -1,10 +1,11 @@
 """The port's architecture registry (``repro_torch/configs``) against the
-reference's (``repro/configs``): the eight ported configs' numbers and
-sources (the dense, MoE, multimodal and hybrid LMs), ``make_batch`` bit
-for bit (pixtral's patch embeddings too), and the accounting
-(``n_params``, ``n_active_params`` with the MoE's expert rule,
-``model_flops``, ``shape_supported``, ``cells``) at full size; an arch
-not ported yet raises ``KeyError``."""
+reference's (``repro/configs``): the ten configs' numbers and sources (the
+dense, MoE, multimodal, hybrid, recurrent and audio archs), ``make_batch``
+bit for bit (pixtral's patch embeddings too; whisper's frames in
+``test_torch_whisper.py``), and the accounting (``n_params``,
+``n_active_params`` with the MoE's expert rule, ``model_flops``,
+``shape_supported``, ``cells``) at full size; an unknown arch raises
+``KeyError``."""
 import dataclasses
 
 import numpy as np
@@ -20,23 +21,23 @@ from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch  # noqa: E402
 
 
 def test_registry_lists_the_dense_archs():
-    """The dense archs and, since the second model slice, the MoE,
-    multimodal and hybrid ones; the recurrent and audio archs wait."""
+    """Every arch of the reference, in its order: the dense, MoE,
+    multimodal and hybrid ones, the recurrent xLSTM and the audio
+    encoder-decoder."""
     assert set(ARCH_NAMES) == {"internlm2-1.8b", "minitron-4b", "glm4-9b",
                                "qwen1.5-110b", "granite-moe-1b-a400m",
                                "qwen3-moe-235b-a22b", "pixtral-12b",
-                               "zamba2-1.2b"}
-    assert set(configs.NOT_PORTED) == {"xlstm-125m", "whisper-base"}
-    assert set(ARCH_NAMES) | set(configs.NOT_PORTED) == set(ref_configs.ARCH_NAMES)
+                               "zamba2-1.2b", "xlstm-125m", "whisper-base"}
+    assert ARCH_NAMES == ref_configs.ARCH_NAMES
     assert set(configs.all_archs(smoke=True)) == set(ARCH_NAMES)
+    assert set(configs.all_archs()) == set(ARCH_NAMES)
 
 
-@pytest.mark.parametrize("name", sorted(configs.NOT_PORTED))
-def test_unported_arch_raises_naming_its_item(name):
-    with pytest.raises(KeyError, match="not ported yet.*ROADMAP §1 item 3"):
-        get_arch(name)
-    with pytest.raises(KeyError, match="unknown arch"):
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch 'gpt-5'"):
         get_arch("gpt-5")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("whisper-tiny", smoke=True)
 
 
 def _dtype_names(tree):
@@ -66,6 +67,7 @@ def test_configs_carry_the_reference_numbers(name, smoke):
                   "source", "train_accum", "moment_dtype"):
         assert getattr(port, field) == getattr(ref, field), field
     assert list(port.extra_inputs) == list(ref.extra_inputs)
+    assert (port.batch_spec_fn is None) == (ref.batch_spec_fn is None)
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
