@@ -15,8 +15,9 @@ the energy over the SMs (``repro_torch.benchmarks.gpu_energy_ecm.run``)
 and five models through the serve launcher
 (``repro_torch.launch.serve.serve``): the dense internlm2-1.8b, the MoE
 granite-moe-1b-a400m, the hybrid zamba2-1.2b, the encoder-decoder
-whisper-base and the recurrent xlstm-125m; and holds every CUDA kernel
-against its plain PyTorch version.  Phases:
+whisper-base and the recurrent xlstm-125m; trains internlm2-1.8b
+through ``repro_torch.train.steps.make_train_step``; and holds every
+CUDA kernel against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -168,16 +169,42 @@ against its plain PyTorch version.  Phases:
    ms and launches of the mLSTM chunk loop and the sLSTM loop, decode
    eager and as a graph; no attention kernel to launch (its count held
    at 0);
-15. one JSON line with the ten kernels (the matmul and attention rows
+15. internlm2-1.8b trained at full width and depth (24 layers, f32
+   masters, bf16 compute, AdamW at its defaults with f32 moments, lr
+   3e-4, the config's ``remat="full"``, chunked attention and
+   ``train_accum`` 2) on the reference's ``train_4k`` sequence (4096) at
+   global batch 8 from ``ArchSyntheticDataset``: first the flash op alone
+   at the eval's shape (B 4, S 4096, causal, bf16); the reduced-depth
+   gates (two layers at full width, f32, B 2 x 256: one train step on the
+   card against the same step on the CPU, the loss within 1e-5, the grad
+   norm within 1e-4, every parameter within 1e-3 * lr and one rounding
+   where the two first moments agree within 1e-4; remat full against
+   none within 1e-6 and accum 2 against 1 within 1e-5 of each leaf's
+   largest gradient, deterministic kernels);
+   the restart gate (the smoke config, f32, bf16 and int8 moments: three
+   steps straight equal to one step, an ``AsyncCheckpointer`` save,
+   ``restore_tree`` onto the card and two more, every leaf bit for bit);
+   the flash op refusing an operand that requires grad; then, its
+   launches counted from 0, four train steps on batch 0 (the loss falls,
+   every loss, grad norm and parameter finite; steps 2-4 timed; the peak
+   memory), one step under the profiler (its device time split into
+   forward GEMMs, recompute, backward GEMMs, chunked attention, cross
+   entropy, optimizer and the rest, the kernels, the idle share), and the
+   eval step on one micro-batch with ``attn_impl`` flash (24 tile
+   launches, no split launch) against chunked, f32 within 2e-3, bf16
+   reported; last the optimizer alone with f32, bf16 and int8 moments
+   against the bytes it must move;
+16. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
-   attention's per path with each model phase's beside the compute
-   loop's and its time at each model's shape, the combine's with the
-   decode's split plan), then the ``ok`` line.
+   attention's per path with each model phase's and the train phase's
+   beside the compute loop's and its time at each model's shape, the
+   combine's with the decode's split plan), then the ``ok`` line.
 
-The calibration, the Eq. 2 sweep, the energy sweep and the models'
-served runs count their launches from 0 too, each kernel they run at
-least once; the matmul's count in the kernels line adds the power fit's
-launches to the compute loop's, the attention's the served runs'.  The
+The calibration, the Eq. 2 sweep, the energy sweep, the models' served
+runs and the train phase's main path count their launches from 0 too,
+each kernel they run at least once; the matmul's count in the kernels
+line adds the power fit's launches to the compute loop's, the
+attention's the served runs' and the train phase's evals'.  The
 time of each phase is printed.
 
 Any failure exits non-zero and prints no ``ok`` line.
@@ -296,6 +323,31 @@ MODEL_PHASES = {10: "internlm2-1.8b", 11: "granite-moe-1b-a400m",
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, MODEL_F32_GEN = 8, 2048, 32, 4
 #: the reference's attention tolerance (tests/test_kernels.py:102)
 MODEL_TOL = (2e-3, 2e-3)
+#: phase 15: the arch trained at full width and depth on the reference's
+#: train_4k sequence at global batch TRAIN_BATCH (train_4k's 256, cut to
+#: what one card holds beside the f32 state), TRAIN_STEPS steps at lr
+#: TRAIN_LR on one batch
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4096, 8, 4, 3e-4
+#: the reduced-depth gates: GATE_LAYERS layers at full width, f32, B
+#: GATE_BATCH x GATE_SEQ; the card's gradients are held to the CPU's leaf
+#: by leaf within GATE_GRAD_REL of each leaf's largest |g| (as the CPU
+#: tests hold them, tests/_torch_train.py), and a parameter after the step
+#: to the CPU's where the two gradients agree within GATE_AGREE_REL: a
+#: first AdamW step moves an entry by lr * g / (|g| + eps), so where g is
+#: rounding noise (a sum that cancels, or |g| near eps) it follows the
+#: last digits in which the two devices' sums part.  At most
+#: GATE_MASKED_MAX of a leaf's entries may be left out that way: noise
+#: leaves out ~1 % of the entries, a fault of a leaf or of a slice of it
+#: far more
+GATE_LAYERS, GATE_BATCH, GATE_SEQ = 2, 2, 256
+GATE_GRAD_REL, GATE_AGREE_REL, GATE_MASKED_MAX = 2e-3, 1e-4, 0.05
+#: the optimizer's timed calls at each moment dtype
+OPT_TIMED_CALLS = 3
+#: the device split of a train step (``_train_split``)
+TRAIN_SPLIT = ("forward_gemm_ms", "recompute_ms", "backward_gemm_ms",
+               "chunked_attention_ms", "cross_entropy_ms", "optimizer_ms",
+               "other_ms")
 #: decode steps a CUDA graph replays to read the device's busy time
 MODEL_GRAPH_STEPS = 3
 #: whisper-base's frames: Whisper's 30-second window (arXiv:2212.04356
@@ -971,9 +1023,12 @@ def _energy_phase(machine, scaling: dict) -> tuple[list[str], dict]:
     return failures, report
 
 
-def _attention_at_model_shape(acfg, machine) -> tuple[list[str], dict]:
+def _attention_at_model_shape(acfg, machine, batch: int = MODEL_BATCH,
+                              seq: int = MODEL_PROMPT
+                              ) -> tuple[list[str], dict]:
     """The attention op alone at a served model's prefill shape in bf16
-    (``acfg``: its attention config), through the compute loop
+    (``acfg``: its attention config; ``batch`` x ``seq``, causal), through
+    the compute loop
     (``gpu_compute_ecm.run``: the check against the plain version, the
     kernel at every compiled prefill tiling, the plain version, SDPA's
     efficient backend on KV repeated), plus SDPA with the backend it picks
@@ -984,8 +1039,7 @@ def _attention_at_model_shape(acfg, machine) -> tuple[list[str], dict]:
     from repro_torch.benchmarks import gpu_compute_ecm as GC
     from repro_torch.benchmarks.timing import time_call
 
-    dims = (MODEL_BATCH, MODEL_PROMPT, MODEL_PROMPT, acfg.n_heads,
-            acfg.n_kv_heads, acfg.head_dim)
+    dims = (batch, seq, seq, acfg.n_heads, acfg.n_kv_heads, acfg.head_dim)
     point = GC.Point("attention", dims, torch.bfloat16, causal=True)
     report = GC.run(point=point)
     failures = _check_compute_report(report)
@@ -1875,6 +1929,584 @@ def _xlstm_phase(name: str, machine) -> tuple[list[str], dict]:
     return failures + runs.failures, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_arch():
+    """internlm2-1.8b's full config, its attention projections drawn at
+    their contracted fan-in (:func:`_contracted_fan_in`)."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(TRAIN_ARCH)
+    spec_fn = arch.spec_fn
+    return dataclasses.replace(arch, spec_fn=lambda c: _contracted_fan_in(
+        spec_fn(c), ("layers", "attn"), c.attn_cfg))
+
+
+def _variant(arch, **kw):
+    return dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, **kw))
+
+
+def _tree_to(tree, device):
+    from repro_torch.models.common import tree_map
+
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic kernels inside the block (the embedding's backward,
+    an ``index_add_``, otherwise adds a token's rows by atomics in any
+    order), so two runs of the same step compare bit for bit.  cuBLAS
+    runs one stream here, where it is deterministic; its warning about
+    ``CUBLAS_WORKSPACE_CONFIG`` is silenced."""
+    import warnings
+
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+
+
+def _rel_max_diff(got, want) -> float:
+    """The largest over leaves of max|got - want| / max|want|."""
+    from repro_torch.models.common import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        worst = max(worst, float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def _train_gates(arch) -> tuple[list[str], dict]:
+    """Phase 15's reduced-depth gates: GATE_LAYERS layers at full width,
+    f32 (TF32 off), B GATE_BATCH x GATE_SEQ, one state drawn on the CPU
+    and copied to the card, deterministic kernels.  The card's gradients
+    against the CPU's leaf by leaf (GATE_GRAD_REL); one train step on the
+    card against the same step on the CPU (loss, grad norm, every
+    parameter within 1e-3 * lr and one rounding where the two gradients
+    agree within GATE_AGREE_REL, at most GATE_MASKED_MAX of a leaf left
+    out); ``remat="full"`` against ``"none"`` and ``accum=2`` against 1
+    on the card."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import batch_from_numpy
+    from repro_torch.data import ArchSyntheticDataset
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train.steps import (init_state, make_train_step,
+                                         value_and_grad)
+
+    small = _variant(arch, n_layers=GATE_LAYERS, dtype=torch.float32)
+    opt, lr = AdamWConfig(), TRAIN_LR
+    cpu_state = init_state(small, torch.Generator().manual_seed(SEED), opt,
+                           device="cpu")
+    host = ArchSyntheticDataset(small, ShapeSpec("gate", GATE_SEQ, GATE_BATCH,
+                                                 "train"), seed=SEED).batch(0)
+    cpu_batch = batch_from_numpy(host, device="cpu")
+    card_batch = batch_from_numpy(host, device="cuda")
+    step = make_train_step(small, opt, constant(lr))
+    failures, rec = [], {"layers": GATE_LAYERS, "batch": GATE_BATCH,
+                         "seq": GATE_SEQ, "dtype": "float32",
+                         "grads_agree_rel": GATE_AGREE_REL,
+                         "masked_max_share": GATE_MASKED_MAX}
+    with GC.full_f32(), _deterministic():
+        card_state = _tree_to(cpu_state, "cuda")
+        kernels.reset_launches()
+        card_grads = value_and_grad(small, card_state["params"], card_batch)[2]
+        cpu_grads = value_and_grad(small, cpu_state["params"], cpu_batch)[2]
+        card_state, card = step(card_state, card_batch)
+        cpu_state, cpu = step(cpu_state, cpu_batch)
+        launched = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    rec["kernel_launches"] = launched
+    if launched:
+        failures.append(f"train gate: the plain path launched {launched}")
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        got, want = float(card[key]), float(cpu[key])
+        rel = abs(got - want) / abs(want)
+        rec[f"{key}_card_vs_cpu"] = {"card": got, "cpu": want, "rel": rel,
+                                     "tol": tol}
+        if not rel <= tol:
+            failures.append(f"train gate: {key} {got} on the card against "
+                            f"{want} on the CPU, {rel} apart (tol {tol})")
+    grad_rel = _rel_max_diff(card_grads, cpu_grads)
+    rec["grads_card_vs_cpu"] = {"max_rel_to_leaf_max": grad_rel,
+                                "tol": GATE_GRAD_REL}
+    if not grad_rel <= GATE_GRAD_REL:
+        failures.append(f"train gate: the card's grads {grad_rel} of a leaf's "
+                        f"largest off the CPU's (tol {GATE_GRAD_REL})")
+    # off by more than 1e-3 * lr and one rounding of the parameter: the
+    # largest excess over that, and the largest difference
+    worst, excess, masked, total, shares = 0.0, -math.inf, 0, 0, []
+    for i, (p, q, gc, g) in enumerate(zip(tree_leaves(card_state["params"]),
+                                          tree_leaves(cpu_state["params"]),
+                                          tree_leaves(card_grads),
+                                          tree_leaves(cpu_grads))):
+        keep = (gc.cpu() - g).abs() <= GATE_AGREE_REL * g.abs()
+        masked += int((~keep).sum())
+        total += keep.numel()
+        shares.append(1.0 - float(keep.double().mean()))
+        if shares[-1] > GATE_MASKED_MAX:
+            failures.append(f"train gate: leaf {i} has {shares[-1]} of its "
+                            f"grads apart by more than {GATE_AGREE_REL} "
+                            f"(at most {GATE_MASKED_MAX})")
+        if keep.any():
+            err = (p.cpu() - q).abs()[keep]
+            ulp = torch.finfo(q.dtype).eps * q.abs()[keep]
+            worst = max(worst, float(err.max()))
+            excess = max(excess, float((err - 1e-3 * lr - ulp).max()))
+    rec["params_card_vs_cpu"] = {"max_abs": worst, "tol": "1e-3 * lr + ulp(p)",
+                                 "lr": lr, "max_excess_over_tol": excess,
+                                 "masked_entries": masked, "entries": total,
+                                 "masked_share_by_leaf": shares}
+    if not excess <= 0:
+        failures.append(f"train gate: parameters after the step up to {worst} "
+                        f"off the CPU's, {excess} past 1e-3 * lr and an ulp")
+    del cpu_state, card_state, cpu_batch, card_grads, cpu_grads
+    with GC.full_f32(), _deterministic():
+        state = init_state(small, torch.Generator(device="cuda").manual_seed(
+            SEED), opt, device="cuda")
+        params = state["params"]
+        grads = {}
+        for remat in ("full", "none"):
+            grads[remat] = value_and_grad(_variant(small, remat=remat), params,
+                                          card_batch)[2]
+        grads["accum2"] = value_and_grad(small, params, card_batch, accum=2)[2]
+    for what, got, want, tol in (("remat_full_vs_none", "full", "none", 1e-6),
+                                 ("accum2_vs_accum1", "accum2", "full", 1e-5)):
+        rel = _rel_max_diff(grads[got], grads[want])
+        rec[what] = {"max_rel_to_leaf_max": rel, "tol": tol}
+        if not rel <= tol:
+            failures.append(f"train gate: {what} grads {rel} apart (tol {tol})")
+    return failures, rec
+
+
+def _restart_gate() -> tuple[list[str], dict]:
+    """internlm2-1.8b's smoke config on the card, f32, bf16 and int8
+    moments: three steps straight against one step, an
+    ``AsyncCheckpointer`` save, ``restore_tree`` onto the card and two
+    more; every leaf ``torch.equal`` (deterministic kernels), in a
+    temporary directory removed after."""
+    from repro_torch.ckpt import AsyncCheckpointer, restore_tree
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import batch_from_numpy
+    from repro_torch.data import ArchSyntheticDataset
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train.steps import init_state, make_train_step
+
+    arch = get_arch(TRAIN_ARCH, smoke=True)
+    data = ArchSyntheticDataset(arch, ShapeSpec("restart", 32, 2, "train"),
+                                seed=SEED)
+    batches = [batch_from_numpy(data.batch(i), device="cuda") for i in range(3)]
+    failures, rec = [], {}
+    for moments in ("f32", "bf16", "int8"):
+        opt = AdamWConfig(moment_dtype=moments)
+        step = make_train_step(arch, opt, constant(TRAIN_LR))
+
+        def fresh():
+            return init_state(arch, torch.Generator(device="cuda").manual_seed(
+                SEED), opt, device="cuda")
+
+        with _deterministic(), tempfile.TemporaryDirectory() as root:
+            straight = fresh()
+            for b in batches:
+                straight, _ = step(straight, b)
+            state, _ = step(fresh(), batches[0])
+            ckpt = AsyncCheckpointer(root)
+            ckpt.submit(1, state, metadata={"moments": moments})
+            ckpt.close()
+            state, meta = restore_tree(root, 1, state, device="cuda")
+            for b in batches[1:]:
+                state, _ = step(state, b)
+        leaves = list(zip(tree_leaves(straight), tree_leaves(state)))
+        differ = sum(not (a.dtype == b.dtype and torch.equal(a, b))
+                     for a, b in leaves)
+        rec[moments] = {"leaves": len(leaves), "differ": differ,
+                        "restored_metadata": meta}
+        if differ:
+            failures.append(f"restart gate ({moments} moments): {differ} of "
+                            f"{len(leaves)} leaves differ from three steps "
+                            f"straight")
+    return failures, rec
+
+
+def _grad_refusal() -> tuple[list[str], str]:
+    """The flash op on card tensors, one of which requires grad, raises
+    (the kernel has no backward)."""
+    from repro_torch.kernels.attention import ops
+
+    q = torch.randn((1, 128, 4, 64), device="cuda", requires_grad=True)
+    k = torch.randn((1, 128, 2, 64), device="cuda")
+    try:
+        ops.flash_attention(q, k, k, causal=True)
+    except RuntimeError as e:
+        return [], str(e)
+    return ["the flash op took an operand that requires grad on the card"], ""
+
+
+def _walk(event):
+    while event is not None:
+        yield event
+        event = event.cpu_parent
+
+
+def _ancestors(event) -> list[str]:
+    return [e.name for e in _walk(event)]
+
+
+def _train_split(fn) -> dict:
+    """Device time of one call of ``fn`` (a train step) by what launched
+    each kernel, from torch.profiler (:func:`_classify_kernels`), and the
+    device's idle share of the call's wall time (both under the profiler).
+    A profiler the machine refuses to start or stop, or one that records
+    no device time, is reported as not measured; an error of ``fn``
+    itself propagates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # noqa: BLE001 - a refused profiler is a reading not taken
+        return {"not_measured": f"profiler start: {type(e).__name__}: {e}"}
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except BaseException:
+        with contextlib.suppress(Exception):
+            prof.stop()
+        raise
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        prof.stop()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    except Exception as e:  # noqa: BLE001 - a refused profiler is a reading not taken
+        return {"not_measured": f"profiler stop: {type(e).__name__}: {e}"}
+    split = _classify_kernels(events)
+    if not split["total_ms"]:
+        return {"not_measured": "the profiler recorded no device time"}
+    return split | {"wall_ms": wall_ms,
+                    "idle_share": 1.0 - split["total_ms"] / wall_ms}
+
+
+def _classify_kernels(events) -> dict:
+    """The device ms of the kernels the CPU ``events`` launched, by what
+    launched them: the optimizer (under ``adamw``, on the main thread,
+    the one ``adamw`` ran on); on any other thread (the backward's) the
+    recompute (under ``remat``) and the backward of each forward op,
+    which its autograd node's sequence number names; on the main thread
+    the forward.  Forward and backward each split into the chunked
+    attention (under ``chunked_attention``), the cross entropy (under
+    ``masked_xent``), the GEMMs (kernel names) and the rest; the kernel
+    count and the dearest kernels beside."""
+    main_thread = next((e.thread for e in events if e.name == "adamw"), None)
+    forward_op = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            forward_op.setdefault((e.thread, e.sequence_nr), e)
+    split = dict.fromkeys(TRAIN_SPLIT, 0.0)
+    per_kernel, n = {}, 0
+    for e in events:
+        if not e.kernels:
+            continue
+        names = _ancestors(e)
+        backward = e.thread != main_thread
+        origin = names
+        if backward and "remat" not in names:
+            # the backward runs with grad off, so its first ancestor with
+            # a sequence number is the autograd node
+            node = next((a for a in _walk(e) if a.sequence_nr >= 0), None)
+            fwd = node and forward_op.get(
+                (getattr(node, "fwd_thread", None) or main_thread,
+                 node.sequence_nr))
+            origin = _ancestors(fwd) if fwd else []
+        for k in e.kernels:
+            n += 1
+            ms = k.duration / 1e3
+            if "adamw" in names:
+                fam = "optimizer_ms"
+            elif backward and "remat" in names:
+                fam = "recompute_ms"
+            elif "chunked_attention" in origin:
+                fam = "chunked_attention_ms"
+            elif "masked_xent" in origin:
+                fam = "cross_entropy_ms"
+            elif any(g in k.name.lower() for g in GEMM_NAMES):
+                fam = "backward_gemm_ms" if backward else "forward_gemm_ms"
+            else:
+                fam = "other_ms"
+            split[fam] += ms
+            per_kernel[k.name] = per_kernel.get(k.name, 0.0) + ms
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return split | {"total_ms": sum(split.values()), "kernels": n,
+                    "top": [{"kernel": k[:120], "ms": ms} for k, ms in top]}
+
+
+def _optimizer_timing(state, machine, calibrated) -> dict:
+    """The optimizer alone (``adamw_step``, the train step's update) on
+    the full-width parameters with synthetic f32 grads, with f32, bf16
+    and int8 moments: device ms (CUDA events, median of
+    OPT_TIMED_CALLS after one warm-up) against the bytes it must move,
+    the grads read twice (the norm, then the update), each parameter and
+    moment read and written once (an int8 moment's row scales too), at
+    the data sheet's and the calibrated HBM rate."""
+    import statistics
+
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_step, constant
+
+    params = state["params"]
+    leaves = tree_leaves(params)
+    n = sum(p.numel() for p in leaves)
+    rows = sum(p.numel() // p.shape[-1] for p in leaves)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                           device="cuda") * 1e-3, params)
+    sustained = calibrated.sustained_bw("update", "_stream")
+    out = {}
+    for moments, per_param in (("f32", 32), ("bf16", 24), ("int8", 20)):
+        cfg = AdamWConfig(moment_dtype=moments)
+        opt_state = (state["opt_state"] if moments == "f32"
+                     else adamw_init(params, cfg))
+        nbytes = n * per_param + (16 * rows if moments == "int8" else 0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ms = []
+        for i in range(OPT_TIMED_CALLS + 1):
+            torch.cuda.synchronize()
+            start.record()
+            adamw_step(grads, opt_state, params, cfg, constant(TRAIN_LR))
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                ms.append(start.elapsed_time(end))
+        bound = machine.hbm_seconds(nbytes) * 1e3
+        out[moments] = {"ms": statistics.median(ms), "ms_all": ms,
+                        "bytes": nbytes, "bytes_per_param": nbytes / n,
+                        "bound_ms": bound,
+                        "bound_ms_calibrated": nbytes / sustained * 1e3,
+                        "share_of_bound": bound / statistics.median(ms)}
+        del opt_state
+        torch.cuda.empty_cache()
+    return out | {"params": n, "rows": rows,
+                  "calibrated_rate_bytes_per_s": sustained}
+
+
+def _memory_split(arch, params, batch) -> dict:
+    """Where a train step's peak comes from, by
+    ``torch.cuda.max_memory_allocated``: the bytes resident between steps
+    (the parameters, the moments, the batch), the peak above them of one
+    micro-batch's ``value_and_grad`` (its grads, its remat stack, its
+    loss) and of that micro-batch's loss alone (the logits and
+    ``masked_xent``, forward and backward, from the final hidden states
+    and the unembedding)."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.steps import value_and_grad
+
+    def peak_above(fn) -> int:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base
+
+    cfg = arch.cfg
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    grads = tree_leaves(value_and_grad(arch, params, batch)[2])
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    del grads
+    micro = peak_above(lambda: value_and_grad(arch, params, batch)[2])
+    with torch.no_grad():
+        h = lm.hidden_states(params, cfg, batch["tokens"])[0]
+    unembed = tree_leaves(params["unembed"])
+
+    def loss_alone():
+        x = h.detach().requires_grad_()
+        for w in unembed:
+            w.requires_grad_(True)
+        try:
+            loss = lm.masked_xent(lm.logits_fn(params, cfg, x), batch["labels"],
+                                  batch.get("mask"), cfg)
+            return torch.autograd.grad(loss, [x, *unembed])
+        finally:
+            for w in unembed:
+                w.requires_grad_(False)
+
+    loss = peak_above(loss_alone)
+    del h
+    return {"resident": resident, "grads": grad_bytes,
+            "micro_batch_peak_above_resident": micro,
+            "loss_alone_peak_above_resident": loss}
+
+
+def _train_phase(machine, calibrated) -> tuple[list[str], dict]:
+    """Phase 15: internlm2-1.8b trained at full width and depth on the
+    card (:data:`TRAIN_ARCH`; f32 masters, bf16 compute, AdamW at its
+    defaults, ``constant(TRAIN_LR)``, the config's ``remat="full"``,
+    ``attn_impl="chunked"`` and ``train_accum``), on the reference's
+    ``train_4k`` sequence at global batch TRAIN_BATCH from
+    ``ArchSyntheticDataset`` (seed SEED).  First the gates that compare
+    (the flash op alone at the eval's shape, the reduced-depth and
+    restart gates, the refusal); then, its launches counted from 0, the
+    main path: TRAIN_STEPS steps on batch 0 (the loss falls from the
+    first to the last, every loss, grad norm and parameter finite; steps
+    2.. timed from a device sync to a device sync), one more step under
+    the profiler, where the peak memory comes from
+    (:func:`_memory_split`), and the eval step on one micro-batch with
+    ``attn_impl="flash"`` (24 tile launches, no split launch) against
+    ``"chunked"``: f32 within MODEL_TOL, bf16 reported.  Last the
+    optimizer alone at each moment dtype against its bytes bound."""
+    import statistics
+
+    from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import batch_from_numpy
+    from repro_torch.data import ArchSyntheticDataset
+    from repro_torch.kernels.check import compare
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train.steps import init_state, make_eval_step, make_train_step
+
+    arch = _train_arch()
+    cfg = arch.cfg
+    micro = TRAIN_BATCH // arch.train_accum
+    failures, rec = [], {
+        "phase": f"train {arch.name}", "arch": arch.name,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_params": arch.n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "accum": arch.train_accum, "micro_batch": micro, "remat": cfg.remat,
+        "attn_impl": cfg.attn_impl, "dtype": str(cfg.dtype), "lr": TRAIN_LR,
+        "reduced": {"global_batch": f"256 -> {TRAIN_BATCH} (train_4k's "
+                                    f"global batch on one card)"}}
+    attn_failures, rec["attention"] = _attention_at_model_shape(
+        cfg.attn_cfg, machine, batch=micro, seq=TRAIN_SEQ)
+    failures += attn_failures
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gate_failures, rec["gates"] = _train_gates(arch)
+    failures += gate_failures
+    restart_failures, rec["restart"] = _restart_gate()
+    failures += restart_failures
+    refusal_failures, rec["refusal"] = _grad_refusal()
+    failures += refusal_failures
+    rec["gates_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # the main path, its launches counted from 0
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig()
+    state = init_state(arch, torch.Generator(device="cuda").manual_seed(SEED),
+                       opt, device="cuda")
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = batch_from_numpy(ArchSyntheticDataset(arch, shape, seed=SEED)
+                             .batch(0), device="cuda")
+    step = make_train_step(arch, opt, constant(TRAIN_LR), accum=arch.train_accum)
+    losses, norms, step_s, retries = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = torch.cuda.memory_stats()["num_alloc_retries"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        retries.append(torch.cuda.memory_stats()["num_alloc_retries"] - before)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    finite = all(math.isfinite(x) for x in losses + norms) and all(
+        bool(torch.isfinite(p).all()) for p in tree_leaves(state["params"]))
+    if not finite:
+        failures.append("train: a loss, grad norm or parameter is not finite")
+    if not losses[-1] < losses[0]:
+        failures.append(f"train: the loss did not fall: {losses}")
+    rec["device_split"] = _train_split(lambda: step(state, batch))
+    head = {k: v[:micro] for k, v in batch.items()}
+    memory = _memory_split(arch, state["params"], head)
+
+    # the eval step on one micro-batch, flash against chunked
+    evals, attn = {}, kernels.FLASH_ATTENTION
+    for dtype in (torch.float32, cfg.dtype):
+        with GC.full_f32():
+            for impl in ("chunked", "flash"):
+                before = dict(attn.launches_by_route)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(make_eval_step(_variant(
+                    arch, dtype=dtype, attn_impl=impl))(state["params"],
+                                                        head)["loss"])
+                eval_s = time.perf_counter() - t0
+                launched = {r: n - before[r]
+                            for r, n in attn.launches_by_route.items()}
+                want = {"tile": cfg.n_layers if impl == "flash" else 0,
+                        "split": 0}
+                if launched != want:
+                    failures.append(f"train eval {dtype} {impl}: attention "
+                                    f"launches {launched}, not {want}")
+                evals[f"{str(dtype).removeprefix('torch.')} {impl}"] = {
+                    "loss": loss, "s": eval_s, "attention_launches": launched}
+    f32 = [evals[f"float32 {impl}"]["loss"] for impl in ("flash", "chunked")]
+    ok, err, tol = compare(torch.tensor(f32[0]), torch.tensor(f32[1]),
+                           tol=MODEL_TOL)
+    rec["eval"] = evals | {"f32_flash_vs_chunked": {"ok": ok, "abs": err,
+                                                    "tol": tol}}
+    if not ok:
+        failures.append(f"train eval: f32 flash loss {f32[0]} off the chunked "
+                        f"{f32[1]} by {err} (tol {tol})")
+    rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    rec["attention_launches_by_route"] = dict(attn.launches_by_route)
+
+    rec["optimizer"] = _optimizer_timing(state, machine, calibrated)
+    n = arch.n_params
+    timed = statistics.median(step_s[1:])
+    flops = arch.model_flops(shape)
+    busy = rec["device_split"].get("total_ms")
+    layer_bytes = cfg.n_layers * micro * TRAIN_SEQ * cfg.d_model * 2
+    logits = micro * TRAIN_SEQ * cfg.vocab_padded
+    rec["summary"] = {
+        "losses": losses, "grad_norms": norms, "step_s": step_s,
+        "s_per_step": timed, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / timed,
+        "model_flops": flops, "model_flop_per_s": flops / timed,
+        "model_flop_share_of_bf16_peak": flops / timed
+        / machine.peak_bf16_tensor_flops,
+        "device_ms_profiled_step": busy,
+        "idle_share_profiled_step": rec["device_split"].get("idle_share"),
+        "peak_bytes": peak, "peak_reserved_bytes": peak_reserved,
+        "alloc_retries_by_step": retries,
+        "memory_split_bytes": memory | {
+            "step_peak_less_resident_grads_and_micro_batch":
+                peak - memory["resident"] - memory["grads"]
+                - memory["micro_batch_peak_above_resident"]},
+        "reckoning_bytes": {
+            "state_params_moments_grads_f32": 16 * n,
+            "remat_stack_bf16": layer_bytes,
+            "loss_logits_bf16_f32_masked_grad": logits * (2 + 4 + 4 + 4)},
+        "optimizer_ms": {m: r["ms"] for m, r in rec["optimizer"].items()
+                         if isinstance(r, dict)}}
+    del state
+    return failures, rec
+
+
 def _check_compute_report(report: dict) -> list[str]:
     where = f"{report['op']} {report['dims']} {report['dtype']}"
     out, failures = report["output"], []
@@ -2160,12 +2792,28 @@ def main() -> int:
         failures += model_failures
         models[name] = model
         torch.cuda.empty_cache()
+
+    # 15. training at full width, its main path's launches counted from 0
+    t_path = time.perf_counter()
+    train_failures, train = _train_phase(machine, calibrated)
+    name = f"train {TRAIN_ARCH}"
+    model_s[name] = time.perf_counter() - t_path
+    tag = {"phase": "15 train", "arch": TRAIN_ARCH}
+    apart = ("attention", "gates", "restart", "device_split", "eval",
+             "optimizer", "summary")
+    print(json.dumps({k: v for k, v in train.items() if k not in apart}
+                     | {"s": model_s[name]}))
+    for key in apart:
+        print(json.dumps(tag | {key: train[key]}))
+    failures += train_failures
+    models[name] = train
+    torch.cuda.empty_cache()
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
         "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 15. the kernels line; the matmul's launches add the power fit's, the
+    # 16. the kernels line; the matmul's launches add the power fit's, the
     # attention's the model phases'
     launches["matmul"] += record["launches"]["matmul"]
     model_launches = {name: m["launches"]["flash_attention"]

@@ -3,8 +3,8 @@
 The state is the input streams (and the stencils' grids, the matmul
 operands and the attention inputs q, k, v in the ``(B, S, H, d)`` layout:
 arrays of any shape, taken alike), the Table I kernel specs, and the LM's
-parameter trees and decode caches (nested dicts of arrays, mapped leaf
-by leaf).
+parameter trees, train states and decode caches (nested dicts of arrays,
+mapped leaf by leaf), and data batches.
 Arrays arrive as numpy arrays (bf16 ones as
 ``np.asarray`` of a JAX array gives them, with the ``ml_dtypes`` bfloat16
 dtype, which ``torch.from_numpy`` does not take); specs as the dict
@@ -60,3 +60,17 @@ def cache_from_numpy(cache: dict, *, device) -> dict:
     length a host int."""
     return {k: int(v) if k == "length" else params_from_numpy(v, device=device)
             for k, v in cache.items()}
+
+
+def state_from_numpy(state: dict, *, device) -> dict:
+    """A reference train state (``{"params", "opt_state": {"mu", "nu",
+    "count"}, "step"}``: f32 or bf16 moments, or int8 ones as ``{"q",
+    "scale"}`` dicts, and int32 scalars) as the port's, every array bit
+    for bit on ``device``."""
+    return params_from_numpy(state, device=device)
+
+
+def batch_from_numpy(batch: dict, *, device) -> dict:
+    """A numpy batch (``make_batch``, the data pipeline) as tensors on
+    ``device``, bit for bit."""
+    return {k: _tensor(v).to(device) for k, v in batch.items()}

@@ -27,7 +27,9 @@ dims 16 and 32 run at 64 (``kernel.PADDED_HEAD_DIMS``): q, k and v are
 padded with zeros, the scale stays ``d ** -0.5`` of the true d, and the
 padded output columns are dropped.  A zero column adds ``0 * 0`` to every
 score and feeds only the output columns that are dropped, so the result
-is the unpadded one.  Any other head dim raises.
+is the unpadded one.  Any other head dim raises.  With grad mode on, an
+operand that requires grad raises on both devices
+(:func:`..autograd.refuse_grad`): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from ...core.machine import H100_SXM, GPUMachineModel
 from ...core.workload import AttentionWorkload
+from ..autograd import refuse_grad
 from . import kernel as K
 from . import ref
 
@@ -67,6 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bk: int | None = None) -> torch.Tensor:
     """Returns ``(B, Sq, H, d)`` (on the CPU a permuted view of the plain
     version's ``(B, H, Sq, d)`` output)."""
+    refuse_grad("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if causal and sq != sk:

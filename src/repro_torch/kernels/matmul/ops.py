@@ -16,7 +16,9 @@ take the first tiling of :func:`tuned_blocks`' ranking that agrees with
 the blocks given (raising only when no compiled tiling divides the
 problem), and a ``bk`` the route is not compiled for runs at the largest
 compiled depth that divides it (``kernel.compiled_depth``: the same
-product, see there).  Any other tiling raises.
+product, see there).  Any other tiling raises.  With grad mode on, an
+operand that requires grad raises on both devices
+(:func:`..autograd.refuse_grad`): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from ...core.machine import H100_SXM, GPUMachineModel
 from ...core.workload import MatmulWorkload
+from ..autograd import refuse_grad
 from . import kernel as K
 from . import ref
 
@@ -36,6 +39,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
            bn: int | None = None, bk: int | None = None,
            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x (m, k) @ y (k, n)`` in ``bm x bn`` output tiles, ``bk`` deep."""
+    refuse_grad("matmul", x, y)
     (m, k), (k2, n) = x.shape, y.shape
     if k != k2:
         raise ValueError(f"cannot multiply {tuple(x.shape)} by {tuple(y.shape)}")

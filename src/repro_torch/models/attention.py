@@ -21,8 +21,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
-from .common import ParamSpec, apply_rope, rope_angles
+from .common import ParamSpec, apply_rope, remat, rope_angles
 
 NEG_INF = -1e30
 
@@ -105,6 +106,24 @@ def _dense_attn(q, k, v, *, causal: bool, q_offset=0):
     return out.to(q.dtype)
 
 
+def _kv_tile(m, l, acc, qb, kb, vb, rows, cols):
+    """One (q-block x KV-chunk) tile of the online softmax: the running
+    max ``m``, sum ``l`` and f32 accumulator ``acc`` of the q block
+    ``qb`` (f32) updated by the keys ``kb`` and values ``vb`` (the compute
+    dtype); ``cols`` is None without the causal mask."""
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qb, kb.float())
+    if cols is not None:
+        s = s.masked_fill(rows[:, None] < cols[None, :], NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhrqk,bkhd->bhrqd", p.to(vb.dtype).float(), vb.float())
+    return m_new, l, acc
+
+
+@record_function("chunked_attention")
 def _chunked_attn(q, k, v, *, causal: bool, chunk: int):
     """Online softmax over (q-block x KV-chunk) tiles, in loops, GQA-aware
     (KV heads are never repeated: the q-group dim rides along in the
@@ -116,7 +135,11 @@ def _chunked_attn(q, k, v, *, causal: bool, chunk: int):
     Score tiles are (B, kvH, rep, cq, ck): O(chunk^2), never O(S^2).  A
     causal KV chunk wholly past its q block is skipped: the reference
     scores it at -1e30 everywhere, which adds exactly 0 to the sums and
-    rescales them by exactly 1, so skipping it changes no bit.
+    rescales them by exactly 1, so skipping it changes no bit.  Under
+    autograd each tile is checkpointed (:func:`~.common.remat`), as the
+    reference's ``jax.checkpoint(kv_chunk)``: the backward recomputes the
+    score and probability tiles instead of keeping all of them, the whole
+    (S, S) matrix in chunks.
     """
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -137,19 +160,9 @@ def _chunked_attn(q, k, v, *, causal: bool, chunk: int):
         for k0 in range(0, sk, ck):
             if causal and k0 > q0 + cq - 1:
                 break
-            kb = k[:, k0:k0 + ck].float()
-            vb = v[:, k0:k0 + ck].float()
-            s = torch.einsum("bqhrd,bkhd->bhrqk", qb, kb)
-            if causal:
-                cols = k0 + torch.arange(ck, device=q.device)
-                s = s.masked_fill(rows[:, None] < cols[None, :], NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhrqk,bkhd->bhrqd", p.to(v.dtype).float(), vb)
-            m = m_new
+            cols = k0 + torch.arange(ck, device=q.device) if causal else None
+            m, l, acc = remat(_kv_tile, m, l, acc, qb, k[:, k0:k0 + ck],
+                              v[:, k0:k0 + ck], rows, cols)
         out = acc / l.clamp_min(1e-30)[..., None]            # (b,kvh,rep,cq,d)
         blocks.append(out.permute(0, 3, 1, 2, 4))            # (b,cq,kvh,rep,d)
     return torch.cat(blocks, dim=1).reshape(b, sq, h, d).to(q.dtype)

@@ -6,10 +6,16 @@ specs as leaves); :func:`materialize` turns a spec tree into a tree of
 tensors on a device, drawn from a ``torch.Generator``.  Every function
 takes and returns tensors of the reference's shapes and dtypes, and
 rounds where the reference rounds.  The reference's logical-axis sharding
-(``shard_annotate``, ``set_activation_rules``), its optimization barrier
-(``grad_barrier``) and its dry-run stand-ins (``abstract``) have nothing
-to act on without a mesh or a backward: they wait for ROADMAP §1 items 4,
-5 and 7, and the port's forward leaves their calls out.
+(``shard_annotate``, ``set_activation_rules``) and its dry-run stand-ins
+(``abstract``) have nothing to act on without a mesh: they wait for
+ROADMAP §1 items 5 and 7, and the port's forward leaves their calls out.
+:func:`grad_barrier` is an identity (an XLA scheduling hint in the
+reference), and the forward leaves its calls out too.
+
+:func:`remat` is the reference's ``jax.checkpoint``: under autograd it
+keeps a function's inputs and recomputes what its backward needs
+(``torch.utils.checkpoint``, non-reentrant); with grad off, or when no
+input requires grad, it is a plain call.
 """
 from __future__ import annotations
 
@@ -17,6 +23,12 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 # ---------------------------------------------------------------------------
 # Parameter specs
@@ -110,6 +122,67 @@ def cast_params(params, dtype: torch.dtype):
         return {k: v if k in F32_LEAVES else cast_params(v, dtype)
                 for k, v in params.items()}
     return params.to(dtype) if params.is_floating_point() else params
+
+
+# ---------------------------------------------------------------------------
+# Autograd: the reference's checkpoints and barrier
+# ---------------------------------------------------------------------------
+
+
+def grad_barrier(x):
+    """The reference's ``grad_barrier`` (an optimization barrier on the
+    value and on its cotangent): an identity in both directions here, as
+    eager PyTorch has no scheduler to hold back."""
+    return x
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+#: the matmuls ``remat(..., mode="dots")`` keeps (the reference's
+#: ``checkpoint_dots`` policy: every dot's output saved, the rest
+#: recomputed)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _labelled(fn):
+    """``fn`` inside a profiler range named ``remat``, so a trace tells
+    the recompute (the range on the backward's thread) apart."""
+    def run(*args):
+        with record_function("remat"):
+            return fn(*args)
+    return run
+
+
+def remat(fn, *args, mode: str = "full"):
+    """``fn(*args)`` under the reference's ``jax.checkpoint``, as ``mode``
+    (a config's ``remat``) says: ``"full"`` keeps only the inputs and the
+    backward recomputes the rest, ``"dots"`` keeps the matmul outputs too
+    (the reference's ``checkpoint_dots``), ``"none"`` is a plain call.
+    It checkpoints only when grad mode is on and a tensor among ``args``
+    (tensors or dicts and tuples of them: a layer's parameters are passed
+    as an argument, not closed over, so that they count) requires grad;
+    otherwise a plain call, so a forward with grad off is unchanged."""
+    if mode == "none" or not (torch.is_grad_enabled()
+                              and _requires_grad(args)):
+        return fn(*args)
+    kw = {"context_fn": _save_dots} if mode == "dots" else {}
+    return checkpoint(_labelled(fn), *args, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +333,12 @@ def _xent_terms(lf, labels, z_loss: float):
     return per_tok
 
 
+@record_function("masked_xent")
 def masked_xent(logits, labels, mask=None, *, vocab: int,
                 vocab_padded: int | None = None, z_loss: float = 0.0):
-    """Stable masked cross entropy with padded-vocab masking (f32 math)."""
+    """Stable masked cross entropy with padded-vocab masking (f32 math).
+    Runs inside a profiler range of its name (a train step's device split
+    reads it)."""
     vpad = vocab_padded or vocab
     lf = logits.float()
     if vpad != vocab:

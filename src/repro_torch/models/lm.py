@@ -9,11 +9,13 @@ token stream: ``image_prefix`` / ``extra_embeds``).
 Layers keep the reference's parameter layout: stacked on a leading
 "layers" axis (``scan_layers=True``, which the reference scans with
 ``lax.scan``; here a loop over that axis), or one ``layer_{i}`` subtree
-each.  ``remat`` is carried for the reference's configs but does nothing:
-it chooses what the backward recomputes, and the port has no backward
-yet.  The KV cache is ``{"k", "v": (L, B, S_max, kvH, hd), "length": int}``
-with the length on the host; :func:`decode_step` writes into the cache
-tensors in place.
+each.  ``remat`` chooses what the backward keeps of a layer, as the
+reference's ``_remat``: ``"full"`` checkpoints each layer (only its input
+is kept, the rest recomputed), ``"dots"`` keeps the layer's matmul
+outputs and recomputes the rest, ``"none"`` keeps everything; with grad
+off every setting is the same plain forward.  The KV cache is ``{"k",
+"v": (L, B, S_max, kvH, hd), "length": int}`` with the length on the
+host; :func:`decode_step` writes into the cache tensors in place.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .common import (
     ParamSpec,
     embed,
     embedding_spec,
+    remat,
     rmsnorm,
     rmsnorm_spec,
     swiglu,
@@ -61,7 +64,7 @@ class LMConfig:
     attn_chunk: int = 1024
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
-    remat: str = "none"                # none | full | dots; no effect here
+    remat: str = "none"                # none | full | dots
     scan_layers: bool = True
     image_prefix: int = 0              # # of prefix embedding positions
     vocab_pad_multiple: int = 2048
@@ -165,7 +168,7 @@ def hidden_states(params, cfg: LMConfig, tokens, *, extra_embeds=None):
     h = _embed(params, cfg, tokens, extra_embeds)
     auxes = []
     for p_l in _layers(params, cfg):
-        h, _, aux = _layer(p_l, cfg, h)
+        h, _, aux = remat(_layer, p_l, cfg, h, mode=cfg.remat)
         auxes.append(aux)
     aux = torch.stack(auxes).sum() if cfg.moe is not None else 0.0
     return rmsnorm(params["ln_f"], h, cfg.norm_eps), aux
@@ -226,7 +229,7 @@ def prefill(params, cfg: LMConfig, batch, *, max_len: int | None = None):
     ks = torch.zeros(shape, dtype=cfg.dtype, device=h.device)
     vs = torch.zeros_like(ks)
     for i, p_l in enumerate(_layers(params, cfg)):
-        h, (k, v), _ = _layer(p_l, cfg, h)
+        h, (k, v), _ = remat(_layer, p_l, cfg, h, mode=cfg.remat)
         ks[i, :, :s] = k
         vs[i, :, :s] = v
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, _silu, rmsnorm
+from .common import ParamSpec, _silu, remat, rmsnorm
 
 
 @dataclass(frozen=True)
@@ -95,10 +95,41 @@ def _causal_conv(w, b, x, *, state=None):
     return _silu(out + b), xp[:, -(k - 1):]
 
 
+def _ssd_chunk(h_prev, x, bmat, cmat, dtk, lak, mask, hpg: int):
+    """One chunk of :func:`_ssd_chunked`: its outputs (B,l,H,P) in x's
+    dtype from the carried state ``h_prev`` (B,H,N,P) f32, and the state
+    at its end."""
+    xk, bk, ck = x.float(), bmat.float(), cmat.float()   # (B,l,H,P), (B,l,G,N)
+    cum = torch.cumsum(lak, dim=1)                       # (B,l,H) inclusive
+    # intra-chunk: decay(i,j) = exp(cum_i - cum_j), j <= i
+    diff = cum[:, :, None, :] - cum[:, None, :, :]       # (B,l,l,H)
+    decay = torch.where(mask, torch.exp(diff), 0.0)
+    # scores: C_i . B_j per group -> broadcast to heads
+    cb = torch.einsum("bign,bjgn->bijg", ck, bk)         # (B,l,l,G)
+    cb = cb.repeat_interleave(hpg, dim=3)                # (B,l,l,H)
+    w_ij = cb * decay * dtk[:, None, :, :]               # dt_j weight
+    y_intra = torch.einsum("bijh,bjhp->bihp", w_ij, xk)
+    # inter-chunk: y_i += exp(cum_i) C_i . h_prev
+    cfull = ck.repeat_interleave(hpg, dim=2)             # (B,l,H,N)
+    y_inter = torch.einsum("bihn,bhnp->bihp", cfull, h_prev) \
+        * torch.exp(cum)[..., None]
+    # state update: h_new = exp(cum_L) h_prev
+    #   + sum_j exp(cum_L - cum_j) dt_j B_j x_j
+    wj = torch.exp(cum[:, -1:, :] - cum) * dtk           # (B,l,H)
+    bfull = bk.repeat_interleave(hpg, dim=2)             # (B,l,H,N)
+    h_new = torch.einsum("blhn,blhp->bhnp", wj[..., None] * bfull, xk)
+    h_new = h_new + torch.exp(cum[:, -1])[..., None, None] * h_prev
+    return (y_intra + y_inter).to(x.dtype), h_new
+
+
 def _ssd_chunked(cfg: Mamba2Config, x, bmat, cmat, dt, a_log):
     """Chunked SSD.  x: (B,S,H,P); bmat/cmat: (B,S,G,N); dt: (B,S,H) f32.
 
-    Returns (y (B,S,H,P) in x's dtype, h_final (B,H,N,P) f32)."""
+    Returns (y (B,S,H,P) in x's dtype, h_final (B,H,N,P) f32).  Under
+    autograd each chunk (:func:`_ssd_chunk`) is checkpointed
+    (:func:`~.common.remat`), as the reference's
+    ``jax.checkpoint(chunk_step)``: the backward keeps the states between
+    chunks, not the (l, l, H) decay and score tiles."""
     bsz, s_orig, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     hpg = h // g                                    # heads per group
@@ -119,30 +150,10 @@ def _ssd_chunked(cfg: Mamba2Config, x, bmat, cmat, dt, a_log):
     h_prev = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, s, l):
-        xk = x[:, c0:c0 + l].float()                # (B,l,H,P)
-        bk = bmat[:, c0:c0 + l].float()             # (B,l,G,N)
-        ck = cmat[:, c0:c0 + l].float()
-        dtk = dtf[:, c0:c0 + l]                     # (B,l,H)
-        cum = torch.cumsum(la[:, c0:c0 + l], dim=1)  # (B,l,H) inclusive
-        # intra-chunk: decay(i,j) = exp(cum_i - cum_j), j <= i
-        diff = cum[:, :, None, :] - cum[:, None, :, :]      # (B,l,l,H)
-        decay = torch.where(mask, torch.exp(diff), 0.0)
-        # scores: C_i . B_j per group -> broadcast to heads
-        cb = torch.einsum("bign,bjgn->bijg", ck, bk)        # (B,l,l,G)
-        cb = cb.repeat_interleave(hpg, dim=3)               # (B,l,l,H)
-        w_ij = cb * decay * dtk[:, None, :, :]              # dt_j weight
-        y_intra = torch.einsum("bijh,bjhp->bihp", w_ij, xk)
-        # inter-chunk: y_i += exp(cum_i) C_i . h_prev
-        cfull = ck.repeat_interleave(hpg, dim=2)            # (B,l,H,N)
-        y_inter = torch.einsum("bihn,bhnp->bihp", cfull, h_prev) \
-            * torch.exp(cum)[..., None]
-        # state update: h_new = exp(cum_L) h_prev
-        #   + sum_j exp(cum_L - cum_j) dt_j B_j x_j
-        wj = torch.exp(cum[:, -1:, :] - cum) * dtk          # (B,l,H)
-        bfull = bk.repeat_interleave(hpg, dim=2)            # (B,l,H,N)
-        h_new = torch.einsum("blhn,blhp->bhnp", wj[..., None] * bfull, xk)
-        h_prev = h_new + torch.exp(cum[:, -1])[..., None, None] * h_prev
-        ys.append((y_intra + y_inter).to(x.dtype))
+        y, h_prev = remat(_ssd_chunk, h_prev, x[:, c0:c0 + l],
+                          bmat[:, c0:c0 + l], cmat[:, c0:c0 + l],
+                          dtf[:, c0:c0 + l], la[:, c0:c0 + l], mask, hpg)
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :s_orig], h_prev
 
 

@@ -8,12 +8,15 @@ bidirectional pre-LN encoder with sinusoidal positions, a causal decoder
 with learned positions and cross-attention, and a tied unembedding.
 
 Layers are stacked on a leading "layers" axis (the reference scans them
-with ``lax.scan``; here a loop over that axis).  ``remat`` is carried for
-the reference's configs and does nothing: the port has no backward yet.
-:func:`prefill` encodes the frames once and caches each layer's
-cross-attention K/V; :func:`decode_step` grows the self-attention cache a
-token at a time, in place.  The cache is ``{"self_k", "self_v", "cross_k",
-"cross_v": (L, B, S, H, hd), "length": int}`` with the length on the host.
+with ``lax.scan``; here a loop over that axis).  ``remat`` other than
+``"none"`` checkpoints each encoder and each decoder layer (the
+reference's ``jax.checkpoint``): the backward keeps a layer's input and
+recomputes the rest; ``"dots"`` keeps the matmul outputs too, as in
+:mod:`.lm` (the reference checkpoints it as ``"full"``: the same grads).  :func:`prefill` encodes the frames once and
+caches each layer's cross-attention K/V; :func:`decode_step` grows the
+self-attention cache a token at a time, in place.  The cache is
+``{"self_k", "self_v", "cross_k", "cross_v": (L, B, S, H, hd), "length":
+int}`` with the length on the host.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from .common import (
     layernorm,
     layernorm_spec,
     masked_xent,
+    remat,
     unembed,
     unstack,
 )
@@ -60,7 +64,7 @@ class WhisperConfig:
     attn_chunk: int = 1024
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    remat: str = "none"            # no effect here: the port has no backward
+    remat: str = "none"            # none | full | dots (as lm's)
     vocab_pad_multiple: int = 2048
     z_loss: float = 0.0
 
@@ -137,13 +141,16 @@ def encode(params, cfg: WhisperConfig, frames):
     kernel's tile route runs with the causal skip off."""
     h = frames.to(cfg.dtype)
     h = h + _sinusoid(h.shape[1], cfg.d_model, h.device).to(cfg.dtype)[None]
-    acfg = cfg.attn_cfg(causal=False)
     for p_l in unstack(params["enc"]["layers"], cfg.n_layers):
-        a, _ = attention(p_l["attn"], acfg,
-                         layernorm(p_l["ln_attn"], h, cfg.norm_eps))
-        h = h + a
-        h = h + gelu_mlp(p_l["mlp"], layernorm(p_l["ln_ffn"], h, cfg.norm_eps))
+        h = remat(_enc_layer, h, p_l, cfg, mode=cfg.remat)
     return layernorm(params["enc"]["ln_f"], h, cfg.norm_eps)
+
+
+def _enc_layer(h, p_l, cfg: WhisperConfig):
+    a, _ = attention(p_l["attn"], cfg.attn_cfg(causal=False),
+                     layernorm(p_l["ln_attn"], h, cfg.norm_eps))
+    h = h + a
+    return h + gelu_mlp(p_l["mlp"], layernorm(p_l["ln_ffn"], h, cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
@@ -202,8 +209,14 @@ def decode_train(params, cfg: WhisperConfig, tokens, enc_out):
     """Teacher-forced decoder pass (training)."""
     h = _embed(params, cfg, tokens)
     for p_l in unstack(params["dec"]["layers"], cfg.n_layers):
-        h, _ = _dec_layer(p_l, cfg, h, _enc_kv(p_l, cfg, enc_out))
+        h = remat(_dec_train_layer, h, p_l, cfg, enc_out, mode=cfg.remat)
     return layernorm(params["dec"]["ln_f"], h, cfg.norm_eps)
+
+
+def _dec_train_layer(h, p_l, cfg: WhisperConfig, enc_out):
+    """One teacher-forced decoder layer, the encoder's K/V included (the
+    reference's checkpointed body)."""
+    return _dec_layer(p_l, cfg, h, _enc_kv(p_l, cfg, enc_out))[0]
 
 
 def loss_fn(params, cfg: WhisperConfig, batch):

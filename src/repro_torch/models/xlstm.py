@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, _gelu, _silu
+from .common import ParamSpec, _gelu, _silu, remat
 
 #: the sLSTM's gates, in the reference's order
 GATES = ("z", "i", "f", "o")
@@ -122,16 +122,46 @@ def _mlstm_core(q, k, v, i_raw, f_raw, *, state=None):
     return torch.stack(hs, 1).to(q.dtype), (c, n, m)
 
 
+def _mlstm_chunk(c, n, m, qk, kk, vk, ik, gk, tri):
+    """One chunk of :func:`_mlstm_chunked`: the chunk's hidden states
+    (B,L,H,P) from the carry ``(c, n, m)`` and the chunk's f32 q, k, v,
+    input gates ``ik`` and log forget gates ``gk``, and the carry at the
+    chunk's end."""
+    f_cum = torch.cumsum(gk, 1)                               # F_t inclusive
+    r = torch.cummax(ik - f_cum, 1).values                    # cummax(i - F)
+    m_t = f_cum + torch.maximum(r, m[:, None])                # (B,L,H)
+    # intra scores exp(F_t - F_j + i_j - m_t), j <= t: (B,L,L,H)
+    log_s = (f_cum[:, :, None, :] - f_cum[:, None, :, :]
+             + ik[:, None, :, :] - m_t[:, :, None, :])
+    sc = torch.where(tri, torch.exp(log_s), 0.0)
+    inter = torch.exp(f_cum + m[:, None] - m_t)               # (B,L,H)
+    kq = torch.einsum("bjhp,bthp->btjh", kk, qk)              # k_j . q_t
+    skq = sc * kq
+    num = torch.einsum("btjh,bjhp->bthp", skq, vk) + inter[..., None] \
+        * torch.einsum("bhvp,bthp->bthv", c, qk)
+    den = skq.sum(2) + inter * torch.einsum("bhp,bthp->bth", n, qk)
+    den = torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    # the carry at the chunk's end
+    dec_last = torch.exp(f_cum[:, -1] + m - m_t[:, -1])        # (B,H)
+    w_j = torch.exp(f_cum[:, -1:] - f_cum + ik - m_t[:, -1:])  # (B,L,H)
+    c = dec_last[..., None, None] * c + torch.einsum(
+        "bjhv,bjhk->bhvk", w_j[..., None] * vk, kk)
+    n = dec_last[..., None] * n + torch.einsum("bjh,bjhp->bhp", w_j, kk)
+    return num / den, c, n, m_t[:, -1]
+
+
 def _mlstm_chunked(q, k, v, i_raw, f_raw, *, state=None, chunk: int = 256):
     """Chunkwise-parallel mLSTM: the semantics of :func:`_mlstm_core`
     (the same stabilized exponential gating) in ``ceil(S / L)`` steps of
-    (L, L) intra-chunk scores, a loop over chunks.
+    (L, L) intra-chunk scores, a loop over chunks (:func:`_mlstm_chunk`).
 
     With g_t = logsig(f_t), F_t = cumsum(g)_t and the carried stabilizer
     m_prev, the sequential m_t is ``max(F_t + cummax(i - F)_t, F_t +
     m_prev)``, and every term of C_t and n_t is a row of ``exp(F_t - F_j +
-    i_j - m_t)`` scores.  The reference checkpoints each chunk for its
-    backward, which the port does not have yet.
+    i_j - m_t)`` scores.  Under autograd each chunk is checkpointed
+    (:func:`~.common.remat`), as the reference's
+    ``jax.checkpoint(chunk_step)``: the backward keeps the carries, not
+    the (L, L, H) score tiles.
     """
     b, s_orig, h, p = q.shape
     scale = 1.0 / math.sqrt(p)
@@ -153,29 +183,9 @@ def _mlstm_chunked(q, k, v, i_raw, f_raw, *, state=None, chunk: int = 256):
     tri = (ii[:, None] >= ii[None, :])[None, :, :, None]      # (1,L,L,1)
     hs = []
     for j in range(nc):
-        qk, kk, vk, ik, gk = qc[:, j], kc[:, j], vc[:, j], ic[:, j], gc[:, j]
-        f_cum = torch.cumsum(gk, 1)                           # F_t inclusive
-        r = torch.cummax(ik - f_cum, 1).values                # cummax(i - F)
-        m_t = f_cum + torch.maximum(r, m[:, None])            # (B,L,H)
-        # intra scores exp(F_t - F_j + i_j - m_t), j <= t: (B,L,L,H)
-        log_s = (f_cum[:, :, None, :] - f_cum[:, None, :, :]
-                 + ik[:, None, :, :] - m_t[:, :, None, :])
-        sc = torch.where(tri, torch.exp(log_s), 0.0)
-        inter = torch.exp(f_cum + m[:, None] - m_t)           # (B,L,H)
-        kq = torch.einsum("bjhp,bthp->btjh", kk, qk)          # k_j . q_t
-        skq = sc * kq
-        num = torch.einsum("btjh,bjhp->bthp", skq, vk) + inter[..., None] \
-            * torch.einsum("bhvp,bthp->bthv", c, qk)
-        den = skq.sum(2) + inter * torch.einsum("bhp,bthp->bth", n, qk)
-        den = torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
-        hs.append(num / den)
-        # the carry at the chunk's end
-        dec_last = torch.exp(f_cum[:, -1] + m - m_t[:, -1])    # (B,H)
-        w_j = torch.exp(f_cum[:, -1:] - f_cum + ik - m_t[:, -1:])  # (B,L,H)
-        c = dec_last[..., None, None] * c + torch.einsum(
-            "bjhv,bjhk->bhvk", w_j[..., None] * vk, kk)
-        n = dec_last[..., None] * n + torch.einsum("bjh,bjhp->bhp", w_j, kk)
-        m = m_t[:, -1]
+        hj, c, n, m = remat(_mlstm_chunk, c, n, m, qc[:, j], kc[:, j],
+                            vc[:, j], ic[:, j], gc[:, j], tri)
+        hs.append(hj)
     out = torch.stack(hs, 1).reshape(b, s, h, p)[:, :s_orig]
     return out.to(q.dtype), (c, n, m)
 

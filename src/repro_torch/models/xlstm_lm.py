@@ -5,8 +5,11 @@ reference's ``repro/models/xlstm_lm.py``).
 The xlstm-125m config has d_ff = 0: the feed-forward capacity lives inside
 the blocks (mLSTM 2x up-projection, sLSTM 4/3 gated post-MLP).  Layers are
 heterogeneous (two parameter structures), so each is a ``layer_{i}``
-subtree and the stack a loop.  ``remat`` is carried for the reference's
-configs and does nothing: the port has no backward yet.  Decode carries
+subtree and the stack a loop.  ``remat`` other than ``"none"``
+checkpoints each block (the reference's ``jax.checkpoint``): the backward
+keeps a block's input and recomputes the rest; ``"dots"`` keeps the
+matmul outputs too, as in :mod:`.lm` (the reference checkpoints it as
+``"full"``: the same grads).  Decode carries
 per-layer recurrent states (the matrix memory of an mLSTM, the scalar cell
 of an sLSTM): O(1) a token.  The cache is ``{"layer_{i}": {...}, "length":
 int}`` with the length on the host.
@@ -22,6 +25,7 @@ from .common import (
     embed,
     embedding_spec,
     masked_xent,
+    remat,
     rmsnorm,
     rmsnorm_spec,
     unembed,
@@ -49,7 +53,7 @@ class XLSTMLMConfig:
     mlstm_impl: str = "chunked"
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
-    remat: str = "none"            # no effect here: the port has no backward
+    remat: str = "none"            # none | full | dots (as lm's)
     vocab_pad_multiple: int = 2048
     z_loss: float = 0.0
 
@@ -104,7 +108,8 @@ def _block(p_l, cfg: XLSTMLMConfig, i: int, h, *, state=None,
 def hidden_states(params, cfg: XLSTMLMConfig, tokens):
     h = embed(params["embedding"], tokens).to(cfg.dtype)
     for i in range(cfg.n_layers):
-        h = _block(params["layers"][f"layer_{i}"], cfg, i, h)
+        p_l = params["layers"][f"layer_{i}"]
+        h = remat(_block, p_l, cfg, i, h, mode=cfg.remat)
     return rmsnorm(params["ln_f"], h, cfg.norm_eps)
 
 

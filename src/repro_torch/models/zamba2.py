@@ -26,6 +26,7 @@ from .common import (
     embed,
     embedding_spec,
     masked_xent,
+    remat,
     rmsnorm,
     rmsnorm_spec,
     swiglu,
@@ -56,7 +57,7 @@ class Zamba2Config:
     attn_chunk: int = 1024
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    remat: str = "none"           # no effect here: the port has no backward
+    remat: str = "none"           # none | full | dots (as lm's)
     vocab_pad_multiple: int = 2048
     z_loss: float = 0.0
 
@@ -145,6 +146,17 @@ def _fires(cfg: Zamba2Config, i: int) -> bool:
     return i % cfg.shared_every == 0
 
 
+def _layer(h, p_l, ps, cfg: Zamba2Config, app: int | None):
+    """Mamba layer ``p_l``, after the shared block's application ``app``
+    where it fires (None: it does not).  The reference checkpoints this
+    body whole when ``remat`` is not ``"none"`` (``"dots"`` here keeps the
+    matmul outputs too, as in :mod:`.lm`: the same grads)."""
+    if app is not None:
+        h, _ = _apply_shared(ps, cfg, h, app)
+    return h + mamba2_layer(p_l["mamba"], cfg.mamba_cfg,
+                            rmsnorm(p_l["ln"], h, cfg.norm_eps))
+
+
 def hidden_states(params, cfg: Zamba2Config, tokens):
     """Embeddings through the hybrid stack; returns the final-normed
     states and the aux loss (0.0).  The reference's ``collect_kv``
@@ -153,11 +165,9 @@ def hidden_states(params, cfg: Zamba2Config, tokens):
     ps = params["shared"]
     app = 0
     for i, p_l in enumerate(unstack(params["layers"], cfg.n_layers)):
-        if _fires(cfg, i):
-            h, _ = _apply_shared(ps, cfg, h, app)
-            app += 1
-        h = h + mamba2_layer(p_l["mamba"], cfg.mamba_cfg,
-                             rmsnorm(p_l["ln"], h, cfg.norm_eps))
+        shared_app = app if _fires(cfg, i) else None
+        h = remat(_layer, h, p_l, ps, cfg, shared_app, mode=cfg.remat)
+        app += _fires(cfg, i)
     return rmsnorm(params["ln_f"], h, cfg.norm_eps), 0.0
 
 

@@ -1,0 +1,192 @@
+"""Train, prefill, serve and eval steps over the uniform ArchDef API (the
+reference's ``repro/train/steps.py``), eager, the gradients from
+autograd.
+
+The train state is a plain dict tree, as the reference's (easy to
+checkpoint)::
+
+    {"params": ..., "opt_state": {"mu", "nu", "count"}, "step": int32}
+
+The parameters are f32 masters; the model casts each to the compute dtype
+where it uses it (or once per step, ``cast_once``) inside the autograd
+graph, so the gradients arrive in f32, as through the reference's cast
+VJP.  ``train_step`` consumes the state it is given: the optimizer writes
+the parameters, moments and counts in place, leaf by leaf
+(``optim.adamw_step``), and the state returned holds the same tensors.
+The reference's driver donates the state to its jitted step
+(``donate_argnums=(0,)``) for the same reason: at internlm2-1.8b's width a
+second copy of the parameters and moments is 22.75 GB.
+
+``accum > 1`` runs the batch as ``accum`` micro-batches (the leading axis
+split, as the reference's ``lax.scan`` over ``(accum, B/accum, ...)``),
+adds their gradients in f32 and divides by ``accum``; the loss and the
+other metrics are the micro-batches' means.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..configs.base import ArchDef
+from ..models.common import ParamSpec, materialize, tree_leaves, tree_map
+from ..optim import AdamWConfig, adamw_init, adamw_step, opt_state_spec
+from ..optim.schedule import Schedule
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+
+
+def init_state(arch: ArchDef, generator: torch.Generator, opt_cfg: AdamWConfig,
+               *, device="cuda") -> dict:
+    """Parameters drawn by ``materialize`` from ``generator`` (on
+    ``device``: the card unless the caller asks for the CPU), zero moments
+    and step."""
+    params = materialize(arch.param_spec(), generator, device=device)
+    return {
+        "params": params,
+        "opt_state": adamw_init(params, opt_cfg),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def state_spec(arch: ArchDef, opt_cfg: AdamWConfig) -> dict:
+    pspec = arch.param_spec()
+    return {
+        "params": pspec,
+        "opt_state": opt_state_spec(pspec, opt_cfg),
+        "step": ParamSpec((), (), init="zeros", dtype=torch.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+
+def _split_micro(batch: dict, accum: int) -> dict:
+    """Each batch array as ``(accum, B/accum, ...)``."""
+    def r(x):
+        b = x.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} does not split into {accum} "
+                             f"micro-batches")
+        return x.reshape(accum, b // accum, *x.shape[1:])
+    return {k: r(v) for k, v in batch.items()}
+
+
+def cast_params_for_compute(arch: ArchDef, params):
+    """fp32 master / low-precision compute: the >= 2-D f32 parameters
+    cast to the arch's compute dtype once at step entry (the reference's
+    opt-in knob, default off).  Under autograd the cast is in the graph,
+    so the gradients still arrive in f32."""
+    cdt = getattr(arch.cfg, "dtype", None)
+    if cdt is None:
+        return params
+
+    def cast(p):
+        if p.ndim >= 2 and p.dtype == torch.float32:
+            return p.to(cdt)
+        return p
+    return tree_map(cast, params)
+
+
+def _detached(metrics: dict) -> dict:
+    return {k: v.detach() if isinstance(v, torch.Tensor) else v
+            for k, v in metrics.items()}
+
+
+def _value_and_grad(arch: ArchDef, params, batch: dict, cast_once: bool):
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        p = cast_params_for_compute(arch, params) if cast_once else params
+        loss, metrics = arch.loss(p, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(leaves, grads))
+    return loss.detach(), _detached(metrics), tree_map(lambda _: next(it), params)
+
+
+def value_and_grad(arch: ArchDef, params, batch: dict, *, accum: int = 1,
+                   cast_once: bool = False):
+    """``(loss, metrics, grads)`` of ``arch.loss`` at ``params`` (the
+    reference's ``jax.value_and_grad(..., has_aux=True)``): the grads a
+    tree like ``params``, zeros for a leaf the loss does not reach.  The
+    parameters require grad for the call only.  ``accum > 1``: the
+    micro-batches' gradients added in f32 in order and divided by
+    ``accum``, their loss and metrics averaged."""
+    if accum == 1:
+        return _value_and_grad(arch, params, batch, cast_once)
+    micro = _split_micro(batch, accum)
+    grads, runs = None, []
+    for i in range(accum):
+        loss, metrics, g = _value_and_grad(
+            arch, params, {k: v[i] for k, v in micro.items()}, cast_once)
+        runs.append({**metrics, "loss": loss})
+        if grads is None:
+            grads = tree_map(lambda x: x.float().contiguous(), g)
+        else:
+            for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+                a.add_(b.float())
+        del g
+    for a in tree_leaves(grads):
+        a.div_(accum)
+    device = runs[0]["loss"].device
+    means = {k: torch.stack([torch.as_tensor(r[k], dtype=torch.float32,
+                                             device=device)
+                             for r in runs]).mean()
+             for k in runs[0]}
+    return means.pop("loss"), means, grads
+
+
+def make_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
+                    schedule: Schedule | None = None, *, accum: int = 1,
+                    cast_once: bool = False) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``; the state
+    is consumed (updated in place) and returned."""
+
+    def train_step(state: dict, batch: dict):
+        params = state["params"]
+        loss, metrics, grads = value_and_grad(arch, params, batch, accum=accum,
+                                              cast_once=cast_once)
+        om = adamw_step(grads, state["opt_state"], params, opt_cfg, schedule)
+        del grads
+        state["step"].add_(1)
+        return state, {**metrics, **om, "loss": loss}
+
+    return train_step
+
+
+def make_prefill_step(arch: ArchDef, *, max_len: int | None = None,
+                      cast_once: bool = False) -> Callable:
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        p = cast_params_for_compute(arch, params) if cast_once else params
+        return arch.prefill(p, batch, max_len=max_len)
+    return prefill_step
+
+
+def make_serve_step(arch: ArchDef, *, cast_once: bool = False) -> Callable:
+    """One batched decode step: ``serve_step(params, cache, batch)``."""
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        p = cast_params_for_compute(arch, params) if cast_once else params
+        return arch.decode(p, cache, batch)
+    return serve_step
+
+
+def make_eval_step(arch: ArchDef) -> Callable:
+    """``eval_step(params, batch) -> metrics``, under ``torch.no_grad()``
+    (so ``attn_impl="flash"`` may run the kernel, which has no
+    backward)."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = arch.loss(params, batch)
+        return metrics
+    return eval_step

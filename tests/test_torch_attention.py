@@ -554,3 +554,28 @@ def test_card_path_ranks_each_shape_once(monkeypatch):
     assert ops.ranked_blocks(384, 384, 128) == tuple(
         r["block"] for r in rank((384, 384, 128), H100_SXM,
                                  objective="attention", causal=True))
+
+
+@pytest.mark.parametrize("operand", [0, 1, 2])
+def test_flash_attention_refuses_grad(operand, monkeypatch):
+    """The kernel has no backward (the reference's Pallas kernel has
+    none either: ``jax.grad`` through it raises), and its CUDA output
+    would carry no history: with grad mode on, an operand that requires
+    grad raises on the CPU and on the card path (``meta`` tensors, the
+    wrapper never reached), so both devices keep one contract.  Under
+    ``no_grad`` the op runs as before."""
+    _, qkv = _qkv(1, 64, 64, 4, 2, 64)
+    args = list(qkv)
+    args[operand] = args[operand].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(*args, causal=True)
+    rec = _Recorder()
+    monkeypatch.setattr(K, "flash_attention_tile", rec)
+    meta = [t.detach().to("meta").requires_grad_(i == operand)
+            for i, t in enumerate(qkv)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(*meta, causal=True)
+    assert not rec.calls
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(*args, causal=True),
+                           ops.flash_attention(*qkv, causal=True))

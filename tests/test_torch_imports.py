@@ -56,7 +56,11 @@ def test_port_files_exist():
               "configs/qwen3_moe_235b.py", "configs/pixtral_12b.py",
               "configs/zamba2_1_2b.py", "models/xlstm.py",
               "models/xlstm_lm.py", "models/whisper.py",
-              "configs/xlstm_125m.py", "configs/whisper_base.py"):
+              "configs/xlstm_125m.py", "configs/whisper_base.py",
+              "kernels/autograd.py", "optim/__init__.py", "optim/adamw.py",
+              "optim/schedule.py", "data/__init__.py", "data/pipeline.py",
+              "data/arch_data.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
+              "train/__init__.py", "train/steps.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -91,6 +95,8 @@ def test_import_leaves_jax_out():
         "import repro_torch.models.zamba2\n"
         "import repro_torch.models.xlstm, repro_torch.models.xlstm_lm\n"
         "import repro_torch.models.whisper\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
+        "import repro_torch.train, repro_torch.kernels.autograd\n"
         "from repro_torch.configs import all_archs\n"
         "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -393,3 +393,17 @@ def test_card_path_ranks_each_shape_once(monkeypatch):
     assert ops.ranked_blocks((256, 384, 512), torch.float32) == tuple(
         r["block"] for r in real_rank((256, 384, 512), H100_SXM,
                                       objective="matmul", elem_bytes=4))
+
+
+@pytest.mark.parametrize("operand", [0, 1])
+def test_matmul_refuses_grad(operand):
+    """The kernel has no backward (nor has the reference's Pallas
+    kernel): with grad mode on, an operand that requires grad raises on
+    the CPU as on the card; under no_grad the op runs as before."""
+    (_, _), (tx, ty) = _pair(128, 128, 128, jnp.float32)
+    args = [tx, ty]
+    args[operand] = args[operand].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.matmul(*args)
+    with torch.no_grad():
+        assert torch.equal(ops.matmul(*args), ops.matmul(tx, ty))
