@@ -16,7 +16,8 @@ and five models through the serve launcher
 (``repro_torch.launch.serve.serve``): the dense internlm2-1.8b, the MoE
 granite-moe-1b-a400m, the hybrid zamba2-1.2b, the encoder-decoder
 whisper-base and the recurrent xlstm-125m; trains internlm2-1.8b
-through ``repro_torch.train.steps.make_train_step``; and holds every
+through the driver (``repro_torch.train.driver.Trainer``), also on a
+one-rank NCCL mesh; and holds every
 CUDA kernel against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
@@ -185,16 +186,26 @@ CUDA kernel against its plain PyTorch version.  Phases:
    steps straight equal to one step, an ``AsyncCheckpointer`` save,
    ``restore_tree`` onto the card and two more, every leaf bit for bit);
    the flash op refusing an operand that requires grad; then, its
-   launches counted from 0, four train steps on batch 0 (the loss falls,
-   every loss, grad norm and parameter finite; steps 2-4 timed; the peak
-   memory), one step under the profiler (its device time split into
+   launches counted from 0, six train steps on batch 0 through the
+   driver (``repro_torch.train.driver.Trainer`` without a mesh, no
+   checkpoint written; the loss falls, every loss and parameter finite;
+   each step timed from a device sync to a device sync beside the
+   driver's wall time and straggler flags; steps 2-6 give the step
+   time; the peak memory), one step under the profiler (its device time split into
    forward GEMMs, recompute, backward GEMMs, chunked attention, cross
    entropy, optimizer and the rest, the kernels, the idle share), and the
    eval step on one micro-batch with ``attn_impl`` flash (24 tile
    launches, no split launch) against chunked, f32 within 2e-3, bf16
    reported; last the optimizer alone with f32, bf16 and int8 moments
    against the bytes it must move;
-16. one JSON line with the ten kernels (the matmul and attention rows
+16. the driver: the crash-and-resume at the smoke config (a crash
+   injected at step 12 of 20, a fresh driver resumes from checkpoint 10;
+   its losses and every state leaf bit-equal to an uninterrupted run's)
+   and a one-rank NCCL mesh ``(1, 1)`` under ``tp_dp``
+   (``repro_torch.launch.mesh.make_host_mesh``): the driver on the mesh
+   bit-equal to the driver without one over three steps, at the smoke
+   config and at two layers at full width (f32); deterministic kernels;
+17. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
    attention's per path with each model phase's and the train phase's
    beside the compute loop's and its time at each model's shape, the
@@ -328,7 +339,7 @@ MODEL_TOL = (2e-3, 2e-3)
 #: what one card holds beside the f32 state), TRAIN_STEPS steps at lr
 #: TRAIN_LR on one batch
 TRAIN_ARCH = "internlm2-1.8b"
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4096, 8, 4, 3e-4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4096, 8, 6, 3e-4
 #: the reduced-depth gates: GATE_LAYERS layers at full width, f32, B
 #: GATE_BATCH x GATE_SEQ; the card's gradients are held to the CPU's leaf
 #: by leaf within GATE_GRAD_REL of each leaf's largest |g| (as the CPU
@@ -344,6 +355,8 @@ GATE_LAYERS, GATE_BATCH, GATE_SEQ = 2, 2, 256
 GATE_GRAD_REL, GATE_AGREE_REL, GATE_MASKED_MAX = 2e-3, 1e-4, 0.05
 #: the optimizer's timed calls at each moment dtype
 OPT_TIMED_CALLS = 3
+#: phase 16: the driver's steps on the one-rank mesh and without one
+DRIVER_MESH_STEPS = 3
 #: the device split of a train step (``_train_split``)
 TRAIN_SPLIT = ("forward_gemm_ms", "recompute_ms", "backward_gemm_ms",
                "chunked_attention_ms", "cross_entropy_ms", "optimizer_ms",
@@ -2166,6 +2179,16 @@ def _ancestors(event) -> list[str]:
     return [e.name for e in _walk(event)]
 
 
+class _BatchZero:
+    """Phase 15's data: the dataset's batch 0 at every step."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def batch(self, step: int) -> dict:
+        return self.data.batch(0)
+
+
 def _train_split(fn) -> dict:
     """Device time of one call of ``fn`` (a train step) by what launched
     each kernel, from torch.profiler (:func:`_classify_kernels`), and the
@@ -2366,9 +2389,12 @@ def _train_phase(machine, calibrated) -> tuple[list[str], dict]:
     ``ArchSyntheticDataset`` (seed SEED).  First the gates that compare
     (the flash op alone at the eval's shape, the reduced-depth and
     restart gates, the refusal); then, its launches counted from 0, the
-    main path: TRAIN_STEPS steps on batch 0 (the loss falls from the
-    first to the last, every loss, grad norm and parameter finite; steps
-    2.. timed from a device sync to a device sync), one more step under
+    main path: TRAIN_STEPS steps on batch 0 through the driver
+    (``train.driver.Trainer``, ``mesh=None``, no checkpoint written; the
+    loss falls from the first to the last, every loss and parameter
+    finite; each step timed from a device sync to a device sync by a hook
+    at its start, beside the driver's own wall time and its straggler
+    flags; steps 2.. give the step time), one more step under
     the profiler, where the peak memory comes from
     (:func:`_memory_split`), and the eval step on one micro-batch with
     ``attn_impl="flash"`` (24 tile launches, no split launch) against
@@ -2381,10 +2407,12 @@ def _train_phase(machine, calibrated) -> tuple[list[str], dict]:
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.convert import batch_from_numpy
     from repro_torch.data import ArchSyntheticDataset
+    from repro_torch.dist import get_profile
     from repro_torch.kernels.check import compare
     from repro_torch.models.common import tree_leaves
     from repro_torch.optim import AdamWConfig, constant
-    from repro_torch.train.steps import init_state, make_eval_step, make_train_step
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.steps import make_eval_step, make_train_step
 
     arch = _train_arch()
     cfg = arch.cfg
@@ -2411,35 +2439,53 @@ def _train_phase(machine, calibrated) -> tuple[list[str], dict]:
     rec["gates_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    # the main path, its launches counted from 0
+    # the main path, its launches counted from 0: TRAIN_STEPS steps through
+    # the driver, each step's time from a device sync to a device sync (a
+    # hook at its start) beside the driver's own wall time
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     opt = AdamWConfig()
-    state = init_state(arch, torch.Generator(device="cuda").manual_seed(SEED),
-                       opt, device="cuda")
     shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
-    batch = batch_from_numpy(ArchSyntheticDataset(arch, shape, seed=SEED)
-                             .batch(0), device="cuda")
-    step = make_train_step(arch, opt, constant(TRAIN_LR), accum=arch.train_accum)
-    losses, norms, step_s, retries = [], [], [], []
-    for _ in range(TRAIN_STEPS):
-        before = torch.cuda.memory_stats()["num_alloc_retries"]
+    data = ArchSyntheticDataset(arch, shape, seed=SEED)
+    batch = batch_from_numpy(data.batch(0), device="cuda")
+    marks, retries = [], []
+
+    def mark(trainer, step, state):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        retries.append(torch.cuda.memory_stats()["num_alloc_retries"] - before)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
+        marks.append(time.perf_counter())
+        retries.append(torch.cuda.memory_stats()["num_alloc_retries"])
+
+    with tempfile.TemporaryDirectory() as root:
+        trainer = Trainer(arch, _BatchZero(data), None, get_profile(arch.profile),
+                          opt, constant(TRAIN_LR),
+                          TrainerConfig(total_steps=TRAIN_STEPS, ckpt_dir=root,
+                                        ckpt_interval=TRAIN_STEPS + 1,
+                                        accum=arch.train_accum, seed=SEED),
+                          hooks=dict.fromkeys(range(TRAIN_STEPS), mark))
+        out = trainer.run()
+        mark(trainer, TRAIN_STEPS, None)
+    state, losses = trainer.state, out["losses"]
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    retries = [b - a for a, b in zip(retries, retries[1:])]
+    rec["driver"] = {
+        "steps": TRAIN_STEPS, "ckpt_interval": TRAIN_STEPS + 1,
+        "straggler_factor": trainer.cfg.straggler_factor,
+        "wall_s": [e.wall_s for e in trainer.events],
+        "device_synced_s": step_s,
+        "stragglers": out["stragglers"],
+        "flagged": [e.step for e in trainer.events if e.straggler]}
+    if rec["driver"]["flagged"] != out["stragglers"]:
+        failures.append(f"train driver: events flag {rec['driver']['flagged']}, "
+                        f"the run reports {out['stragglers']}")
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
-    finite = all(math.isfinite(x) for x in losses + norms) and all(
+    finite = all(math.isfinite(x) for x in losses) and all(
         bool(torch.isfinite(p).all()) for p in tree_leaves(state["params"]))
     if not finite:
-        failures.append("train: a loss, grad norm or parameter is not finite")
+        failures.append("train: a loss or parameter is not finite")
     if not losses[-1] < losses[0]:
         failures.append(f"train: the loss did not fall: {losses}")
+    step = make_train_step(arch, opt, constant(TRAIN_LR), accum=arch.train_accum)
     rec["device_split"] = _train_split(lambda: step(state, batch))
     head = {k: v[:micro] for k, v in batch.items()}
     memory = _memory_split(arch, state["params"], head)
@@ -2484,7 +2530,7 @@ def _train_phase(machine, calibrated) -> tuple[list[str], dict]:
     layer_bytes = cfg.n_layers * micro * TRAIN_SEQ * cfg.d_model * 2
     logits = micro * TRAIN_SEQ * cfg.vocab_padded
     rec["summary"] = {
-        "losses": losses, "grad_norms": norms, "step_s": step_s,
+        "losses": losses, "step_s": step_s,
         "s_per_step": timed, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / timed,
         "model_flops": flops, "model_flop_per_s": flops / timed,
         "model_flop_share_of_bf16_peak": flops / timed
@@ -2504,6 +2550,116 @@ def _train_phase(machine, calibrated) -> tuple[list[str], dict]:
         "optimizer_ms": {m: r["ms"] for m, r in rec["optimizer"].items()
                          if isinstance(r, dict)}}
     del state
+    return failures, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the driver and the mesh
+# ---------------------------------------------------------------------------
+
+
+def _whole_leaves(state) -> list:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.common import tree_leaves
+
+    return [x.full_tensor() if isinstance(x, DTensor) else x
+            for x in tree_leaves(state)]
+
+
+def _bit_equal(a, b) -> int:
+    """How many leaves of two states differ (dtype or any bit)."""
+    return sum(not (x.dtype == y.dtype and torch.equal(x, y))
+               for x, y in zip(_whole_leaves(a), _whole_leaves(b), strict=True))
+
+
+def _trainer(arch, root: str, steps: int, mesh=None, hooks=None, *,
+             interval: int = 5, batch: int = 2, seq: int = 32):
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import ArchSyntheticDataset
+    from repro_torch.dist import get_profile
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train import Trainer, TrainerConfig
+
+    data = ArchSyntheticDataset(arch, ShapeSpec("driver", seq, batch, "train"),
+                                seed=SEED)
+    return Trainer(arch, data, mesh, get_profile(arch.profile), AdamWConfig(),
+                   constant(TRAIN_LR),
+                   TrainerConfig(total_steps=steps, ckpt_dir=root,
+                                 ckpt_interval=interval, seed=SEED),
+                   hooks=hooks, device="cuda")
+
+
+def _driver_phase() -> tuple[list[str], dict]:
+    """Phase 16: the driver's crash and resume at the smoke config (a
+    crash injected at step 12 of 20, a fresh driver resumes from
+    checkpoint 10; its losses and every state leaf bit-equal to an
+    uninterrupted run's), then a one-rank NCCL mesh ``(1, 1)`` under the
+    arch's ``tp_dp`` (``launch.mesh.make_host_mesh``, which starts the
+    group): the driver on the mesh against ``mesh=None`` bit for bit over
+    DRIVER_MESH_STEPS steps, at the smoke config and at GATE_LAYERS
+    layers at full width (f32, TF32 off, B GATE_BATCH x GATE_SEQ).  All
+    under deterministic kernels; the group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import InjectedFailure
+
+    failures, rec = [], {}
+    smoke = get_arch(TRAIN_ARCH, smoke=True)
+
+    def crash(trainer, step, state):
+        raise InjectedFailure(f"injected at {step}")
+
+    with _deterministic(), tempfile.TemporaryDirectory() as root:
+        ref = _trainer(smoke, f"{root}/ref", 20)
+        ref_out = ref.run()
+        try:
+            _trainer(smoke, f"{root}/ft", 20, hooks={12: crash}).run()
+            failures.append("driver: the injected crash did not raise")
+        except InjectedFailure:
+            pass
+        resumed = _trainer(smoke, f"{root}/ft", 20)
+        out = resumed.run()
+    differ = _bit_equal(resumed.state, ref.state)
+    rec["restart"] = {"resumed_steps": [e.step for e in resumed.events],
+                      "losses_equal": out["losses"] == ref_out["losses"][10:],
+                      "leaves_differ": differ,
+                      "final_loss": out["final_loss"]}
+    if rec["restart"]["resumed_steps"] != list(range(10, 20)) or differ \
+            or not rec["restart"]["losses_equal"]:
+        failures.append(f"driver restart: {rec['restart']}")
+
+    mesh = make_host_mesh(model=1, device="cuda")
+    rec["mesh"] = {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
+                   "backend": dist.get_backend()}
+    full = _variant(_train_arch(), n_layers=GATE_LAYERS, dtype=torch.float32)
+    try:
+        for name, arch, kw in (("smoke", smoke, {}),
+                               ("full_width", full, {"batch": GATE_BATCH,
+                                                     "seq": GATE_SEQ})):
+            runs = []
+            with GC.full_f32(), _deterministic(), \
+                    tempfile.TemporaryDirectory() as root:
+                for where in (None, mesh):
+                    t = _trainer(arch, f"{root}/{where is None}",
+                                 DRIVER_MESH_STEPS, where,
+                                 interval=DRIVER_MESH_STEPS + 1, **kw)
+                    runs.append((t.run()["losses"], t.state))
+            differ = _bit_equal(runs[1][1], runs[0][1])
+            rec[f"mesh_{name}"] = {"losses": runs[1][0],
+                                   "losses_equal": runs[0][0] == runs[1][0],
+                                   "leaves": len(_whole_leaves(runs[0][1])),
+                                   "leaves_differ": differ}
+            if differ or runs[0][0] != runs[1][0]:
+                failures.append(f"driver mesh {name}: {rec[f'mesh_{name}']} "
+                                f"against mesh=None {runs[0][0]}")
+            del runs
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
     return failures, rec
 
 
@@ -2808,12 +2964,22 @@ def main() -> int:
     failures += train_failures
     models[name] = train
     torch.cuda.empty_cache()
+
+    # 16. the driver: the full-width run's step times (phase 15), the
+    # restart and the one-rank NCCL mesh
+    t_path = time.perf_counter()
+    driver_failures, driver = _driver_phase()
+    model_s["driver"] = time.perf_counter() - t_path
+    print(json.dumps({"phase": "16 driver", "full_width": train["driver"]}
+                     | driver | {"s": model_s["driver"]}))
+    failures += driver_failures
+    torch.cuda.empty_cache()
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
         "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 16. the kernels line; the matmul's launches add the power fit's, the
+    # 17. the kernels line; the matmul's launches add the power fit's, the
     # attention's the model phases'
     launches["matmul"] += record["launches"]["matmul"]
     model_launches = {name: m["launches"]["flash_attention"]

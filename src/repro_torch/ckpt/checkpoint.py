@@ -21,6 +21,15 @@ bf16 leaf is written as the reference writes it: its two bytes under the
 ``.npy`` descr ``'<V2'``, ``"bfloat16"`` in the manifest.  Restore reads
 the manifest's dtype and views those bytes as ``torch.bfloat16``; the
 reference cannot restore such a leaf (ROADMAP §3).
+
+A state sharded on a mesh (DTensor leaves) is saved whole: every rank of
+the process group calls :func:`save_tree`, which gathers each leaf
+(``full_tensor()``), and the first rank of the leaves' mesh writes the
+same files and manifest a one-device save writes; the others wait for it
+at a barrier.  :func:`restore_tree` with ``shardings`` puts each leaf back
+onto its placement, every rank keeping its own block of the file.  So a
+one-device checkpoint restores onto a mesh and a mesh checkpoint onto one
+device.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "/"
 
@@ -63,11 +73,28 @@ def _leaf_filename(path: str) -> str:
     return path.replace(_SEP, "__") + ".npy"
 
 
+def _dtensor_mesh(tree):
+    """The mesh of the tree's first DTensor leaf, or None."""
+    from torch.distributed.tensor import DTensor
+
+    for _, leaf in _flatten_with_paths(tree):
+        if isinstance(leaf, DTensor):
+            return leaf.device_mesh
+    return None
+
+
+def _whole(leaf):
+    """A DTensor leaf gathered whole (collective over its mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def _host_array(leaf) -> tuple[np.ndarray, str]:
     """The leaf as a host numpy array and its manifest dtype: a bf16
     tensor as its raw two bytes (numpy has no bfloat16)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy(), "bfloat16"
         arr = t.numpy()
@@ -92,9 +119,31 @@ def _save_leaf(path: str, arr: np.ndarray, dtype: str) -> None:
 def save_tree(root: str, step: int, tree, *, metadata: dict | None = None
               ) -> str:
     """Atomically save a tree of tensors (or arrays) as
-    ``<root>/step_<step>``."""
-    os.makedirs(root, exist_ok=True)
+    ``<root>/step_<step>``; a tree of DTensors is gathered on every rank
+    and written by the first rank of its mesh, the others waiting at a
+    barrier."""
     final = os.path.join(root, f"step_{step:08d}")
+    if _dtensor_mesh(tree) is None:
+        _write_tree(root, step, final, tree, metadata)
+        return final
+    whole = _unflatten(tree, iter([_whole(leaf) for _, leaf in
+                                   _flatten_with_paths(tree)]))
+    if _writes(tree):
+        _write_tree(root, step, final, whole, metadata)
+    dist.barrier()
+    return final
+
+
+def _writes(tree) -> bool:
+    """Whether this rank writes ``tree``: any rank for a tree of whole
+    tensors, the first rank of the mesh for DTensors."""
+    mesh = _dtensor_mesh(tree)
+    return mesh is None or dist.get_rank() == mesh.mesh.reshape(-1)[0].item()
+
+
+def _write_tree(root: str, step: int, final: str, tree,
+                metadata: dict | None) -> None:
+    os.makedirs(root, exist_ok=True)
     staging = f"{final}.tmp-{os.getpid()}"
     # GC stale staging dirs from crashed saves
     for d in os.listdir(root):
@@ -114,7 +163,6 @@ def save_tree(root: str, step: int, tree, *, metadata: dict | None = None
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(staging, final)
-    return final
 
 
 def list_steps(root: str) -> list[int]:
@@ -140,19 +188,24 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_tree(root: str, step: int, like_tree, *, device="cuda"):
+def restore_tree(root: str, step: int, like_tree, *, device="cuda",
+                 shardings=None):
     """Restore into the structure of ``like_tree`` (tensors or specs),
     each leaf by the manifest's dtype, onto ``device`` (the card unless
-    the caller asks for another; the reference's ``shardings`` wait for
-    the port's mesh).  Returns ``(tree, metadata)``."""
+    the caller asks for another), or, given ``shardings`` (a tree of
+    ``dist.NamedSharding`` like ``like_tree``), as a DTensor on its
+    sharding's mesh and placements.  Returns ``(tree, metadata)``."""
     d = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    placed = (iter(s for _, s in _flatten_with_paths(shardings))
+              if shardings is not None else None)
     out = []
     for path, _ in _flatten_with_paths(like_tree):
         ent = manifest["leaves"][path]
-        out.append(_load_leaf(os.path.join(d, ent["file"]),
-                              ent["dtype"]).to(device))
+        leaf = _load_leaf(os.path.join(d, ent["file"]), ent["dtype"])
+        out.append(leaf.to(device) if placed is None
+                   else next(placed).distribute(leaf))
     return _unflatten(like_tree, iter(out)), manifest["metadata"]
 
 
@@ -175,14 +228,16 @@ class CheckpointManager:
         if step % self.interval:
             return None
         path = save_tree(self.root, step, tree, metadata=metadata)
-        prune(self.root, self.keep_last)
+        if _writes(tree):
+            prune(self.root, self.keep_last)
         return path
 
-    def restore_latest(self, like_tree, device="cuda"):
+    def restore_latest(self, like_tree, device="cuda", shardings=None):
         s = latest_step(self.root)
         if s is None:
             return None, None, None
-        tree, meta = restore_tree(self.root, s, like_tree, device=device)
+        tree, meta = restore_tree(self.root, s, like_tree, device=device,
+                                  shardings=shardings)
         return s, tree, meta
 
 
@@ -220,14 +275,16 @@ class AsyncCheckpointer:
         """Queue a host copy of ``tree``: every tensor copied (from the
         card, or cloned on the CPU, where ``.cpu()`` would return the same
         storage), so the in-place optimizer cannot change a snapshot that
-        waits in the queue."""
+        waits in the queue.  DTensor leaves are gathered here, on every
+        rank, and queued on the first rank of their mesh alone."""
         if self._err:
             raise self._err
         host_tree = _unflatten(tree, iter(
-            leaf.detach().to("cpu", copy=True)
+            _whole(leaf).detach().to("cpu", copy=True)
             if isinstance(leaf, torch.Tensor) else np.array(leaf)
             for _, leaf in _flatten_with_paths(tree)))
-        self._q.put((step, host_tree, metadata))
+        if _writes(tree):
+            self._q.put((step, host_tree, metadata))
 
     def wait(self) -> None:
         self._q.join()

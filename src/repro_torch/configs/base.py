@@ -57,8 +57,8 @@ SHAPES: dict[str, ShapeSpec] = {
 class ArchDef:
     """One selectable architecture (``--arch <name>``).  ``profile``,
     ``train_accum`` and ``moment_dtype`` carry the reference's sharding
-    profile, gradient accumulation and Adam moment storage for the port's
-    later train and mesh slices (ROADMAP §1 items 4 and 5)."""
+    profile (``dist.get_profile``), gradient accumulation and Adam moment
+    storage."""
 
     name: str
     family: str                    # dense | moe | hybrid | ssm | vlm | audio

@@ -5,16 +5,24 @@ reference's.
 Determinism contract (fault tolerance): ``batch(step)`` is a pure function
 of ``(seed, step)``, so after a checkpoint restart the pipeline resumes at
 the restored step with the same batches and no iterator state to save.
-The reference's ``make_global_array`` and ``shard_batch`` place a batch
-on a device mesh and wait for the port's mesh (ROADMAP §1 item 5); until
-then ``convert.batch_from_numpy`` moves a batch to its device.
+``make_global_array`` and ``shard_batch`` place a batch on a
+``DeviceMesh``, each rank building its own rows alone;
+``convert.batch_from_numpy`` moves a batch to one device.
 """
 from .arch_data import ArchSyntheticDataset
-from .pipeline import DataConfig, SyntheticLMDataset, TokenFileDataset
+from .pipeline import (
+    DataConfig,
+    SyntheticLMDataset,
+    TokenFileDataset,
+    make_global_array,
+    shard_batch,
+)
 
 __all__ = [
     "ArchSyntheticDataset",
     "DataConfig",
     "SyntheticLMDataset",
     "TokenFileDataset",
+    "make_global_array",
+    "shard_batch",
 ]

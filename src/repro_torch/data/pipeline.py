@@ -1,5 +1,6 @@
-"""Deterministic data pipeline (the reference's ``repro/data/pipeline.py``,
-numpy only, so every batch equals the reference's bit for bit).
+"""Deterministic data pipeline (the reference's ``repro/data/pipeline.py``;
+the datasets in numpy only, so every batch equals the reference's bit for
+bit).
 
 ``SyntheticLMDataset`` generates language-modelling batches from a counter-
 based PRNG (Philox keyed on ``(seed, step)``): stateless, so checkpoint-
@@ -9,14 +10,20 @@ restart needs no data-iterator state.
 (np.uint16/np.int32 memmap) cut into fixed-length windows; window order is a
 deterministic permutation of ``(seed, epoch)``.
 
-The reference's sharded placement (``make_global_array``,
-``shard_batch``) needs a mesh and waits for ROADMAP §1 item 5.
+:func:`make_global_array` and :func:`shard_batch` place a batch on a
+``DeviceMesh``: each rank builds only its own block (JAX's block for its
+mesh coordinate) and the global tensor is a DTensor over the ranks'
+blocks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Callable
 
 import numpy as np
+import torch
+
+from ..dist.sharding import NamedSharding, mesh_device
 
 
 @dataclass(frozen=True)
@@ -106,3 +113,47 @@ class TokenFileDataset:
             "labels": out[:, 1:],
             "mask": np.ones((cfg.global_batch, s), np.float32),
         }
+
+
+# ---------------------------------------------------------------------------
+# Sharded materialization
+# ---------------------------------------------------------------------------
+
+
+def make_global_array(host_fn: Callable[[tuple[slice, ...]], np.ndarray],
+                      shape: tuple[int, ...], mesh, pspec: tuple,
+                      dtype=None):
+    """A global DTensor of ``shape`` on ``mesh`` sharded by ``pspec``,
+    where this rank's block is ``host_fn(index)`` for its own index alone
+    (``NamedSharding.index``: JAX's block for the rank's coordinate), cast
+    to the numpy ``dtype`` where given; no rank touches another's
+    block."""
+    from torch.distributed.tensor import DTensor
+
+    sharding = NamedSharding(mesh, tuple(pspec))
+    placements = sharding.placements()
+    arr = np.asarray(host_fn(sharding.index(mesh.get_coordinate(), shape)))
+    if dtype is not None:
+        arr = arr.astype(dtype)
+    local = torch.from_numpy(np.ascontiguousarray(arr)).to(mesh_device(mesh))
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _batch_entry(batch_axes):
+    axes = tuple(batch_axes) if isinstance(batch_axes, (tuple, list)) \
+        else (batch_axes,)
+    return axes if len(axes) > 1 else axes[0]
+
+
+def shard_batch(batch: dict[str, np.ndarray], mesh,
+                batch_axes) -> dict[str, Any]:
+    """Place a host batch onto the mesh, sharded over the batch axes."""
+    out = {}
+    for k, v in batch.items():
+        spec = (_batch_entry(batch_axes), *([None] * (v.ndim - 1))) \
+            if v.ndim else ()
+        out[k] = make_global_array(lambda idx, v=v: v[idx], v.shape, mesh,
+                                   spec, dtype=v.dtype)
+    return out

@@ -16,8 +16,8 @@ and ``tokens``.  It runs on the card unless ``--device cpu`` is passed.
 config, ``--no-smoke`` its full one.  An encoder-only arch
 (``has_decoder`` false) is skipped, as the reference skips it.
 ``--continuous`` (the continuous-batching engine, ROADMAP §1 item 6) and
-a ``--mesh`` other than ``host`` (ROADMAP §1 item 5) are not ported and
-raise.
+a ``--mesh`` other than ``host`` (serving on a mesh, ROADMAP §1 item 5c)
+are not ported and raise.
 """
 from __future__ import annotations
 
@@ -134,8 +134,8 @@ def main(argv=None) -> int:
         raise NotImplementedError("--continuous: the continuous-batching "
                                   "engine is not ported yet (ROADMAP §1 item 6)")
     if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh}: the port has no mesh "
-                                  f"yet (ROADMAP §1 item 5)")
+        raise NotImplementedError(f"--mesh {args.mesh}: serving on a mesh is "
+                                  f"not ported yet (ROADMAP §1 item 5c)")
     try:
         arch = get_arch(args.arch, smoke=args.smoke)
     except KeyError as e:

@@ -12,8 +12,8 @@ and the hand-written kernel, plus KV-cache decode (the reference's
   plain version on a CPU tensor.
 
 The reference's sequence-parallel paths (``_seq_sharded_cache_update``,
-``_flash_decode``) need a mesh and wait for ROADMAP §1 item 5; decode here
-is its single-device path.
+``_flash_decode``) run under ``shard_map`` on a mesh and wait for ROADMAP
+§1 item 5c; decode here is its single-device path.
 """
 from __future__ import annotations
 

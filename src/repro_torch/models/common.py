@@ -5,10 +5,12 @@ Parameters are declared as trees of :class:`ParamSpec` (nested dicts with
 specs as leaves); :func:`materialize` turns a spec tree into a tree of
 tensors on a device, drawn from a ``torch.Generator``.  Every function
 takes and returns tensors of the reference's shapes and dtypes, and
-rounds where the reference rounds.  The reference's logical-axis sharding
-(``shard_annotate``, ``set_activation_rules``) and its dry-run stand-ins
-(``abstract``) have nothing to act on without a mesh: they wait for
-ROADMAP §1 items 5 and 7, and the port's forward leaves their calls out.
+rounds where the reference rounds.  The reference's activation
+annotations (``shard_annotate``, ``set_activation_rules``) have nothing
+to act on in eager PyTorch, where the data-parallel step gathers every
+parameter whole (tensor-parallel compute is ROADMAP §1 item 5c), and its
+dry-run stand-ins (``abstract``) wait for item 7: the port's forward
+leaves their calls out.
 :func:`grad_barrier` is an identity (an XLA scheduling hint in the
 reference), and the forward leaves its calls out too.
 
@@ -20,6 +22,7 @@ input requires grad, it is a plain call.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -333,12 +336,34 @@ def _xent_terms(lf, labels, z_loss: float):
     return per_tok
 
 
+#: (token count, scale) of the data-parallel micro-batch that the rank's
+#: rows belong to, set by :func:`xent_over`
+_XENT_OVER: list = []
+
+
+@contextmanager
+def xent_over(count: torch.Tensor, scale: int):
+    """Inside the block, :func:`masked_xent` with a mask divides the
+    masked sum by ``count`` (the mask's sum over the whole data-parallel
+    micro-batch, all-reduced, in place of this rank's) and multiplies by
+    ``scale`` (the data ranks), so the ranks' losses and gradients
+    average to those of the whole micro-batch, however unequally its
+    tokens fall to the ranks.  A mean without a mask needs neither: every
+    rank has the same number of rows."""
+    _XENT_OVER.append((count, scale))
+    try:
+        yield
+    finally:
+        _XENT_OVER.pop()
+
+
 @record_function("masked_xent")
 def masked_xent(logits, labels, mask=None, *, vocab: int,
                 vocab_padded: int | None = None, z_loss: float = 0.0):
     """Stable masked cross entropy with padded-vocab masking (f32 math).
     Runs inside a profiler range of its name (a train step's device split
-    reads it)."""
+    reads it).  Inside :func:`xent_over`, the masked sum is normalized by
+    the data-parallel micro-batch's tokens."""
     vpad = vocab_padded or vocab
     lf = logits.float()
     if vpad != vocab:
@@ -348,7 +373,11 @@ def masked_xent(logits, labels, mask=None, *, vocab: int,
     if mask is None:
         return per_tok.mean()
     maskf = mask.float()
-    return (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
+    if not _XENT_OVER:
+        return (per_tok * maskf).sum() / maskf.sum().clamp_min(1.0)
+    count, scale = _XENT_OVER[-1]
+    loss = (per_tok * maskf).sum() / count.clamp_min(1.0)
+    return loss if scale == 1 else loss * scale
 
 
 def softmax_xent(logits, labels, *, z_loss: float = 0.0):

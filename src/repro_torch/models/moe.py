@@ -12,8 +12,11 @@ Three dispatch implementations, sharing the router and expert parameters:
   shard: the assignments sorted by expert with an extra trash slot, and
   the k weighted rows added into zeros in expert-sorted order.  With one
   shard the reference's ``psum``/``pmean`` are identities and its FSDP
-  gather is skipped; more model shards wait for the port's mesh (ROADMAP
-  §1 item 5) and raise.
+  gather is skipped; more model shards wait for tensor-parallel compute
+  on the port's mesh (ROADMAP §1 item 5c) and raise.  The data-parallel
+  train step (``train.steps.make_sharded_train_step``) runs it on each
+  rank's rows: the dispatch per data shard, the aux loss averaged over
+  the ranks, as the reference's ``shard_map``.
 
 Routing is the reference's: the router in ``router_dtype`` (f32), top-k
 with ties to the lower expert index, the k weights renormalised and cast
@@ -165,8 +168,8 @@ def moe_ffn_shard_map(p, cfg: MoEConfig, x, *, model_shards: int = 1):
     the bf16 sums are deterministic on the card too."""
     if model_shards != 1:
         raise NotImplementedError(f"shard_map MoE over {model_shards} model "
-                                  f"shards: the port has no mesh yet "
-                                  f"(ROADMAP §1 item 5)")
+                                  f"shards: tensor-parallel compute is not "
+                                  f"ported yet (ROADMAP §1 item 5c)")
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     n = xf.shape[0]

@@ -59,10 +59,15 @@ class AdamWConfig:
 # ---------------------------------------------------------------------------
 
 
-def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _quantize(x: torch.Tensor, row_absmax_=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Round half to even (``jnp.round``, ``torch.round``) onto [-127,
-    127], the scale the row's absmax over 127 with a 1e-12 floor."""
+    127], the scale the row's absmax over 127 with a 1e-12 floor.  On a
+    shard of a leaf split along its last dim, ``row_absmax_`` makes the
+    shard's row absmax the whole row's, in place."""
     absmax = x.abs().amax(dim=-1, keepdim=True)
+    if row_absmax_ is not None:
+        row_absmax_(absmax)
     scale = absmax.clamp_min(1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.float()
@@ -151,11 +156,12 @@ def _load_moment(m, cfg: AdamWConfig) -> torch.Tensor:
     return m.float()
 
 
-def _store_moment_(m, x: torch.Tensor, cfg: AdamWConfig) -> None:
+def _store_moment_(m, x: torch.Tensor, cfg: AdamWConfig,
+                   row_absmax_=None) -> None:
     """``x`` written into the stored moment ``m`` (rounded to bf16 by
     ``copy_``, as ``astype`` rounds, or quantized)."""
     if cfg.moment_dtype == "int8":
-        q, scale = _quantize(x)
+        q, scale = _quantize(x, row_absmax_)
         m["q"].copy_(q)
         m["scale"].copy_(scale)
     else:
@@ -165,24 +171,28 @@ def _store_moment_(m, x: torch.Tensor, cfg: AdamWConfig) -> None:
 @torch.no_grad()
 @record_function("adamw")
 def _update_leaves(grads, state: dict, params, cfg: AdamWConfig,
-                   schedule: Schedule | None, take) -> dict:
+                   schedule: Schedule | None, take, shards=None) -> dict:
     """One AdamW step, leaf by leaf in tree order: each leaf's moments are
     written in place and its update ``u`` (the parameter's dtype) handed
     to ``take(p, u)`` before the next leaf; the count is advanced in
-    place.  Returns the metrics."""
+    place.  Returns the metrics.  ``shards`` (a
+    ``dist.DataParallel``): the leaves are local shards, the norm and the
+    int8 row absmax are taken over the whole leaves."""
     cfg.validate()
     schedule = schedule or constant(1e-3)
     count = state["count"] + 1
     lr = schedule(count)
-    gnorm = global_norm(grads)
+    gnorm = (global_norm(grads) if shards is None
+             else shards.global_norm(tree_leaves(grads)))
     clip = (torch.clamp(gnorm.new_tensor(cfg.grad_clip_norm)
                         / torch.clamp(gnorm, min=1e-12), max=1.0)
             if cfg.grad_clip_norm else gnorm.new_tensor(1.0))
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - b1 ** count.float()
     c2 = 1.0 - b2 ** count.float()
-    for g, m, v, p in zip(tree_leaves(grads), _moment_leaves(state["mu"]),
-                          _moment_leaves(state["nu"]), tree_leaves(params)):
+    for i, (g, m, v, p) in enumerate(zip(
+            tree_leaves(grads), _moment_leaves(state["mu"]),
+            _moment_leaves(state["nu"]), tree_leaves(params))):
         gf = g.float() * clip
         mf = b1 * _load_moment(m, cfg) + (1 - b1) * gf
         vf = b2 * _load_moment(v, cfg) + (1 - b2) * gf * gf
@@ -192,8 +202,10 @@ def _update_leaves(grads, state: dict, params, cfg: AdamWConfig,
         del gf
         take(p, (-lr * step_dir).to(p.dtype))
         del step_dir
-        _store_moment_(m, mf, cfg)
-        _store_moment_(v, vf, cfg)
+        row = (None if shards is None
+               else lambda a, i=i: shards.row_absmax_(i, a))
+        _store_moment_(m, mf, cfg, row)
+        _store_moment_(v, vf, cfg, row)
     state["count"].copy_(count)
     return {"grad_norm": gnorm, "lr": lr}
 
@@ -228,10 +240,11 @@ def apply_updates(params, updates):
 
 
 def adamw_step(grads, state: dict, params, cfg: AdamWConfig,
-               schedule: Schedule | None = None) -> dict:
+               schedule: Schedule | None = None, *, shards=None) -> dict:
     """:func:`adamw_update` and :func:`apply_updates` fused leaf by leaf:
     each leaf's update is added into its parameter before the next leaf
     is taken, so no tree of updates exists.  The same arithmetic, so the
     same bits.  Consumes ``state`` and ``params`` in place; returns the
-    metrics (``grad_norm`` before clipping, ``lr``)."""
-    return _update_leaves(grads, state, params, cfg, schedule, _apply_)
+    metrics (``grad_norm`` before clipping, ``lr``).  ``shards``: the
+    leaves are local shards of a mesh's state (``dist.DataParallel``)."""
+    return _update_leaves(grads, state, params, cfg, schedule, _apply_, shards)

@@ -24,12 +24,16 @@ other metrics are the micro-batches' means.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchDef
-from ..models.common import ParamSpec, materialize, tree_leaves, tree_map
+from ..dist import DataParallel
+from ..models.common import (ParamSpec, materialize, tree_leaves, tree_map,
+                             xent_over)
 from ..optim import AdamWConfig, adamw_init, adamw_step, opt_state_spec
 from ..optim.schedule import Schedule
 
@@ -97,14 +101,16 @@ def _detached(metrics: dict) -> dict:
             for k, v in metrics.items()}
 
 
-def _value_and_grad(arch: ArchDef, params, batch: dict, cast_once: bool):
+def _value_and_grad(arch: ArchDef, params, batch: dict, cast_once: bool,
+                    xent=None):
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        p = cast_params_for_compute(arch, params) if cast_once else params
-        loss, metrics = arch.loss(p, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with xent_over(*xent) if xent else contextlib.nullcontext():
+            p = cast_params_for_compute(arch, params) if cast_once else params
+            loss, metrics = arch.loss(p, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -114,20 +120,24 @@ def _value_and_grad(arch: ArchDef, params, batch: dict, cast_once: bool):
 
 
 def value_and_grad(arch: ArchDef, params, batch: dict, *, accum: int = 1,
-                   cast_once: bool = False):
+                   cast_once: bool = False, xent: list | None = None):
     """``(loss, metrics, grads)`` of ``arch.loss`` at ``params`` (the
     reference's ``jax.value_and_grad(..., has_aux=True)``): the grads a
     tree like ``params``, zeros for a leaf the loss does not reach.  The
     parameters require grad for the call only.  ``accum > 1``: the
     micro-batches' gradients added in f32 in order and divided by
-    ``accum``, their loss and metrics averaged."""
+    ``accum``, their loss and metrics averaged.  ``xent``: one
+    ``(count, scale)`` a micro-batch, under which its masked cross
+    entropy is normalized (``models.common.xent_over``)."""
+    xent = xent or [None] * accum
     if accum == 1:
-        return _value_and_grad(arch, params, batch, cast_once)
+        return _value_and_grad(arch, params, batch, cast_once, xent[0])
     micro = _split_micro(batch, accum)
     grads, runs = None, []
     for i in range(accum):
         loss, metrics, g = _value_and_grad(
-            arch, params, {k: v[i] for k, v in micro.items()}, cast_once)
+            arch, params, {k: v[i] for k, v in micro.items()}, cast_once,
+            xent[i])
         runs.append({**metrics, "loss": loss})
         if grads is None:
             grads = tree_map(lambda x: x.float().contiguous(), g)
@@ -147,9 +157,17 @@ def value_and_grad(arch: ArchDef, params, batch: dict, *, accum: int = 1,
 
 def make_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
                     schedule: Schedule | None = None, *, accum: int = 1,
-                    cast_once: bool = False) -> Callable:
+                    cast_once: bool = False, mesh=None, shardings=None,
+                    batch_axes: tuple[str, ...] = ("data",)) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; the state
-    is consumed (updated in place) and returned."""
+    is consumed (updated in place) and returned.  With a ``mesh``, the
+    step of :func:`make_sharded_train_step` on the state's
+    ``shardings``."""
+    if mesh is not None:
+        return make_sharded_train_step(arch, opt_cfg, schedule, mesh=mesh,
+                                       shardings=shardings,
+                                       batch_axes=batch_axes, accum=accum,
+                                       cast_once=cast_once)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
@@ -159,6 +177,88 @@ def make_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
         del grads
         state["step"].add_(1)
         return state, {**metrics, **om, "loss": loss}
+
+    return train_step
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _xent_counts(dp: DataParallel, batch: dict, accum: int) -> list | None:
+    """Per local micro-batch, the token count of the data-parallel
+    micro-batch it belongs to and the data ranks (``xent_over``'s
+    arguments).  Rank ``r``'s rows are the ``r``-th block of the batch,
+    so its micro-batch ``i`` lies in the global micro-batch ``(r * accum
+    + i) // ranks``, whose count adds the masks of the ``ranks`` local
+    micro-batches there."""
+    mask = batch.get("mask")
+    if mask is None:
+        return None
+    masks = [mask] if accum == 1 else list(_split_micro({"m": mask}, accum)["m"])
+    counts = dp.batch_counts(torch.stack([m.float().sum() for m in masks]))
+    out = []
+    for i in range(accum):
+        j = (dp.rank * accum + i) // dp.ranks
+        out.append((counts[j * dp.ranks:(j + 1) * dp.ranks].sum(), dp.ranks))
+    return out
+
+
+def make_sharded_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
+                            schedule: Schedule | None = None, *, mesh,
+                            shardings, batch_axes: tuple[str, ...] = ("data",),
+                            accum: int = 1, cast_once: bool = False
+                            ) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)`` on a
+    ``DeviceMesh``, data parallel over ``batch_axes``.
+
+    ``state`` lives sharded at rest, each leaf a DTensor on its
+    ``shardings`` leaf (``param_shardings(state_spec(...))``: parameters,
+    both moments, the int8 scales, the counts); ``batch`` holds this
+    rank's rows (``data.shard_batch``'s DTensors, or local tensors).  Each
+    step gathers every parameter whole (``full_tensor()``), runs
+    :func:`value_and_grad` on the rank's rows, takes each gradient as
+    ``Partial("avg")`` over the batch axes onto its leaf's placements (a
+    reduce-scatter, ``dist.DataParallel.reduce_grad``) and updates the
+    local shards in place (``optim.adamw_step`` with the clipping norm
+    and the int8 row absmax over the whole leaves).  The ``model`` axis
+    shards storage only: the model ranks of one data group compute the
+    same step on the same rows (tensor-parallel compute is ROADMAP §1
+    item 5c).
+
+    The masked cross entropy of each micro-batch is normalized by the
+    tokens of the whole data-parallel micro-batch (``xent_over``), so the
+    step equals the one-device step on the global batch however the
+    mask's tokens fall to the ranks.  The MoE dispatches each rank's rows
+    alone (the capacity from its own tokens) and its aux loss is averaged
+    over the ranks: the reference's ``shard_map`` semantics.  The
+    metrics are averaged over the batch axes before they are returned.
+    On a mesh whose dims all have size 1 the step is the ``mesh=None``
+    step bit for bit."""
+    param_shardings = shardings["params"]
+    dp = DataParallel(mesh, batch_axes, param_shardings)
+
+    def train_step(state: dict, batch: dict):
+        params = tree_map(lambda d: d.full_tensor().detach(), state["params"])
+        local = {k: _local(v) for k, v in batch.items()}
+        loss, metrics, grads = value_and_grad(
+            arch, params, local, accum=accum, cast_once=cast_once,
+            xent=_xent_counts(dp, local, accum))
+        del params
+        it = iter([dp.reduce_grad(g, i)
+                   for i, g in enumerate(tree_leaves(grads))])
+        grads = tree_map(lambda _: next(it), state["params"])
+        om = adamw_step(grads, tree_map(_local, state["opt_state"]),
+                        tree_map(_local, state["params"]), opt_cfg, schedule,
+                        shards=dp)
+        del grads
+        _local(state["step"]).add_(1)
+        vals = {**metrics, "loss": loss}
+        names = sorted(vals)
+        mean = dp.mean(torch.stack([torch.as_tensor(vals[k], dtype=torch.float32,
+                                                    device=loss.device)
+                                    for k in names]))
+        return state, {**dict(zip(names, mean.unbind())), **om}
 
     return train_step
 

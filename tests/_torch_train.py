@@ -20,9 +20,11 @@ from repro.optim import AdamWConfig as RefAdamW
 from repro.optim import adamw_update, apply_updates
 from repro.models.common import ParamSpec as RefParamSpec
 from repro.train.steps import make_train_step as ref_train_step
-from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.configs import ARCH_NAMES, ShapeSpec, get_arch
 from repro_torch.convert import batch_from_numpy, state_from_numpy
 from repro_torch.models.common import tree_leaves
+from repro_torch.optim import AdamWConfig, constant
+from repro_torch.train.steps import init_state, make_train_step, value_and_grad
 
 SMOKE_TRAIN = ShapeSpec("smoke_train", seq_len=32, global_batch=2, kind="train")
 #: gradients: each leaf within GRAD_RTOL of its largest |g| (the
@@ -161,3 +163,73 @@ def step_close(params, want_params, mu, want_mu, lr: float = LR):
         if keep.any() and float(err[keep].max()) > STEP_ATOL_LR * lr:
             bad.append(f"leaf {i}: {float(err[keep].max())}")
     return bad, masked
+
+
+# ---------------------------------------------------------------------------
+# the port alone, per arch (tests/test_torch_train*.py, one file a family)
+# ---------------------------------------------------------------------------
+
+
+def family_archs(*families: str) -> tuple[str, ...]:
+    """The registry's archs of these families, in its order."""
+    return tuple(n for n in ARCH_NAMES
+                 if get_arch(n, smoke=True).family in families)
+
+
+def port_batch(arch, seed: int, shape=SMOKE_TRAIN) -> dict:
+    return batch_from_numpy(arch.make_batch(shape, seed=seed), device="cpu")
+
+
+def port_state(arch, seed: int = 0, opt=None) -> dict:
+    return init_state(arch, torch.Generator().manual_seed(seed),
+                      opt or AdamWConfig(), device="cpu")
+
+
+def check_remat_gives_the_same_grads(name: str, modes: tuple[str, ...]):
+    """``remat`` in each of ``modes`` gives the gradients of ``"none"``
+    within 1e-6 of each leaf's largest, and leaves the parameters not
+    requiring grad."""
+    base = variant(get_arch(name, smoke=True), remat="none")
+    state = port_state(base, seed=6)
+    batch = port_batch(base, seed=6)
+    _, _, want = value_and_grad(base, state["params"], batch)
+    for remat in modes:
+        arch = dataclasses.replace(base, cfg=dataclasses.replace(
+            base.cfg, remat=remat))
+        _, _, got = value_and_grad(arch, state["params"], batch)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert not any(p.requires_grad for p in tree_leaves(state["params"]))
+
+
+def check_train_step_smoke(name: str):
+    """The reference's oracle (tests/test_archs_smoke.py) on the port:
+    one step at the config's own dtype, finite, near log(vocab), the
+    parameters moved and finite."""
+    arch = get_arch(name, smoke=True)
+    state = port_state(arch, seed=0, opt=AdamWConfig(weight_decay=0.0))
+    first = tree_leaves(state["params"])[0].clone()
+    state2, metrics = make_train_step(arch, AdamWConfig(weight_decay=0.0))(
+        state, port_batch(arch, seed=1))
+    loss = float(metrics["loss"])
+    assert np.isfinite(loss), f"{name}: non-finite loss {loss}"
+    assert int(state2["step"]) == 1
+    assert loss < np.log(arch.cfg.vocab_padded) + 2.0, (name, loss)
+    assert not torch.allclose(first, tree_leaves(state2["params"])[0])
+    assert all(bool(torch.isfinite(p).all())
+               for p in tree_leaves(state2["params"]))
+
+
+def check_loss_decreases_smoke(name: str):
+    """The reference's oracle: four steps on one structured batch lower
+    the loss."""
+    arch = get_arch(name, smoke=True)
+    opt = AdamWConfig(weight_decay=0.0, grad_clip_norm=0.0)
+    state = port_state(arch, seed=0, opt=opt)
+    batch = port_batch(arch, seed=2)
+    step = make_train_step(arch, opt, constant(3e-3))
+    losses = []
+    for _ in range(4):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    assert losses[-1] < losses[0], (name, losses)

@@ -60,7 +60,9 @@ def test_port_files_exist():
               "kernels/autograd.py", "optim/__init__.py", "optim/adamw.py",
               "optim/schedule.py", "data/__init__.py", "data/pipeline.py",
               "data/arch_data.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
-              "train/__init__.py", "train/steps.py"):
+              "train/__init__.py", "train/steps.py", "train/driver.py",
+              "train/elastic.py", "dist/__init__.py", "dist/sharding.py",
+              "dist/collectives.py", "launch/mesh.py", "launch/train.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -97,6 +99,9 @@ def test_import_leaves_jax_out():
         "import repro_torch.models.whisper\n"
         "import repro_torch.optim, repro_torch.data, repro_torch.ckpt\n"
         "import repro_torch.train, repro_torch.kernels.autograd\n"
+        "import repro_torch.train.driver, repro_torch.train.elastic\n"
+        "import repro_torch.dist, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.train\n"
         "from repro_torch.configs import all_archs\n"
         "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

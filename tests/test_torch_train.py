@@ -1,6 +1,10 @@
 """The port's train, eval, prefill and serve steps
 (``repro_torch/train/steps.py``) beyond one step per arch
-(tests/test_torch_train_lm.py, test_torch_train_families.py):
+(tests/test_torch_train_lm.py, test_torch_train_families.py), on the
+dense and multimodal families (the MoE family is
+tests/test_torch_train_moe.py, the hybrid, recurrent and
+encoder-decoder ones tests/test_torch_train_hybrid.py; the shared cases
+tests/_torch_train.py):
 
 * the reference's whole jitted ``make_train_step`` on internlm2-1.8b's
   smoke config, at ``accum`` 1 and 2 and with ``cast_once`` (bf16 compute
@@ -9,13 +13,10 @@
   attention tolerance, and the grad norm at 2e-2, as bf16 rounds the
   forward and the backward);
 * the port alone: ``accum=2`` against ``accum=1`` on the same batch, and
-  ``remat`` none, full and dots giving the same gradients (zamba2,
-  xlstm-125m and whisper-base with remat full against none too); the
-  gradients leave the parameters not requiring grad; the MoE's scatter and
-  one-shard ``shard_map`` dispatches giving the dense dispatch's
-  gradients where nothing drops; the reference's own
+  ``remat`` none, full and dots giving the same gradients; the
+  gradients leave the parameters not requiring grad; the reference's own
   oracles ``test_train_step_smoke`` and ``test_loss_decreases_smoke``
-  (tests/test_archs_smoke.py) on all ten archs;
+  (tests/test_archs_smoke.py) on the family's archs;
 * ``make_eval_step`` (under no grad, so flash attention runs), the
   prefill and serve steps against the model functions they wrap, and the
   state's spec against ``init_state``.
@@ -31,17 +32,17 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from _torch_train import (  # noqa: E402
-    SMOKE_TRAIN, archs, port_inputs, ref_state, reference_step, step_close,
-    variant)
+    SMOKE_TRAIN, archs, check_loss_decreases_smoke,
+    check_remat_gives_the_same_grads,
+    check_train_step_smoke, family_archs, port_batch, port_inputs, port_state,
+    ref_state, reference_step, step_close, variant)
 from repro.configs import get_arch as ref_arch  # noqa: E402
 from repro.optim import AdamWConfig as RefAdamW  # noqa: E402
 from repro.train.steps import state_spec as ref_state_spec  # noqa: E402
-from repro_torch.configs import ARCH_NAMES, ShapeSpec, get_arch  # noqa: E402
-from repro_torch.convert import batch_from_numpy  # noqa: E402
+from repro_torch.configs import ShapeSpec, get_arch  # noqa: E402
 from repro_torch.models.common import ParamSpec, tree_leaves  # noqa: E402
-from repro_torch.optim import AdamWConfig, constant  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.train.steps import (  # noqa: E402
-    init_state,
     make_eval_step,
     make_prefill_step,
     make_serve_step,
@@ -51,19 +52,11 @@ from repro_torch.train.steps import (  # noqa: E402
 )
 
 NAME = "internlm2-1.8b"
-#: remat settings held equal on each family: the LM has all three
-REMAT = {"internlm2-1.8b": ("full", "dots"), "granite-moe-1b-a400m": ("full",),
-         "zamba2-1.2b": ("full",), "xlstm-125m": ("full",),
-         "whisper-base": ("full",)}
-
-
-def _batch(arch, seed: int, shape=SMOKE_TRAIN) -> dict:
-    return batch_from_numpy(arch.make_batch(shape, seed=seed), device="cpu")
-
-
-def _state(arch, seed: int = 0, opt=None) -> dict:
-    return init_state(arch, torch.Generator().manual_seed(seed),
-                      opt or AdamWConfig(), device="cpu")
+#: this file's families
+ARCHS = family_archs("dense", "vlm")
+#: remat settings held equal on the family: the LM has all three
+REMAT = {"internlm2-1.8b": ("full", "dots")}
+_batch, _state = port_batch, port_state
 
 
 @pytest.mark.parametrize("accum", [1, 2])
@@ -126,52 +119,17 @@ def test_accum_matches_one_batch():
 
 @pytest.mark.parametrize("name", REMAT)
 def test_remat_gives_the_same_grads(name):
-    base = variant(get_arch(name, smoke=True), remat="none")
-    state = _state(base, seed=6)
-    batch = _batch(base, seed=6)
-    _, _, want = value_and_grad(base, state["params"], batch)
-    for remat in REMAT[name]:
-        arch = dataclasses.replace(base, cfg=dataclasses.replace(
-            base.cfg, remat=remat))
-        _, _, got = value_and_grad(arch, state["params"], batch)
-        for a, b in zip(tree_leaves(got), tree_leaves(want)):
-            assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
-    assert not any(p.requires_grad for p in tree_leaves(state["params"]))
+    check_remat_gives_the_same_grads(name, REMAT[name])
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", ARCHS)
 def test_train_step_smoke(name):
-    """The reference's oracle (tests/test_archs_smoke.py) on the port:
-    one step at the config's own dtype, finite, near log(vocab), the
-    parameters moved and finite."""
-    arch = get_arch(name, smoke=True)
-    state = _state(arch, seed=0, opt=AdamWConfig(weight_decay=0.0))
-    first = tree_leaves(state["params"])[0].clone()
-    state2, metrics = make_train_step(arch, AdamWConfig(weight_decay=0.0))(
-        state, _batch(arch, seed=1))
-    loss = float(metrics["loss"])
-    assert np.isfinite(loss), f"{name}: non-finite loss {loss}"
-    assert int(state2["step"]) == 1
-    assert loss < np.log(arch.cfg.vocab_padded) + 2.0, (name, loss)
-    assert not torch.allclose(first, tree_leaves(state2["params"])[0])
-    assert all(bool(torch.isfinite(p).all())
-               for p in tree_leaves(state2["params"]))
+    check_train_step_smoke(name)
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", ARCHS)
 def test_loss_decreases_smoke(name):
-    """The reference's oracle: four steps on one structured batch lower
-    the loss."""
-    arch = get_arch(name, smoke=True)
-    opt = AdamWConfig(weight_decay=0.0, grad_clip_norm=0.0)
-    state = _state(arch, seed=0, opt=opt)
-    batch = _batch(arch, seed=2)
-    step = make_train_step(arch, opt, constant(3e-3))
-    losses = []
-    for _ in range(4):
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
-    assert losses[-1] < losses[0], (name, losses)
+    check_loss_decreases_smoke(name)
 
 
 def test_eval_step_runs_flash_under_no_grad():
@@ -228,24 +186,3 @@ def test_state_spec_matches_init_state(moments):
     ref = jax.tree.leaves(ref_state_spec(ref_arch(NAME, smoke=True),
                                          RefAdamW(moment_dtype=moments)))
     assert [tuple(s.shape) for s in ref] == [s.shape for s in specs]
-
-
-@pytest.mark.parametrize("impl", ["scatter", "shard_map"])
-def test_moe_dispatch_grads_match_dense(impl):
-    """The MoE dispatches' in-place ops (``index_add_`` into a fresh
-    buffer, the k rows added into zeros, the counts' ``scatter_add_``)
-    carry gradients: at a capacity where nothing drops, the scatter and
-    one-shard ``shard_map`` dispatches give the dense all-experts
-    dispatch's gradients (f32, 1e-5 of each leaf's largest)."""
-    base = get_arch("granite-moe-1b-a400m", smoke=True)
-    moe = base.cfg.moe
-    moe = dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.top_k)
-    archs = {i: variant(base, moe=dataclasses.replace(moe, impl=i))
-             for i in ("ref", impl)}
-    state = _state(archs["ref"], seed=9)
-    batch = _batch(archs["ref"], seed=9)
-    _, _, want = value_and_grad(archs["ref"], state["params"], batch)
-    _, _, got = value_and_grad(archs[impl], state["params"], batch)
-    for a, b in zip(tree_leaves(got), tree_leaves(want)):
-        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-    assert float(got["layers"]["moe"]["router"].abs().max()) > 0
