@@ -17,8 +17,10 @@ and five models through the serve launcher
 granite-moe-1b-a400m, the hybrid zamba2-1.2b, the encoder-decoder
 whisper-base and the recurrent xlstm-125m; trains internlm2-1.8b
 through the driver (``repro_torch.train.driver.Trainer``), also on a
-one-rank NCCL mesh; and holds every
-CUDA kernel against its plain PyTorch version.  Phases:
+one-rank NCCL mesh; runs the continuous-batching serving engine
+(``repro_torch.serve``) and launches the split decode route at its
+bucket picks; and holds every CUDA kernel against its plain PyTorch
+version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -81,12 +83,15 @@ CUDA kernel against its plain PyTorch version.  Phases:
    one-CTA overlap pair must have run: no RFO); the L2 knee and the
    layer-condition estimate beside ``l2_bytes``; the overlap fit; the
    power fit (``ChipPower`` from the card's energy counter over a
-   compute-bound matmul on 1-132 SMs, one CTA an SM, every count checked;
+   compute-bound load on 1-132 SMs, the flash tile route in f32, one CTA
+   an SM, every count checked against its plain version;
    a visit whose SM clock leaves 1 % of the law's, or that shows a power
-   cap or a slowdown, raises, which fails the phase), every power field finite and positive with its residual within
-   ``MAX_FIT_RESIDUAL``, beside the idle card's reading and the counter's
-   update period; then a warm run from the same directory, which must
-   fit and measure nothing;
+   cap or a slowdown, raises, which fails the phase, and no visit may draw
+   more than POWER_MARGIN of the card's power limit), every power field
+   finite and positive with its residual within ``MAX_FIT_RESIDUAL``,
+   beside the idle card's reading and the counter's update period; every
+   run's residuals printed; then a warm run from the same directory,
+   which must fit and measure nothing;
 7. the stream loop at 2^26 and 2^20 f32 elements per stream, the stencil
    loop at its three full-size points (both loops' models under the prior
    and the calibrated machine), then the compute loop at its four
@@ -205,18 +210,37 @@ CUDA kernel against its plain PyTorch version.  Phases:
    (``repro_torch.launch.mesh.make_host_mesh``): the driver on the mesh
    bit-equal to the driver without one over three steps, at the smoke
    config and at two layers at full width (f32); deterministic kernels;
-17. one JSON line with the ten kernels (the matmul and attention rows
+17. the serving engine (``repro_torch.serve``): the reference's serving
+   model (8 heads, 16 layers, d 128) in f32 and bf16, its ``BucketModel``
+   on the card's data-sheet machine and then on phase 6's calibrated one
+   (the swap must rebuild every table), each decode bucket from 128 to
+   16384 keys with the model's pick and predicted seconds a
+   request-token; at each bucket the split route for the engine's batch
+   (16 requests, one query row, 8 heads, MHA) at every candidate tiling
+   through the op, each held against the plain version, then timed with
+   the compute loop's timings (every split tiling, the plain version,
+   SDPA, the bound, the combine alone): measured seconds a request-token
+   (kernel time x layers / 16) over predicted, the pick's rank among the
+   measured tilings, no bound share where the batch's KV fits in the L2;
+   the engine on the calibrated machine under the four fault plans at
+   the reference's bench settings, twice each (no request lost, the two
+   logs equal), and ``launch/serve.py --continuous`` as a subprocess; the
+   KV page store on a one-rank NCCL mesh, where a device loss is logical
+   and every page stays bit for bit;
+18. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
-   attention's per path with each model phase's and the train phase's
-   beside the compute loop's and its time at each model's shape, the
-   combine's with the decode's split plan), then the ``ok`` line.
+   attention's per path with each model phase's, the train phase's and
+   the serve phase's beside the compute loop's and its time at each
+   model's shape and at the engine's largest bucket, the combine's with
+   the decode's split plan), then the ``ok`` line.
 
 The calibration, the Eq. 2 sweep, the energy sweep, the models' served
-runs and the train phase's main path count their launches from 0 too,
-each kernel they run at least once; the matmul's count in the kernels
-line adds the power fit's launches to the compute loop's, the
-attention's the served runs' and the train phase's evals'.  The
-time of each phase is printed.
+runs, the train phase's main path and the serve phase's buckets count
+their launches from 0 too, each kernel they run at least once; the
+attention's count in the kernels line adds the power fit's tile
+launches, the served runs', the train phase's evals' and the serve
+phase's split launches to the compute loop's, the combine's the serve
+phase's.  The time of each phase is printed.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
@@ -224,8 +248,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -355,8 +381,14 @@ GATE_LAYERS, GATE_BATCH, GATE_SEQ = 2, 2, 256
 GATE_GRAD_REL, GATE_AGREE_REL, GATE_MASKED_MAX = 2e-3, 1e-4, 0.05
 #: the optimizer's timed calls at each moment dtype
 OPT_TIMED_CALLS = 3
+#: phase 6: the most of the card's power limit a visit of the power sweep
+#: may draw (its load is chosen to stay below it on every SM)
+POWER_MARGIN = 0.95
 #: phase 16: the driver's steps on the one-rank mesh and without one
 DRIVER_MESH_STEPS = 3
+#: phase 17: the reference's serve bench settings (tests/test_serve.py:36-37)
+SERVE_INTERARRIVAL_S = 0.001
+SERVE_STEP_BUDGET_S = 0.001
 #: the device split of a train step (``_train_split``)
 TRAIN_SPLIT = ("forward_gemm_ms", "recompute_ms", "backward_gemm_ms",
                "chunked_attention_ms", "cross_entropy_ms", "optimizer_ms",
@@ -377,7 +409,7 @@ GEMM_NAMES = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
 #: the kernels the calibration times (grid sweeps, stencil sweeps, the
 #: one-CTA pair)
 CALIBRATE_KERNELS = ("grid_map", "grid_reduce", "jacobi2d_grid",
-                     "jacobi3d_grid", "map_pipeline", "matmul")
+                     "jacobi3d_grid", "map_pipeline", "flash_attention")
 #: which points of the stencil loop each stencil kernel serves
 STENCIL_POINTS = {"halo_pipeline": ("2d", "3d", "3d_lc_broken"),
                   "jacobi2d_grid": ("2d",),
@@ -945,10 +977,14 @@ def _calibrate_phase() -> tuple[list[str], object, dict]:
                          "fits": cal.CAL_COUNTERS["fits"],
                          "measurements": cal.CAL_COUNTERS["measurements"],
                          "cache": dict(diskcache.COUNTERS),
-                         "from_cache": report.from_cache if report else None}
+                         "from_cache": report.from_cache if report else None,
+                         "residuals": {f.field: f.residual for f in report.fits}
+                         if report else None}
             if rc != 0 or report is None:
                 failures.append(f"calibrate {run} run exited {rc}")
-                return failures, None, {"runs": runs}
+                return failures, None, {
+                    "runs": runs,
+                    "backend": report.checks.get("backend") if report else None}
             if run == "cold":
                 cold = report
     warm = runs["warm"]
@@ -973,6 +1009,10 @@ def _calibrate_phase() -> tuple[list[str], object, dict]:
     if sorted(f.field for f in cold.fits if f.group == "power") != sorted(
             f"power.{nm}" for nm in cal.POWER_FIELDS):
         failures.append("the calibration fitted no power")
+    peak = cold.checks["backend"]["power"]["peak_share_of_limit"]
+    if not peak <= POWER_MARGIN:
+        failures.append(f"the power sweep drew {peak} of the card's limit, "
+                        f"over {POWER_MARGIN}")
     lc = cold.checks["stencil_lc_breaks"]["L2"]
     record = {
         "phase": "calibrate", "runs": runs,
@@ -1988,6 +2028,19 @@ def _deterministic():
         torch.use_deterministic_algorithms(old[0], warn_only=old[1])
 
 
+def _digest(tree) -> str:
+    """The first 16 hex digits of the sha256 of a tree's leaves' bytes, in
+    leaf order: equal digests across runs mean bit-equal trees, so the
+    digests of a gate's two sides tell which side moved when the gate
+    fails in one run and passes in another."""
+    from repro_torch.models.common import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def _rel_max_diff(got, want) -> float:
     """The largest over leaves of max|got - want| / max|want|."""
     from repro_torch.models.common import tree_leaves
@@ -2054,7 +2107,9 @@ def _train_gates(arch) -> tuple[list[str], dict]:
                             f"{want} on the CPU, {rel} apart (tol {tol})")
     grad_rel = _rel_max_diff(card_grads, cpu_grads)
     rec["grads_card_vs_cpu"] = {"max_rel_to_leaf_max": grad_rel,
-                                "tol": GATE_GRAD_REL}
+                                "tol": GATE_GRAD_REL,
+                                "sha256": {"card": _digest(card_grads),
+                                           "cpu": _digest(cpu_grads)}}
     if not grad_rel <= GATE_GRAD_REL:
         failures.append(f"train gate: the card's grads {grad_rel} of a leaf's "
                         f"largest off the CPU's (tol {GATE_GRAD_REL})")
@@ -2663,6 +2718,221 @@ def _driver_phase() -> tuple[list[str], dict]:
     return failures, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving engine's decode buckets on the card
+# ---------------------------------------------------------------------------
+
+
+def _serve_buckets(cfg) -> tuple[int, ...]:
+    """The engine's decode buckets: powers of two from min_ctx to max_ctx."""
+    out = [cfg.min_ctx]
+    while out[-1] < cfg.max_ctx:
+        out.append(out[-1] * 2)
+    return tuple(out)
+
+
+def _bucket_point(cb: int, dtype, model, cfg, prior, picks: dict
+                  ) -> tuple[list[str], dict]:
+    """One decode bucket ``cb`` on the split route: ``cfg.max_batch``
+    requests of the served model's heads (MHA) one query row each against
+    a ``cb``-token cache.  Every candidate tiling is launched through the
+    op and held against the plain version; the compute loop's timings
+    (``gpu_compute_ecm.timings``: every split tiling, the plain version,
+    SDPA, the bound, the combine) at the prior's ranking; the engine's
+    pick set against the measured tilings and its predicted seconds a
+    request-token against the measured ones (kernel time x layers / the
+    batch).  No bound share where the batch's KV fits in the L2."""
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.core.autotune import rank
+    from repro_torch.kernels.check import compare
+
+    b, h, d = cfg.max_batch, model.heads, model.d
+    point = GC.Point("attention", (b, 1, cb, h, h, d), dtype)
+    inputs = GC.make_inputs(point, "cuda")
+    with GC.full_f32():
+        want = GC.plain_op(point, inputs)
+    failures, checks = [], {}
+    cands = [bk for bk in (128, 256) if cb % bk == 0]
+    for bk in cands:
+        out = GC.op(point, inputs, (1, bk))
+        checks[bk] = compare(out, want, tol=GC.TOLERANCE["attention"][dtype])
+        if not checks[bk][0] or out.shape != want.shape:
+            failures.append(f"decode bucket {cb} {dtype} bk {bk}: "
+                            f"{checks[bk]}")
+    ranked = [r | {"predicted_ms": r["t_ecm"] * b * h * 1e3}
+              for r in rank((1, cb, d), prior, objective="attention",
+                            causal=False, elem_bytes=model.elem_bytes)]
+    tm = GC.timings(point, inputs, ranked, prior)
+    del inputs, want
+    torch.cuda.empty_cache()
+    kv_bytes = 2 * b * cb * h * d * model.elem_bytes
+    resident = kv_bytes <= prior.l2_bytes
+    measured_s = tm["ms"] * 1e-3 * model.layers / b
+    pick = picks["prior"][cb]["bkv"]
+    if [1, pick] != tm["pick"]:
+        failures.append(f"decode bucket {cb} {dtype}: the engine picks "
+                        f"{pick}, rank {tm['pick']}")
+    if not tm["combine"]["check"][0]:
+        failures.append(f"decode bucket {cb} {dtype}: combine "
+                        f"{tm['combine']['check']}")
+    rec = {
+        "cb": cb, "kv_bytes": kv_bytes, "kv_in_l2": resident,
+        "pick_bkv": pick, "smallest_bkv": picks["prior"][cb]["min_bkv"],
+        "checks": {str(k): v for k, v in checks.items()},
+        "measured_ms": tm["measured_ms"], "pick_rank": tm["pick_rank"],
+        "fastest": tm["fastest"], "ms": tm["ms"],
+        "measured_s_per_request_token": measured_s,
+        "predicted_s_per_request_token": {
+            k: v[cb]["s_per_token"] for k, v in picks.items()},
+        "measured_over_predicted": {
+            k: measured_s / v[cb]["s_per_token"] for k, v in picks.items()},
+        "plain_ms": tm["plain_ms"], "library": tm["library"],
+        "library_ms": tm["library_ms"], "library_check": tm["library_check"],
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "bound_share": None if resident else tm["bound_ms"] / tm["ms"],
+        "split_plan": tm["split_plan"],
+        "combine": {k: tm["combine"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                  "check")},
+    }
+    return failures, rec
+
+
+def _bucket_picks(buckets, cbs) -> dict:
+    """The model's decode pick, its smallest tiling and its predicted
+    seconds a request-token (uncalibrated) at each bucket."""
+    return {cb: {"bkv": buckets.decode_block(cb),
+                 "min_bkv": buckets.decode_block(cb, smallest=True),
+                 "s_per_token": buckets.seconds(buckets.decode_cy_per_token(
+                     cb, calibrated=False))} for cb in cbs}
+
+
+def _serve_engine_runs(calibrated) -> tuple[list[str], dict]:
+    """The engine on the calibrated machine under every fault preset at the
+    reference's bench settings, twice each (the logs must be equal), and
+    the launcher's ``--continuous`` as a subprocess on the card."""
+    from repro_torch.serve import (PRESETS, DegradationPolicy, EngineConfig,
+                                   FaultInjector, ServeEngine, TraceConfig,
+                                   fault_plan, synthetic_trace)
+
+    failures, rec = [], {}
+    trace = TraceConfig(mean_interarrival_s=SERVE_INTERARRIVAL_S)
+    for plan in PRESETS:
+        runs = []
+        for _ in range(2):
+            engine = ServeEngine(
+                EngineConfig(machine=calibrated),
+                degrade=DegradationPolicy(step_budget_s=SERVE_STEP_BUDGET_S))
+            summary = engine.run(synthetic_trace(trace, seed=SEED),
+                                 FaultInjector(fault_plan(plan)))
+            runs.append((engine.log, [dataclasses.astuple(s)
+                                      for s in engine.steps], summary))
+        summary = runs[0][2]
+        rec[plan] = {k: summary[k] for k in (
+            "requests", "completed", "lost", "steps", "tok_rate",
+            "latency_p50", "latency_p99", "deadline_hits", "events",
+            "recovery", "degrade_max_level", "n_devices_final",
+            "step_pred_measured", "calibration")} | {
+            "replay_equal": runs[0] == runs[1]}
+        if summary["lost"] or summary["completed"] != trace.n_requests \
+                or runs[0] != runs[1]:
+            failures.append(f"serve engine {plan}: {rec[plan]}")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--continuous",
+         "--requests", "64"], env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=600)
+    rec["launcher"] = {"rc": r.returncode, "s": time.perf_counter() - t0}
+    try:
+        summary = json.loads(r.stdout)
+        rec["launcher"] |= {k: summary[k] for k in ("lost", "completed",
+                                                    "steps", "tok_rate")}
+    except json.JSONDecodeError:
+        rec["launcher"]["stderr"] = r.stderr[-2000:]
+    if r.returncode != 0 or rec["launcher"].get("lost") != 0:
+        failures.append(f"serve launcher --continuous: {rec['launcher']}")
+    return failures, rec
+
+
+def _serve_kv_store() -> tuple[list[str], dict]:
+    """The KV page store on the one-rank NCCL mesh: attached as DTensors
+    over ``data``, a device loss on a data axis of 1 is logical and leaves
+    every page bit for bit; the group is destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import EngineConfig, ServeEngine
+    from repro_torch.serve.faults import DeviceLoss, apply_device_loss
+
+    failures = []
+    mesh = make_host_mesh(model=1, device="cuda")
+    try:
+        engine = ServeEngine(EngineConfig(n_devices=1))
+        store = engine.attach_kv_store(mesh)
+        before = {k: v.full_tensor().clone() for k, v in store.items()}
+        apply_device_loss(engine, DeviceLoss(step=0, axis="data"))
+        event = engine.events("device_loss")[0]
+        rec = {"mesh": list(mesh.shape), "backend": dist.get_backend(),
+               "device": str(before["kv_pages"].device),
+               "shapes": {k: list(v.shape) for k, v in before.items()},
+               "event": {k: event[k] for k in ("resharded", "n_devices_before",
+                                               "n_devices_after")},
+               "pages_equal": all(torch.equal(v.full_tensor(), before[k])
+                                  for k, v in engine.kv_store.items())}
+    finally:
+        dist.destroy_process_group()
+    if rec["event"]["resharded"] or not rec["pages_equal"] \
+            or rec["device"] == "cpu":
+        failures.append(f"serve KV store: {rec}")
+    return failures, rec
+
+
+def _serve_phase(prior, calibrated) -> tuple[list[str], dict]:
+    """Phase 17 (module notes): the decode buckets of the reference's
+    serving model at f32 and bf16 on the split route, the engine under
+    every fault plan on the calibrated machine, the launcher, the KV page
+    store.  The split and combine launches are counted from 0."""
+    from repro_torch import kernels
+    from repro_torch.serve import BucketModel, EngineConfig, ServingModel
+
+    cfg = EngineConfig()
+    cbs = _serve_buckets(cfg)
+    failures, rec = [], {"card": _card_line(), "batch": cfg.max_batch,
+                         "buckets": list(cbs), "dtypes": {}}
+    kernels.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        model = ServingModel(elem_bytes=torch.empty((), dtype=dtype).element_size())
+        buckets = BucketModel(prior, model, min_ctx=cfg.min_ctx,
+                              max_ctx=cfg.max_ctx)
+        picks = {"prior": _bucket_picks(buckets, cbs)}
+        buckets.machine = calibrated
+        picks["calibrated"] = _bucket_picks(buckets, cbs)
+        counters = dict(buckets.counters)
+        if counters != {"ranked": 2 * len(cbs), "from_cache": 0, "rebuilds": 1}:
+            failures.append(f"serve buckets {dtype}: the calibrated machine did "
+                            f"not rebuild the tables: {counters}")
+        points = []
+        for cb in cbs:
+            f, point = _bucket_point(cb, dtype, model, cfg, prior, picks)
+            failures += f
+            points.append(point)
+        rec["dtypes"][str(dtype).removeprefix("torch.")] = {
+            "model": dataclasses.asdict(model), "counters": counters,
+            "picks": picks, "points": points}
+    rec["launches"] = {"flash_attention": kernels.FLASH_ATTENTION.launches,
+                       "flash_attention_by_route": dict(
+                           kernels.FLASH_ATTENTION.launches_by_route),
+                       "flash_combine": kernels.FLASH_COMBINE.launches}
+    by_route = rec["launches"]["flash_attention_by_route"]
+    if by_route["tile"] or not by_route["split"] \
+            or rec["launches"]["flash_combine"] < by_route["split"]:
+        failures.append(f"serve buckets launched {rec['launches']}")
+    f, rec["engine"] = _serve_engine_runs(calibrated)
+    failures += f
+    f, rec["kv_store"] = _serve_kv_store()
+    failures += f
+    return failures, rec
+
+
 def _check_compute_report(report: dict) -> list[str]:
     where = f"{report['op']} {report['dims']} {report['dtype']}"
     out, failures = report["output"], []
@@ -2798,6 +3068,8 @@ def main() -> int:
     kernels.reset_launches()
     failures, calibrated, record = _calibrate_phase()
     record["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    record["attention_launches_by_route"] = dict(
+        kernels.FLASH_ATTENTION.launches_by_route)
     record["s"] = time.perf_counter() - t_path
     print(json.dumps(record))
     failures += [f"{k} was not launched by the calibration"
@@ -2974,17 +3246,38 @@ def main() -> int:
                      | driver | {"s": model_s["driver"]}))
     failures += driver_failures
     torch.cuda.empty_cache()
+
+    # 17. the serving engine: its decode buckets on the split route, the
+    # engine and its KV page store; the split and combine launches counted
+    # from 0
+    t_path = time.perf_counter()
+    serve_failures, serve = _serve_phase(machine, calibrated)
+    model_s["serve"] = time.perf_counter() - t_path
+    tag = {"phase": "17 serve"}
+    for name, rec in serve["dtypes"].items():
+        print(json.dumps(tag | {"dtype": name} | {
+            k: v for k, v in rec.items() if k != "points"}))
+        for point in rec["points"]:
+            print(json.dumps(tag | {"dtype": name} | point))
+    print(json.dumps(tag | {k: v for k, v in serve.items() if k != "dtypes"}
+                     | {"s": model_s["serve"]}))
+    failures += serve_failures
+    torch.cuda.empty_cache()
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
         "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 17. the kernels line; the matmul's launches add the power fit's, the
-    # attention's the model phases'
-    launches["matmul"] += record["launches"]["matmul"]
+    # 18. the kernels line; the attention's launches add the power fit's,
+    # the model phases' and the serve phase's, the combine's the serve
+    # phase's
     model_launches = {name: m["launches"]["flash_attention"]
                       for name, m in models.items()}
-    launches["flash_attention"] += sum(model_launches.values())
+    power_launches = record["launches"]["flash_attention"]
+    launches["flash_attention"] += power_launches \
+        + sum(model_launches.values()) + serve["launches"]["flash_attention"]
+    launches["flash_combine"] += serve["launches"]["flash_combine"]
+    serve_points = [p for rec in serve["dtypes"].values() for p in rec["points"]]
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
               "reduce": [o for o in G.OPS if o in kernels.pipeline.REDUCE_OPS]}
     rows = []
@@ -2992,12 +3285,18 @@ def main() -> int:
         op, path, family, served = KERNEL_VIEW[k.name]
         if k is kernels.FLASH_COMBINE:
             rec = compute[op]["timings"]["combine"]
-            checks = [rec["check"]]
+            checks = [rec["check"]] + [p["combine"]["check"] for p in serve_points]
             rec = rec | {"ms": {path: rec["ms"]}}
             where = {"op": op, "path": path, "dims": compute[op]["dims"],
-                     "split_plan": compute[op]["timings"]["split_plan"]}
+                     "split_plan": compute[op]["timings"]["split_plan"],
+                     "launches_by_path": {
+                         "compute": launches[k.name]
+                         - serve["launches"]["flash_combine"],
+                         "serve decode buckets": serve["launches"]["flash_combine"]}}
         elif family == "compute":
             checks = [compute[pt]["check"] for pt in served]
+            if k is kernels.FLASH_ATTENTION:
+                checks += [c for p in serve_points for c in p["checks"].values()]
             tm = compute[op]["timings"]
             rec = tm | {"ms": {path: tm["ms"]}}
             where = {"op": op, "path": path, "block": compute[op]["block"],
@@ -3014,9 +3313,6 @@ def main() -> int:
             rec = full["timings"]["ops"][op]
             where = {"op": op, "path": path, "n": full["n"]}
         if k is kernels.MATMUL:
-            where["launches_by_path"] = {
-                "compute": launches["matmul"] - record["launches"]["matmul"],
-                "calibrate (power fit)": record["launches"]["matmul"]}
             where["launches_by_route"] = matmul_routes
             where["by_route"] = {
                 kernels.matmul.kernel.route_of(GC.POINTS[pt].dtype): {
@@ -3026,13 +3322,25 @@ def main() -> int:
                         "ms", "plain_ms", "library_ms", "bound_ms")}}
                 for pt in served}
         if k is kernels.FLASH_ATTENTION:
+            serve_launches = serve["launches"]["flash_attention"]
             where["launches_by_path"] = {
-                "compute": launches[k.name] - sum(model_launches.values()),
-                **{f"model {n}": v for n, v in model_launches.items()}}
+                "compute": launches[k.name] - power_launches
+                - sum(model_launches.values()) - serve_launches,
+                "calibrate (power fit)": power_launches,
+                **{f"model {n}": v for n, v in model_launches.items()},
+                "serve decode buckets": serve_launches}
             where["launches_by_route"] = {
-                r: n + sum(m["attention_launches_by_route"][r]
-                           for m in models.values())
+                r: n + record["attention_launches_by_route"][r]
+                + sum(m["attention_launches_by_route"][r]
+                      for m in models.values())
+                + serve["launches"]["flash_attention_by_route"][r]
                 for r, n in attention_routes.items()}
+            where["at_engine_buckets"] = {
+                name: {key: rec["points"][-1][key] for key in (
+                    "cb", "pick_bkv", "pick_rank", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_share",
+                    "measured_over_predicted")}
+                for name, rec in serve["dtypes"].items()}
             where["at_model_shape"] = {
                 name: {key: m["attention"][key] for key in (
                     "dims", "dtype", "block", "check", "ms", "plain_ms",

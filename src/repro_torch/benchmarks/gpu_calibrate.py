@@ -12,8 +12,11 @@ calibration what it fits:
   the host, vary by tens of percent) less the kernel's per-launch floor,
   the time of one 64-row block timed the same way.  Without it, the
   floor (a few us) would set the L2-resident points, and with them the
-  knee.  Given ``sustained_bw``, it returns the port's model response
-  instead (``calibrate.stream_response``): the fits bisect through it.
+  knee.  Each point is the median of :data:`STREAM_PASSES` passes over
+  the sweep, ascending and descending in turn, as the L2 sweep takes
+  its points; every pass is kept (``info()["stream_passes"]``).  Given
+  ``sustained_bw``, it returns the port's model response instead
+  (``calibrate.stream_response``): the fits bisect through it.
 * ``l2_sweep(kernel, sizes_bytes)``: ``(rows, seconds)`` of one launch of
   the grid kernel at each L2-resident working set, on a grid of whole
   waves: :data:`L2_WAVE_CTAS` blocks an SM, the block height set by the
@@ -28,19 +31,26 @@ calibration what it fits:
 * ``pipeline_pair()``: one CTA of the map pipeline, ``striad`` at 2^26,
   depths 1 and 2 (the stream loop's one-SM pair).
 * ``rfo_pair()``: ``striad`` against the one-pass ``striad_rmw``, both on
-  the grid map at 2^26, in turns (each turn's time kept in ``info()``).
+  the grid map at 2^26, the median of three turns each
+  (:data:`RFO_TURNS`; each turn's time kept in ``info()``).
 * ``power_grid(n_grid, f_grid)``: the card's watts with ``n`` SMs busy,
   read by ``power.PowerReader`` (the energy counter between two of its
   updates, each window at least a second).  The law's premise is that
   each busy SM adds the same power, which holds where the SMs share no
-  bottleneck, so the load is compute-bound: the FFMA route of the
-  matmul, f32, :data:`POWER_BLOCK`, on ``(128, POWER_K) @ (POWER_K, 256
-  n)``, so ``n`` CTAs of one an SM (the registers ``-Xptxas -v`` gave
-  the kernel and its shared memory both allow one; checked).  The counts
-  are visited ascending, then descending; each takes the median of its
-  two readings, so a drift of the card shows as a spread, not a slope.
-  Every count's output is held against the plain ``torch.matmul`` with
-  TF32 off at the reference's f32 tolerance, and a failed check raises.
+  bottleneck, so the load is compute-bound on FFMA: the flash-attention
+  tile route, f32, :data:`POWER_TILE` at head dim :data:`POWER_D`, one
+  query block of ``POWER_TILE[0]`` rows for each of ``n`` heads against
+  one shared KV head of :data:`POWER_SK` keys (read from HBM once, then
+  from the L2), so ``n`` CTAs of one an SM (the registers ``-Xptxas -v``
+  gave the kernel and its shared memory both allow one; checked), light
+  enough that all the SMs together stay under the card's power limit
+  (the share of the limit the busiest visit drew is reported).  The
+  counts are visited ascending, then descending; each takes the median
+  of its two readings, so a drift of the card shows as a spread, not a
+  slope.
+  Every count's output is held against the plain attention
+  (``kernels/attention/ref.py``) at the reference's f32 tolerance, and a
+  failed check raises.
   Before the sweep the card idles (no kernel for ``power.IDLE_S``): that
   reading, with its SM clock, goes beside the fit in ``info()`` and is
   not fitted.  The port sets no clock, so the card runs at one and
@@ -67,16 +77,16 @@ from ..core.machine import GPUMachineModel
 from ..kernels import _build
 from ..kernels import pipeline as P
 from ..kernels.check import compare
-from ..kernels.matmul import kernel as MK
-from ..kernels.matmul import ops as MO
-from ..kernels.matmul import ref as MR
+from ..kernels.attention import kernel as AK
+from ..kernels.attention import ops as AO
+from ..kernels.attention import ref as AR
 from ..kernels.stencil import kernel as SK
 from ..kernels.stream import kernel as K
 from ..kernels.stream import ops
 from . import gpu_stream_ecm as G
 from .gpu_compute_ecm import full_f32
 from .power import CLOCK_RTOL, SLOWDOWN, PowerReader
-from .timing import time_call, time_graph
+from .timing import REPEATS, time_call, time_graph
 
 LANES = P.LANES
 SEED = 0
@@ -92,14 +102,30 @@ L2_WAVE_CTAS = 3
 #: takes its median, so a drift of the card within one pass shows in
 #: neither the line nor its residual
 L2_PASSES = 5
+#: the RFO pair's timings, in turns: three of each kernel
+RFO_TURNS = ("striad", "striad_rmw", "striad_rmw", "striad", "striad",
+             "striad_rmw")
 #: stencil coefficients (c0 != 0, so both products round)
 STENCIL_COEFFS = {2: (0.3, 0.175), 3: (0.3, 0.1)}
-#: the power sweep's load: an FFMA tile of 128 x 256 outputs, 32 deep, one
-#: CTA an SM, on a K that makes a call ~0.75 ms (K = 8192 would put f32
-#: rounding differences with the plain version at ~5 sigma of the
-#: reference's atol 1e-3; 4096 keeps them at ~10)
-POWER_BLOCK = (128, 256, 32)
-POWER_K = 4096
+#: passes over each stream and capacity sweep, ascending and descending
+#: in turn, as the L2 sweep's; each point takes its median, so neither a
+#: drift of the card nor a brief slowdown moves the fits or the knee.  A
+#: slowdown at a turn, where a point is timed twice in a row, moves two
+#: of five (three passes let it move two of three and fail a fit); a
+#: kernel's first timing, after another kernel's, one of five.  A pass
+#: times a point by one graph replay (STREAM_PASS_REPEATS), so a point
+#: takes five replays, as the one pass of five did before
+STREAM_PASSES = 5
+STREAM_PASS_REPEATS = 1
+#: the power sweep's load (module notes): the tile route's (bq, bk) at
+#: head dim POWER_D, its query heads on one KV head of POWER_SK keys.  The
+#: FFMA matmul's 128 x 256 tile (32 deep) on every SM drew so close to the
+#: card's power limit that the card capped its clock, and its 64 x 256
+#: tile drew more (more shared-memory reads a product); this tile issues
+#: fewer FFMA a cycle than either and draws less.
+POWER_TILE = (128, 128)
+POWER_D = 128
+POWER_SK = 4096
 #: registers of one SM (Hopper)
 SM_REGISTERS = 65536
 
@@ -169,6 +195,7 @@ class CardBackend:
         self.launch_floor_ms: dict[str, float] = {}
         self.rfo_turns_ms: list[tuple[str, float]] = []
         self.l2_passes_s: list[list[float]] = []
+        self.stream_passes: list[dict] = []
         self.power: dict = {}
 
     def _pool(self, n: int) -> torch.Tensor:
@@ -182,11 +209,11 @@ class CardBackend:
         return self.launch_floor_ms[name]
 
     def _time(self, name: str, rows: int, pool: torch.Tensor | None = None,
-              block_rows: int = K.BLOCK_ROWS) -> float:
+              block_rows: int = K.BLOCK_ROWS, repeats: int = REPEATS) -> float:
         """ms of one launch of ``name``'s grid kernel on ``rows`` rows a
-        stream, its inputs consecutive slices of ``pool``: a CUDA-graph
-        replay of the launches that fill about GRAPH_FILL_S at the data
-        sheet's rate."""
+        stream, its inputs consecutive slices of ``pool``: the median of
+        ``repeats`` CUDA-graph replays of the launches that fill about
+        GRAPH_FILL_S at the data sheet's rate."""
         n_in = _inputs(name)
         if pool is None:
             pool = self._pool(n_in * rows * LANES)
@@ -195,20 +222,28 @@ class CardBackend:
         t_est = (stream_count(name) * rows * LANES * 4
                  / self.machine.hbm_bytes_per_s)
         launches = int(min(100, max(4, GRAPH_FILL_S // t_est)))
-        return time_graph(grid_call(name, ins, rows, block_rows), launches)
+        return time_graph(grid_call(name, ins, rows, block_rows), launches,
+                          repeats)
 
     def _measure(self, name: str, sizes_bytes) -> np.ndarray:
-        """Cycles per row of ``name`` at each working set, the floor off."""
+        """Cycles per row of ``name`` at each working set, the floor off:
+        the median of STREAM_PASSES passes, forwards and backwards in
+        turn, every pass kept in ``stream_passes``."""
         floor = self._floor_ms(name)
         rows = [rows_for(ws, stream_count(name)) for ws in sizes_bytes]
         pool = self._pool(_inputs(name) * max(rows) * LANES)
-        out = np.empty(len(rows))
-        for j, r in enumerate(rows):
-            t = self._time(name, r, pool)
-            out[j] = (t - floor) * 1e-3 * self.machine.clock_hz / r
+        order = list(range(len(rows)))
+        passes = np.empty((STREAM_PASSES, len(rows)))
+        for p in range(STREAM_PASSES):
+            for j in (order if p % 2 == 0 else order[::-1]):
+                t = self._time(name, rows[j], pool,
+                               repeats=STREAM_PASS_REPEATS)
+                passes[p, j] = (t - floor) * 1e-3 * self.machine.clock_hz / rows[j]
         del pool
+        self.stream_passes.append({"kernel": name, "rows": rows,
+                                   "cy_per_row": passes.tolist()})
         torch.cuda.empty_cache()
-        return out
+        return np.median(passes, axis=0)
 
     def stream_sweep(self, kernels, sizes_bytes, *,
                      sustained_bw=None) -> np.ndarray:
@@ -280,30 +315,33 @@ class CardBackend:
 
     def rfo_pair(self) -> tuple[float, float]:
         """(striad, striad_rmw) seconds on the grid map at 2^26, each the
-        mean of two timings taken in turns (striad, striad_rmw,
-        striad_rmw, striad), so a drift of the card shows in neither."""
+        median of three timings taken in turns (striad, striad_rmw,
+        striad_rmw, striad, striad, striad_rmw), so neither a drift of
+        the card nor one slow timing moves either (with the mean of two
+        turns, one slow timing could fail the verdict)."""
         cal.CAL_COUNTERS["measurements"] += 1
         a, b, c, _ = self._streams()
         calls = {"striad": lambda: ops.striad(G.S, b, c),
                  "striad_rmw": lambda: ops.striad_rmw(G.S, a, b, c)}
-        t = {k: 0.0 for k in calls}
-        for k in ("striad", "striad_rmw", "striad_rmw", "striad"):
+        t = {k: [] for k in calls}
+        for k in RFO_TURNS:
             ms = time_call(calls[k])[0]
             self.rfo_turns_ms.append((k, ms))
-            t[k] += ms * 1e-3 / 2
-        return t["striad"], t["striad_rmw"]
+            t[k].append(ms * 1e-3)
+        return float(np.median(t["striad"])), float(np.median(t["striad_rmw"]))
 
     def power_ctas_per_sm(self) -> dict:
         """CTAs of the power sweep's kernel an SM holds, by its registers
         (``-Xptxas -v``, allocated in 8s a thread) and by its shared
         memory; the library must be built."""
-        bm, bn, bk = POWER_BLOCK
-        tag = f"matmul_ffma<{bm}, {bn}, {bk}, {MK.FFMA_STAGES}>"
-        entry = next(e for e in _build.ptxas_report("matmul")
+        bq, bk = POWER_TILE
+        tag = f"flash_tile<float, {bq}, {bk}, {POWER_D}>"
+        entry = next(e for e in _build.ptxas_report("attention")
                      if tag in e["kernel"])
-        regs = -(-entry["registers"] // 8) * 8 * MK.FFMA_THREADS
+        threads = AK.tile_panels(bq, bk, POWER_D)[0]
+        regs = -(-entry["registers"] // 8) * 8 * threads
         props = torch.cuda.get_device_properties(self.device)
-        smem = MK.smem_bytes(bm, bn, bk, torch.float32)
+        smem = AK.smem_bytes(bq, bk, POWER_D)
         return {"kernel": entry["kernel"], "registers": entry["registers"],
                 "spill_stores": entry["spill_stores"], "smem_bytes": smem,
                 "by_registers": SM_REGISTERS // regs,
@@ -319,23 +357,28 @@ class CardBackend:
         reader = PowerReader(self.device)
         period = reader.update_period()
         idle = reader.idle()
-        bm, bn, bk = POWER_BLOCK
+        bq, bk = POWER_TILE
         g = torch.Generator(device=self.device).manual_seed(SEED)
-        x = torch.randn(bm, POWER_K, generator=g, device=self.device)
-        pool = torch.randn(POWER_K * bn * max(n_grid), generator=g,
-                           device=self.device)
+        q = torch.randn(1, bq, max(n_grid), POWER_D, generator=g,
+                        device=self.device)
+        k, v = (torch.randn(1, POWER_SK, 1, POWER_D, generator=g,
+                            device=self.device) for _ in range(2))
         checks, readings = {}, {n: [] for n in n_grid}
         points = []
         for n in list(n_grid) + list(n_grid)[::-1]:
-            y = pool[:POWER_K * bn * n].view(POWER_K, bn * n)
-            call = (lambda y=y: MO.matmul(x, y, bm=bm, bn=bn, bk=bk))
+            qn = q[:, :, :n]
+            call = (lambda qn=qn: AO.flash_attention(qn, k, v, causal=False,
+                                                     bq=bq, bk=bk))
             if n not in checks:
                 with full_f32():
-                    checks[n] = compare(call(), MR.matmul(x, y),
-                                        tol=MR.TOLERANCE[torch.float32])
+                    want = AR.attention(*AO.fused_inputs(qn, k, v),
+                                        causal=False)
+                checks[n] = compare(
+                    call(), want.reshape(1, n, bq, POWER_D).permute(0, 2, 1, 3),
+                    tol=AR.TOLERANCE[torch.float32])
                 if not checks[n][0]:
-                    raise RuntimeError(f"power sweep: the matmul on {n} CTAs "
-                                       f"differs from its plain version: "
+                    raise RuntimeError(f"power sweep: the attention on {n} "
+                                       f"CTAs differs from its plain version: "
                                        f"{checks[n]}")
             w = reader.run(call)
             readings[n].append(w.watts)
@@ -348,18 +391,23 @@ class CardBackend:
         if min(occupancy["by_registers"], occupancy["by_smem"]) != 1:
             raise RuntimeError(f"power sweep: not one CTA an SM: {occupancy}")
         watts = [float(np.median(readings[n])) for n in n_grid]
+        limit = reader.power_limit_w()
         self.power = {
             "counter_period_s": period,
             "counter_updates_per_s": reader.updates_per_s,
             "counter_read_s": reader.read_s,
-            "power_limit_w": reader.power_limit_w(), "bus_id": reader.bus_id,
-            "idle": idle.summary(), "block": list(POWER_BLOCK), "k": POWER_K,
+            "power_limit_w": limit, "bus_id": reader.bus_id,
+            "peak_share_of_limit": max(p["watts"] for p in points) / limit,
+            "idle": idle.summary(),
+            "load": {"kernel": "flash_attention tile", "dtype": "float32",
+                     "block": list(POWER_TILE), "d": POWER_D,
+                     "sk": POWER_SK},
             "ctas_per_sm": occupancy, "points": points,
             "watts": dict(zip(n_grid, watts)),
             "spread": {n: abs(r[0] - r[-1]) / float(np.median(r))
                        for n, r in readings.items()},
             "checks": checks}
-        del pool
+        del q, k, v
         torch.cuda.empty_cache()
         return np.array([watts])
 
@@ -372,6 +420,7 @@ class CardBackend:
                     float(s) for s in cal.l2_plateau_sizes(self.machine)],
                 "l2_wave_ctas": L2_WAVE_CTAS,
                 "l2_passes_s": self.l2_passes_s,
+                "stream_passes": self.stream_passes,
                 "stencil_rows": dict(cal.STENCIL_ROWS),
                 "block_rows": K.BLOCK_ROWS,
                 "power": self.power}

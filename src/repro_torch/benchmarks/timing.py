@@ -40,10 +40,11 @@ def time_call(fn, inner: int = INNER) -> tuple[float, float]:
 GRAPH_LAUNCHES = 100  # launches captured in one CUDA graph
 
 
-def time_graph(fn, launches: int = GRAPH_LAUNCHES) -> float:
+def time_graph(fn, launches: int = GRAPH_LAUNCHES,
+               repeats: int = REPEATS) -> float:
     """Device ms per call of ``fn`` replayed from a CUDA graph of
-    ``launches`` calls: the median over REPEATS replays, each behind the
-    same busy-wait as :func:`time_call`.  For launches of a few us, whose
+    ``launches`` calls: the median over ``repeats`` replays, each behind
+    the same busy-wait as :func:`time_call`.  For launches of a few us, whose
     times back to back from the host vary by tens of percent: one replay
     enqueues them all at once.  ``fn`` runs twice on a side stream first
     (the capture needs its kernels loaded and its memory pooled)."""
@@ -62,7 +63,7 @@ def time_graph(fn, launches: int = GRAPH_LAUNCHES) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     dev = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         graph.replay()

@@ -31,20 +31,24 @@ from pathlib import Path
 
 #: Data-sheet rates by card name, as ``torch.cuda.get_device_name`` gives
 #: it: HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense bf16
-#: FLOP/s on the tensor cores, and the boost clock that links the rates to
-#: cycles.  H100 SXM: NVIDIA H100 data sheet (3.35 TB/s HBM3, 67 TFLOP/s
-#: FP32 = 132 SMs x 128 lanes x 2 x 1.98 GHz, 989 TFLOP/s bf16 dense).
+#: FLOP/s on the tensor cores, the boost clock that links the rates to
+#: cycles, and the NVLink bytes/s a card sends each way (the counterpart
+#: of the reference's ``ici_link_bytes_per_s * ici_links_per_chip``).
+#: H100 SXM: NVIDIA H100 data sheet (3.35 TB/s HBM3, 67 TFLOP/s FP32 =
+#: 132 SMs x 128 lanes x 2 x 1.98 GHz, 989 TFLOP/s bf16 dense, 900 GB/s
+#: NVLink = 18 links x 25 GB/s x 2 directions, so 450 GB/s each way).
 DATASHEET: dict[str, dict[str, float]] = {
     "NVIDIA H100 80GB HBM3": {
         "hbm_bytes_per_s": 3.35e12,
         "peak_f32_flops": 67e12,
         "peak_bf16_tensor_flops": 989e12,
         "clock_hz": 1.98e9,
+        "nvlink_bytes_per_s": 450e9,
     },
 }
 
 _PRIOR_FIELDS = ("hbm_bytes_per_s", "peak_f32_flops", "peak_bf16_tensor_flops",
-                 "clock_hz")
+                 "clock_hz", "nvlink_bytes_per_s")
 
 
 @dataclass(frozen=True)
@@ -107,6 +111,10 @@ class GPUMachineModel:
 
     ``power`` is the chip power over the SMs (§III-D): the card's prior
     from :data:`POWER_PRIORS` until the calibration fits it.
+
+    ``nvlink_bytes_per_s`` is a data-sheet prior that nothing fits (one
+    card has no link to measure); ``None`` in a machine file written
+    before it existed.
     """
 
     name: str
@@ -125,6 +133,7 @@ class GPUMachineModel:
     measured_bw: dict = field(default_factory=dict)
     l2_bytes_per_s: float | None = None
     write_allocate: bool = False
+    nvlink_bytes_per_s: float | None = None
 
     @classmethod
     def from_device(cls, device) -> "GPUMachineModel":

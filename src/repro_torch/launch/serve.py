@@ -1,5 +1,6 @@
-"""Serving launcher: batched prefill + decode with a KV or state cache
-(the static path of the reference's ``repro/launch/serve.py``).
+"""Serving launcher: batched prefill + decode with a KV or state cache,
+or the continuous-batching engine over a synthetic trace (the
+reference's ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b --batch 4 \\
         --prompt-len 16 --gen 8 [--no-smoke] [--device cuda]
@@ -15,9 +16,19 @@ and ``tokens``.  It runs on the card unless ``--device cpu`` is passed.
 ``--smoke`` (the default, as in the reference) takes the arch's reduced
 config, ``--no-smoke`` its full one.  An encoder-only arch
 (``has_decoder`` false) is skipped, as the reference skips it.
-``--continuous`` (the continuous-batching engine, ROADMAP §1 item 6) and
-a ``--mesh`` other than ``host`` (serving on a mesh, ROADMAP §1 item 5c)
-are not ported and raise.
+
+    python -m repro_torch.launch.serve --continuous [--requests 64] \\
+        [--faults none|device_loss|slow_step|kv_corruption] [--device cuda]
+
+runs the model-guided continuous-batching engine (``repro_torch.serve``)
+over a synthetic trace of ``--requests`` requests drawn from ``--seed``:
+requests arrive, are admitted against their ECM-predicted finish times,
+and the summary JSON reports throughput and latency on the engine's
+virtual clock plus the event counts; it exits 1 when a request is lost.
+The buckets rank on the card's model (``GPUMachineModel.from_device``),
+or on the data sheet's H100 SXM (``H100_SXM``) with ``--device cpu``.
+A ``--mesh`` other than ``host`` (serving on a mesh, ROADMAP §1 item 5c)
+is not ported and raises.
 """
 from __future__ import annotations
 
@@ -117,25 +128,52 @@ def _parser() -> argparse.ArgumentParser:
                     choices=("host", "single-pod", "multi-pod"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true",
-                    help="the continuous-batching engine (not ported)")
+                    help="run the ECM-guided continuous-batching engine "
+                         "over a synthetic trace (repro_torch.serve)")
     ap.add_argument("--requests", type=int, default=64,
                     help="trace length for --continuous")
     ap.add_argument("--faults", default="none",
-                    help="fault plan for --continuous")
+                    help="fault plan for --continuous "
+                         "(none/device_loss/slow_step/kv_corruption)")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs (default: cuda)")
     return ap
 
 
+def _continuous(args) -> int:
+    """Trace-driven engine mode on a virtual clock; the buckets rank on
+    the card's model, or the data sheet's with ``--device cpu``."""
+    from ..core.machine import H100_SXM, GPUMachineModel
+    from ..serve import (EngineConfig, FaultInjector, ServeEngine,
+                         TraceConfig, fault_plan, synthetic_trace)
+
+    device = _device(args.device)
+    machine = (H100_SXM if device.type == "cpu"
+               else GPUMachineModel.from_device(device))
+    engine = ServeEngine(EngineConfig(machine=machine, seed=args.seed))
+    trace = synthetic_trace(
+        TraceConfig(n_requests=args.requests), seed=args.seed)
+    summary = engine.run(trace, FaultInjector(fault_plan(args.faults)))
+    print(json.dumps(summary, indent=1, default=str))
+    return 0 if summary["lost"] == 0 else 1
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to serve on "
+                           "the CPU")
+    return device
+
+
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.continuous:
-        raise NotImplementedError("--continuous: the continuous-batching "
-                                  "engine is not ported yet (ROADMAP §1 item 6)")
     if args.mesh != "host":
         raise NotImplementedError(f"--mesh {args.mesh}: serving on a mesh is "
                                   f"not ported yet (ROADMAP §1 item 5c)")
+    if args.continuous:
+        return _continuous(args)
     try:
         arch = get_arch(args.arch, smoke=args.smoke)
     except KeyError as e:
@@ -143,10 +181,7 @@ def main(argv=None) -> int:
     if not arch.has_decoder:
         print(f"{arch.name}: encoder-only, nothing to serve")
         return 0
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to serve on "
-                           "the CPU")
+    device = _device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = cast_params(materialize(arch.param_spec(), gen, device=device),
                          arch.cfg.dtype)

@@ -445,3 +445,86 @@ def test_no_card_no_fallback(capsys):
     assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="CUDA"):
         CardBackend(H100_SXM)
+
+
+def _fake_sweep_backend(monkeypatch, slow: set):
+    """The card backend's stream sweep on a fake clock: a launch of
+    ``rows`` rows takes ``rows`` ns, twice that at the positions of
+    ``slow`` in the order of the timings; returns the backend and the
+    timings' record."""
+    from repro_torch.benchmarks import gpu_calibrate as GC
+
+    seq = []
+
+    def fake_time(self, name, rows, pool=None, block_rows=64,
+                  repeats=GC.REPEATS):
+        seq.append((name, rows, repeats))
+        return rows * 1e-6 * (2.0 if len(seq) - 1 in slow else 1.0)
+
+    monkeypatch.setattr(GC.CardBackend, "_time", fake_time)
+    monkeypatch.setattr(GC.CardBackend, "_pool", lambda self, n: None)
+    backend = object.__new__(GC.CardBackend)
+    backend.machine, backend.device = H100_SXM, torch.device("cpu")
+    backend.launch_floor_ms, backend.stream_passes = {}, []
+    return backend, seq
+
+
+def test_stream_sweep_passes_outvote_a_brief_slowdown(monkeypatch):
+    """``CardBackend.stream_sweep`` on a fake clock: each point is the
+    median of STREAM_PASSES passes, forwards and backwards in turn, each
+    timed with STREAM_PASS_REPEATS replays and kept; a slowdown over any
+    two or three consecutive timings of the sweep (at a turn a point is
+    timed twice in a row) moves no point."""
+    from repro_torch.benchmarks import gpu_calibrate as GC
+
+    kernels, sizes = ["copy", "schoenauer", "striad"], cal.deep_sizes(H100_SXM)
+    backend, seq = _fake_sweep_backend(monkeypatch, set())
+    want = backend.stream_sweep(kernels, sizes)
+    assert want.shape == (len(kernels), len(sizes))
+    assert len(seq) == len(kernels) * (1 + GC.STREAM_PASSES * len(sizes))
+    assert {r for _, rows, r in seq if rows != GC.K.BLOCK_ROWS} == \
+        {GC.STREAM_PASS_REPEATS}
+    assert [rec["kernel"] for rec in backend.stream_passes] == kernels
+    for rec in backend.stream_passes:
+        assert np.array(rec["cy_per_row"]).shape == (GC.STREAM_PASSES,
+                                                     len(sizes))
+        mine = [rows for name, rows, _ in seq if name == rec["kernel"]][1:]
+        for p in range(GC.STREAM_PASSES):
+            got = mine[p * len(sizes):(p + 1) * len(sizes)]
+            assert got == (rec["rows"] if p % 2 == 0 else rec["rows"][::-1])
+    swept = [i for i, (_, rows, _) in enumerate(seq) if rows != GC.K.BLOCK_ROWS]
+    for width in (2, 3):
+        for k in range(len(seq) - width + 1):
+            slow = set(range(k, k + width))
+            if not slow <= set(swept):
+                continue     # a kernel's floor: one timing of five replays
+            backend, _ = _fake_sweep_backend(monkeypatch, slow)
+            assert np.array_equal(backend.stream_sweep(kernels, sizes),
+                                  want), (width, k)
+
+
+@pytest.mark.parametrize("slow", [None, 0, 1, 2, 3, 4, 5])
+def test_rfo_pair_outvotes_one_slow_turn(monkeypatch, slow):
+    """``CardBackend.rfo_pair`` on a fake clock: three turns of each kernel
+    in the order of ``RFO_TURNS`` (each kept), each kernel's time their
+    median, so one turn 20 % slow changes neither time nor the verdict."""
+    from repro_torch.benchmarks import gpu_calibrate as GC
+
+    true_ms = {"striad": 0.264, "striad_rmw": 0.345}
+    turns = []
+
+    def fake_time_call(fn):
+        k = GC.RFO_TURNS[len(turns)]
+        turns.append(k)
+        return true_ms[k] * (1.2 if len(turns) - 1 == slow else 1.0), 0.0
+
+    monkeypatch.setattr(GC, "time_call", fake_time_call)
+    backend = object.__new__(GC.CardBackend)
+    backend.rfo_turns_ms = []
+    backend._streams = lambda: (None,) * 4
+    t_striad, t_rmw = backend.rfo_pair()
+    assert turns == list(GC.RFO_TURNS)
+    assert sorted(turns) == ["striad"] * 3 + ["striad_rmw"] * 3
+    assert [k for k, _ in backend.rfo_turns_ms] == list(GC.RFO_TURNS)
+    assert (t_striad, t_rmw) == pytest.approx((0.264e-3, 0.345e-3), rel=1e-12)
+    assert cal.rfo_verdict(t_rmw / t_striad, 3) == "no RFO"

@@ -62,7 +62,9 @@ def test_port_files_exist():
               "data/arch_data.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
               "train/__init__.py", "train/steps.py", "train/driver.py",
               "train/elastic.py", "dist/__init__.py", "dist/sharding.py",
-              "dist/collectives.py", "launch/mesh.py", "launch/train.py"):
+              "dist/collectives.py", "launch/mesh.py", "launch/train.py",
+              "serve/__init__.py", "serve/policy.py", "serve/trace.py",
+              "serve/faults.py", "serve/engine.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -102,6 +104,9 @@ def test_import_leaves_jax_out():
         "import repro_torch.train.driver, repro_torch.train.elastic\n"
         "import repro_torch.dist, repro_torch.launch.mesh\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.serve, repro_torch.serve.policy\n"
+        "import repro_torch.serve.trace, repro_torch.serve.faults\n"
+        "import repro_torch.serve.engine\n"
         "from repro_torch.configs import all_archs\n"
         "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

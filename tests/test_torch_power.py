@@ -239,7 +239,7 @@ def test_power_sweep_refuses_a_throttled_card(monkeypatch):
             return PW.Window(2.0, 230.0, 0, 0.0)
 
         def run(self, fn):
-            n = fn().shape[1] // GC.POWER_BLOCK[1]
+            n = fn().shape[2]
             capped = n == 2
             sample = {"sm_mhz": 1890 if capped else 1980, "temp_c": 60,
                       "watts": 690.0, "reasons":
@@ -247,7 +247,7 @@ def test_power_sweep_refuses_a_throttled_card(monkeypatch):
             return PW.Window(1.0, 100.0 + 4 * n, 50, 0.05, [sample])
 
     monkeypatch.setattr(GC, "PowerReader", Reader)
-    monkeypatch.setattr(GC, "POWER_K", 64)
+    monkeypatch.setattr(GC, "POWER_SK", 64)
     backend = types.SimpleNamespace(device="cpu")
     backend.power_ctas_per_sm = lambda: pytest.fail("reached the fit")
     with pytest.raises(RuntimeError, match=r"left the 1\.98 GHz") as e:

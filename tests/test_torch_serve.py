@@ -4,8 +4,8 @@ at smoke size: its greedy tokens equal the reference's ``prefill`` +
 multimodal (the patch embeddings of ``make_batch`` fed with the tokens),
 hybrid, recurrent and audio (whisper's frames fed with its prompt) archs;
 its JSON has the reference launcher's keys; an encoder-only arch is
-skipped, as the reference's launcher skips it; what is not ported
-raises."""
+skipped, as the reference's launcher skips it; ``--continuous`` runs the
+serving engine; what is not ported raises."""
 import dataclasses
 import json
 import sys
@@ -129,9 +129,21 @@ def test_json_keys_equal_the_reference_launchers(capsys, monkeypatch):
     assert got["decode_s_per_tok"] is None and got["tokens"] == []
 
 
+def test_continuous_runs_the_engine(capsys):
+    """``--continuous`` serves a synthetic trace through the engine on the
+    data sheet's H100 with ``--device cpu``, prints the reference
+    launcher's summary JSON and exits 0 with no request lost."""
+    assert serve.main(["--continuous", "--device", "cpu", "--requests",
+                       "16"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["lost"] == 0 and summary["requests"] == 16
+    assert summary["completed"] == 16 and summary["n_devices_final"] == 4
+    assert serve.main(["--continuous", "--device", "cpu", "--requests", "16",
+                       "--faults", "device_loss"]) == 0
+    assert json.loads(capsys.readouterr().out)["lost"] == 0
+
+
 def test_what_is_not_ported_raises(capsys):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.main(["--continuous", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 5"):
         serve.main(["--mesh", "single-pod", "--device", "cpu"])
     with pytest.raises(SystemExit):
@@ -146,3 +158,5 @@ def test_runs_on_the_card_unless_told_otherwise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--continuous"])
