@@ -19,8 +19,9 @@ whisper-base and the recurrent xlstm-125m; trains internlm2-1.8b
 through the driver (``repro_torch.train.driver.Trainer``), also on a
 one-rank NCCL mesh; runs the continuous-batching serving engine
 (``repro_torch.serve``) and launches the split decode route at its
-bucket picks; and holds every CUDA kernel against its plain PyTorch
-version.  Phases:
+bucket picks; holds the whole-model composition against the served and
+trained models' device time; and holds every CUDA kernel against its
+plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -182,7 +183,9 @@ version.  Phases:
    global batch 8 from ``ArchSyntheticDataset``: first the flash op alone
    at the eval's shape (B 4, S 4096, causal, bf16); the reduced-depth
    gates (two layers at full width, f32, B 2 x 256: one train step on the
-   card against the same step on the CPU, the loss within 1e-5, the grad
+   card against the same step on the CPU, the CPU's side in a fresh
+   process with its threads and MKL branch fixed before torch loads and
+   started from the card's parameters, the loss within 1e-5, the grad
    norm within 1e-4, every parameter within 1e-3 * lr and one rounding
    where the two first moments agree within 1e-4; remat full against
    none within 1e-6 and accum 2 against 1 within 1e-5 of each leaf's
@@ -227,7 +230,17 @@ version.  Phases:
    logs equal), and ``launch/serve.py --continuous`` as a subprocess; the
    KV page store on a one-rank NCCL mesh, where a device loss is logical
    and every page stays bit for bit;
-18. one JSON line with the ten kernels (the matmul and attention rows
+18. the composed step against the card (``repro_torch.core.compose``),
+   host arithmetic over the records of phases 6 and 10-17, no launch:
+   each served model's prefill and decode step predicted at bf16 on the
+   calibrated machine (the data-sheet prior beside it) against its
+   measured device time, whole and by kind (attention against the tile
+   route, matmuls against the libraries' GEMMs, stream ops against the
+   rest), with the reference's dry-run agreement flag; the train step
+   against 3x the composed prefill; the compose-backed ``BucketModel``
+   bit-equal to the attention-backed one at every bucket, f32 and bf16;
+   ``scale_model``'s Eq. 2 point of each decode step, printed;
+19. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
    attention's per path with each model phase's, the train phase's and
    the serve phase's beside the compute loop's and its time at each
@@ -379,6 +392,15 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4096, 8, 6, 3e-4
 #: far more
 GATE_LAYERS, GATE_BATCH, GATE_SEQ = 2, 2, 256
 GATE_GRAD_REL, GATE_AGREE_REL, GATE_MASKED_MAX = 2e-3, 1e-4, 0.05
+#: the gates' CPU side runs in a fresh process with these set before torch
+#: loads: a fixed thread count, and MKL's strict conditional numerical
+#: reproducibility on its AVX2 branch (GEMM results independent of the
+#: threads and of the operands' alignment); inside a long process the CPU
+#: gradients varied from run to run
+CPU_GATE_THREADS = 8
+CPU_GATE_ENV = {"OMP_NUM_THREADS": str(CPU_GATE_THREADS),
+                "MKL_NUM_THREADS": str(CPU_GATE_THREADS),
+                "MKL_CBWR": "AVX2,STRICT"}
 #: the optimizer's timed calls at each moment dtype
 OPT_TIMED_CALLS = 3
 #: phase 6: the most of the card's power limit a visit of the power sweep
@@ -389,6 +411,15 @@ DRIVER_MESH_STEPS = 3
 #: phase 17: the reference's serve bench settings (tests/test_serve.py:36-37)
 SERVE_INTERARRIVAL_S = 0.001
 SERVE_STEP_BUDGET_S = 0.001
+#: phase 18: the served and trained models' product operand size (bf16),
+#: the walk's op kinds and the device split's families each is held
+#: against, and a train step's multiple of the composed forward
+#: (forward + backward, the backward each product twice; the reference's
+#: ``repro/launch/dryrun.py`` ``TRAIN_STEP_MULT``)
+COMPOSE_ELEM_BYTES = 2
+COMPOSE_KINDS = {"attention": "flash_tile_ms", "matmul": "gemm_ms",
+                 "stream": "other_ms"}
+TRAIN_STEP_MULT = 3.0
 #: the device split of a train step (``_train_split``)
 TRAIN_SPLIT = ("forward_gemm_ms", "recompute_ms", "backward_gemm_ms",
                "chunked_attention_ms", "cross_entropy_ms", "optimizer_ms",
@@ -2053,52 +2084,132 @@ def _rel_max_diff(got, want) -> float:
     return worst
 
 
-def _train_gates(arch) -> tuple[list[str], dict]:
-    """Phase 15's reduced-depth gates: GATE_LAYERS layers at full width,
-    f32 (TF32 off), B GATE_BATCH x GATE_SEQ, one state drawn on the CPU
-    and copied to the card, deterministic kernels.  The card's gradients
-    against the CPU's leaf by leaf (GATE_GRAD_REL); one train step on the
-    card against the same step on the CPU (loss, grad norm, every
-    parameter within 1e-3 * lr and one rounding where the two gradients
-    agree within GATE_AGREE_REL, at most GATE_MASKED_MAX of a leaf left
-    out); ``remat="full"`` against ``"none"`` and ``accum=2`` against 1
-    on the card."""
-    from repro_torch import kernels
-    from repro_torch.benchmarks import gpu_compute_ecm as GC
+def _gate_arch(smoke: bool = False):
+    """The arch of phase 15's reduced-depth gates, f32: GATE_LAYERS layers
+    of :func:`_train_arch`, or (``smoke``) the smoke config, which the CPU
+    tests run."""
+    from repro_torch.configs import get_arch
+
+    if smoke:
+        return _variant(get_arch(TRAIN_ARCH, smoke=True), dtype=torch.float32)
+    return _variant(_train_arch(), n_layers=GATE_LAYERS, dtype=torch.float32)
+
+
+def _gate_batch(small, device):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.convert import batch_from_numpy
     from repro_torch.data import ArchSyntheticDataset
+
+    host = ArchSyntheticDataset(small, ShapeSpec("gate", GATE_SEQ, GATE_BATCH,
+                                                 "train"), seed=SEED).batch(0)
+    return batch_from_numpy(host, device=device)
+
+
+def _gate_cpu_side(out: str, smoke: bool) -> int:
+    """The CPU side of the card-against-CPU gate, in the child process
+    :func:`_cpu_gate_reference` starts: the gate's state drawn from SEED,
+    its gradients and one train step, written to ``out`` with the
+    digests of the initial parameters, the gradients and the parameters
+    after the step."""
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train.steps import (init_state, make_train_step,
+                                         value_and_grad)
+
+    torch.set_num_threads(CPU_GATE_THREADS)
+    small, opt = _gate_arch(smoke), AdamWConfig()
+    t0 = time.perf_counter()
+    state = init_state(small, torch.Generator().manual_seed(SEED), opt,
+                       device="cpu")
+    init = _digest(state["params"])
+    batch = _gate_batch(small, "cpu")
+    step = make_train_step(small, opt, constant(TRAIN_LR))
+    with GC.full_f32(), _deterministic():
+        grads = value_and_grad(small, state["params"], batch)[2]
+        state, metrics = step(state, batch)
+    torch.save({"grads": grads, "params": state["params"],
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "sha256": {"init": init, "grads": _digest(grads),
+                           "params": _digest(state["params"])},
+                "threads": torch.get_num_threads(),
+                "mkl": torch.backends.mkl.is_available(),
+                "s": time.perf_counter() - t0}, out)
+    return 0
+
+
+def _cpu_gate_reference(out_dir: str, *, smoke: bool = False) -> dict:
+    """Run :func:`_gate_cpu_side` in a fresh process whose thread counts
+    and MKL branch (``CPU_GATE_ENV``, strict conditional numerical
+    reproducibility) are set before torch loads, and load what it wrote:
+    inside a long process the CPU's gradients varied from run to run."""
+    out = os.path.join(out_dir, "cpu_gate.pt")
+    argv = [sys.executable, str(Path(__file__).resolve()),
+            "--cpu-gate-reference", out] + (["--smoke"] if smoke else [])
+    env = dict(os.environ) | CPU_GATE_ENV
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, env=env, capture_output=True, text=True,
+                       timeout=900)
+    if r.returncode:
+        raise RuntimeError(f"the CPU gate reference exited {r.returncode}: "
+                           f"{r.stderr[-2000:]}")
+    res = torch.load(out, weights_only=True)
+    os.remove(out)
+    return res | {"process_s": time.perf_counter() - t0,
+                  "env": dict(CPU_GATE_ENV)}
+
+
+def _train_gates() -> tuple[list[str], dict]:
+    """Phase 15's reduced-depth gates: GATE_LAYERS layers at full width,
+    f32 (TF32 off), B GATE_BATCH x GATE_SEQ, one state drawn from SEED on
+    the CPU and copied to the card, deterministic kernels.  The CPU side
+    runs in a fresh process with its threads and MKL branch fixed
+    (:func:`_cpu_gate_reference`), which must start from the same
+    parameters.  The card's gradients against the CPU's leaf by leaf
+    (GATE_GRAD_REL); one train step on the card against the same step on
+    the CPU (loss, grad norm, every parameter within 1e-3 * lr and one
+    rounding where the two gradients agree within GATE_AGREE_REL, at most
+    GATE_MASKED_MAX of a leaf left out); ``remat="full"`` against
+    ``"none"`` and ``accum=2`` against 1 on the card."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
     from repro_torch.models.common import tree_leaves
     from repro_torch.optim import AdamWConfig, constant
     from repro_torch.train.steps import (init_state, make_train_step,
                                          value_and_grad)
 
-    small = _variant(arch, n_layers=GATE_LAYERS, dtype=torch.float32)
+    small = _gate_arch()
     opt, lr = AdamWConfig(), TRAIN_LR
     cpu_state = init_state(small, torch.Generator().manual_seed(SEED), opt,
                            device="cpu")
-    host = ArchSyntheticDataset(small, ShapeSpec("gate", GATE_SEQ, GATE_BATCH,
-                                                 "train"), seed=SEED).batch(0)
-    cpu_batch = batch_from_numpy(host, device="cpu")
-    card_batch = batch_from_numpy(host, device="cuda")
+    card_batch = _gate_batch(small, "cuda")
     step = make_train_step(small, opt, constant(lr))
     failures, rec = [], {"layers": GATE_LAYERS, "batch": GATE_BATCH,
                          "seq": GATE_SEQ, "dtype": "float32",
                          "grads_agree_rel": GATE_AGREE_REL,
                          "masked_max_share": GATE_MASKED_MAX}
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = _cpu_gate_reference(tmp)
+    cpu_grads, cpu_params = cpu.pop("grads"), cpu.pop("params")
+    rec["cpu_reference"] = cpu
+    if cpu["sha256"]["init"] != _digest(cpu_state["params"]):
+        failures.append(f"train gate: the CPU reference started from "
+                        f"{cpu['sha256']['init']}, the card from "
+                        f"{_digest(cpu_state['params'])}")
     with GC.full_f32(), _deterministic():
         card_state = _tree_to(cpu_state, "cuda")
+        del cpu_state
         kernels.reset_launches()
         card_grads = value_and_grad(small, card_state["params"], card_batch)[2]
-        cpu_grads = value_and_grad(small, cpu_state["params"], cpu_batch)[2]
         card_state, card = step(card_state, card_batch)
-        cpu_state, cpu = step(cpu_state, cpu_batch)
         launched = {k.name: k.launches for k in kernels.KERNELS if k.launches}
     rec["kernel_launches"] = launched
     if launched:
         failures.append(f"train gate: the plain path launched {launched}")
     for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
-        got, want = float(card[key]), float(cpu[key])
+        got, want = float(card[key]), cpu[key]
         rel = abs(got - want) / abs(want)
         rec[f"{key}_card_vs_cpu"] = {"card": got, "cpu": want, "rel": rel,
                                      "tol": tol}
@@ -2117,7 +2228,7 @@ def _train_gates(arch) -> tuple[list[str], dict]:
     # largest excess over that, and the largest difference
     worst, excess, masked, total, shares = 0.0, -math.inf, 0, 0, []
     for i, (p, q, gc, g) in enumerate(zip(tree_leaves(card_state["params"]),
-                                          tree_leaves(cpu_state["params"]),
+                                          tree_leaves(cpu_params),
                                           tree_leaves(card_grads),
                                           tree_leaves(cpu_grads))):
         keep = (gc.cpu() - g).abs() <= GATE_AGREE_REL * g.abs()
@@ -2140,7 +2251,7 @@ def _train_gates(arch) -> tuple[list[str], dict]:
     if not excess <= 0:
         failures.append(f"train gate: parameters after the step up to {worst} "
                         f"off the CPU's, {excess} past 1e-3 * lr and an ulp")
-    del cpu_state, card_state, cpu_batch, card_grads, cpu_grads
+    del cpu_params, card_state, card_grads, cpu_grads
     with GC.full_f32(), _deterministic():
         state = init_state(small, torch.Generator(device="cuda").manual_seed(
             SEED), opt, device="cuda")
@@ -2485,7 +2596,7 @@ def _train_phase(machine, calibrated) -> tuple[list[str], dict]:
     failures += attn_failures
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    gate_failures, rec["gates"] = _train_gates(arch)
+    gate_failures, rec["gates"] = _train_gates()
     failures += gate_failures
     restart_failures, rec["restart"] = _restart_gate()
     failures += restart_failures
@@ -2933,6 +3044,231 @@ def _serve_phase(prior, calibrated) -> tuple[list[str], dict]:
     return failures, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the composed step against the card
+# ---------------------------------------------------------------------------
+
+
+def _ms(sp, phase: str, kind: str | None = None) -> float:
+    """A prediction's ms for ``phase``, or for its ops of ``kind``."""
+    cy = sp.cycles(phase) if kind is None else sp.per_kind(phase).get(kind, 0.0)
+    return cy / sp.clock_hz * 1e3
+
+
+def _whisper_served_ops(cfg, phase: str, prompt: int) -> list:
+    """whisper-base's walk at its served shape.  The reference's walk
+    prices the encoder and the decoder's prompt at one ``seq_len``; here
+    the encoder and the cross K/V it feeds at WHISPER_FRAMES, the decoder
+    at its ``prompt`` tokens (decode: after MODEL_GEN steps), its
+    cross-attention over the frames."""
+    from repro_torch.core.compose import model_ops
+
+    def walk(seq_len: int, context: int) -> dict:
+        return {o.name: o for o in model_ops(
+            cfg, phase, batch=MODEL_BATCH, seq_len=seq_len, context=context,
+            elem_bytes=COMPOSE_ELEM_BYTES)}
+
+    text = walk(prompt, prompt + (MODEL_GEN if phase == "decode" else 0))
+    cross = walk(prompt, WHISPER_FRAMES)
+    frames = walk(WHISPER_FRAMES, WHISPER_FRAMES)
+    return [frames[n] if o.layer == "encoder" or n == "dec.cross_kv"
+            else cross[n] if n == "dec.cross_attn" else o
+            for n, o in text.items()]
+
+
+def _held(pred_ms: float, measured_ms) -> dict:
+    """Measured against predicted ms, and the reference's dry-run
+    agreement flag (predicted / measured within DRYRUN_TOLERANCE); no
+    ratio where either side is empty (a decode launches no tile kernel:
+    its attention runs in the libraries' GEMMs and the rest)."""
+    from repro_torch.core.compose import DRYRUN_TOLERANCE
+
+    lo, hi = DRYRUN_TOLERANCE
+    out = {"predicted_ms": pred_ms, "measured_ms": measured_ms}
+    if not measured_ms or not pred_ms:
+        return out
+    out["measured_over_predicted"] = measured_ms / pred_ms
+    out["agrees"] = bool(lo <= pred_ms / measured_ms <= hi)
+    return out
+
+
+def _prediction_faults(tag: str, sp) -> list[str]:
+    """The composition's gates on one prediction: every total and op
+    finite and positive, and each phase's breakdown (by op, layer and
+    kind) summing to its total under the card's overlap rule."""
+    from repro_torch.core.compose import compose_cycles
+
+    faults = []
+    for ph in {o.phase for o in sp.ops}:
+        ops = sp.phase_ops(ph)
+        total = sp.cycles(ph)
+        if not (math.isfinite(total) and total > 0) or not all(
+                math.isfinite(o.cycles) and o.cycles > 0 for o in ops):
+            faults.append(f"compose {tag} {ph}: a prediction is not finite "
+                          f"and positive")
+            continue
+        rule = compose_cycles([o.t_ol_cy for o in ops],
+                              [o.t_rest_cy for o in ops],
+                              [o.cycles for o in ops], sp.alpha)
+        parts = [sum(sp.per_layer(ph).values()), sum(sp.per_kind(ph).values())]
+        if rule != total or any(abs(p - total) > 1e-9 * total for p in parts):
+            faults.append(f"compose {tag} {ph}: the breakdown {parts} does not "
+                          f"sum to {total} under the rule")
+    return faults
+
+
+def _compose_phase(prior, calibrated, models: dict, serve: dict
+                   ) -> tuple[list[str], dict]:
+    """Phase 18: the whole-model composition (``core/compose.py``) held
+    against what phases 10-17 measured; host arithmetic, no launch.
+
+    (i) Each served arch (phases 10-14) at its served shape, products at
+    bf16: the prefill of MODEL_BATCH x MODEL_PROMPT tokens against the
+    profiled prefill's device ms, and one decode step at context
+    MODEL_PROMPT + MODEL_GEN against the CUDA graph's; by kind, the walk's
+    attention against the tile route's ms, its matmuls against the
+    libraries' GEMMs, its stream ops against every other kernel (the
+    eager decode's ms beside).  (ii) The train step (phase 15) against 3x
+    the composed prefill of its batch, its matmuls against the forward
+    and backward GEMMs.  (iii) The compose-backed ``BucketModel`` against
+    the attention-backed one on the calibrated machine, f32 and bf16, at
+    every decode and prefill bucket: picks and cycles bit-equal (gated).
+    (iv) ``scale_model``'s Eq. 2 point of each arch's decode, printed: one
+    card cannot run a model on a subset of its SMs from PyTorch, so it is
+    not measured.  Gated: every prediction finite and positive, decode
+    not above prefill at equal context, every breakdown summing to its
+    total; the ratios are reported."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import compose as C
+    from repro_torch.core.scaling import scale_model
+    from repro_torch.serve import BucketModel, EngineConfig, ServingModel
+
+    failures = []
+    rec = {"card": _card_line(), "elem_bytes": COMPOSE_ELEM_BYTES,
+           "tolerance": list(C.DRYRUN_TOLERANCE), "served": {}}
+    context = MODEL_PROMPT + MODEL_GEN
+    kw = dict(batch=MODEL_BATCH, elem_bytes=COMPOSE_ELEM_BYTES)
+    for name in MODEL_PHASES.values():
+        m, cfg = models[name], get_arch(name).cfg
+        preds = {}
+        for label, machine in (("calibrated", calibrated), ("prior", prior)):
+            if name == "whisper-base":
+                walk = {ph: _whisper_served_ops(cfg, ph, m["prompt_tokens"])
+                        for ph in C.PHASES}
+                sp = C.compose_ops(walk["prefill"] + walk["decode"], machine,
+                                   name=name)
+                one = C.predict_step(name, machine, seq_len=WHISPER_FRAMES,
+                                     **kw)
+                failures += _prediction_faults(f"{name} {label} walk", one)
+            else:
+                sp = C.predict_step(name, machine, seq_len=MODEL_PROMPT,
+                                    context=context, **kw)
+            failures += _prediction_faults(f"{name} {label}", sp)
+            preds[label] = sp
+        sp = preds["calibrated"]
+        equal = C.predict_step(name, calibrated, seq_len=context,
+                               context=context, **kw)
+        failures += _prediction_faults(f"{name} equal context", equal)
+        if not equal.cycles("decode") <= equal.cycles("prefill"):
+            failures.append(f"compose {name}: decode above prefill at context "
+                            f"{context}")
+        split = m["device_split"]
+        out = {"prior_ms": {ph: _ms(preds["prior"], ph) for ph in C.PHASES},
+               "equal_context": {ph: _ms(equal, ph) for ph in C.PHASES}}
+        for ph, key, total in (
+                ("prefill", "prefill", split["prefill"].get("total_ms")),
+                ("decode", "decode_step", m["summary"]["decode_graph_ms"])):
+            measured = split[key]
+            out[ph] = {"total": _held(_ms(sp, ph), total),
+                       "by_kind": {kind: _held(_ms(sp, ph, kind),
+                                               measured.get(fam))
+                                   for kind, fam in COMPOSE_KINDS.items()},
+                       "dominant_op": sp.dominant_op(ph),
+                       "flops": sp.flops(ph), "hbm_bytes": sp.hbm_bytes(ph)}
+        out["decode"]["eager_ms"] = m["summary"]["decode_eager_ms"]
+        out["decode"]["profiled_step_ms"] = split["decode_step"].get("total_ms")
+        if name == "whisper-base":
+            out["compared"] = (
+                "the walk with the encoder at the frames and the decoder at "
+                "its prompt against the whole prefill's device time "
+                "(_device_split does not separate encoder and decoder); the "
+                "reference's one-seq_len walk beside")
+            out["encoder_predicted_ms"] = sp.per_layer("prefill")[
+                "encoder"] / sp.clock_hz * 1e3
+            out["reference_walk_ms"] = {ph: _ms(one, ph) for ph in C.PHASES}
+        rec["served"][name] = out
+
+    # (ii) the train step
+    train = models[f"train {TRAIN_ARCH}"]
+    sp = C.predict_step(TRAIN_ARCH, calibrated, batch=TRAIN_BATCH,
+                        seq_len=TRAIN_SEQ, phases=("prefill",),
+                        elem_bytes=COMPOSE_ELEM_BYTES)
+    failures += _prediction_faults("train", sp)
+    tsplit = train["device_split"]
+    gemm = (tsplit.get("forward_gemm_ms", 0.0)
+            + tsplit.get("backward_gemm_ms", 0.0)) if "total_ms" in tsplit         else None
+    rec["train"] = {
+        "step_mult": TRAIN_STEP_MULT,
+        "device": _held(TRAIN_STEP_MULT * _ms(sp, "prefill"),
+                        tsplit.get("total_ms")),
+        "wall": _held(TRAIN_STEP_MULT * _ms(sp, "prefill"),
+                      train["summary"]["s_per_step"] * 1e3),
+        "matmul_vs_forward_and_backward_gemm": _held(
+            TRAIN_STEP_MULT * _ms(sp, "prefill", "matmul"), gemm),
+        "by_kind_x3_ms": {k: TRAIN_STEP_MULT * _ms(sp, "prefill", k)
+                          for k in COMPOSE_KINDS},
+        "recompute_share": tsplit["recompute_ms"] / tsplit["total_ms"]
+        if "total_ms" in tsplit else None,
+        "chunked_attention_ms": tsplit.get("chunked_attention_ms"),
+        "compared": "3 x the composed prefill of B 8 x 4096 (the tile "
+                    "route's attention) against a step of chunked attention "
+                    "with remat full"}
+
+    # (iii) the compose brain against the attention-backed buckets
+    cfg = EngineConfig()
+    cbs = _serve_buckets(cfg)
+    rec["brain"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        eb = torch.empty((), dtype=dtype).element_size()
+        model = ServingModel(elem_bytes=eb)
+        pair = [BucketModel(calibrated, model, min_ctx=cfg.min_ctx,
+                            max_ctx=cfg.max_ctx, source=src)
+                for src in ("attention", "compose")]
+        views = [[(b.decode_block(cb), b.decode_block(cb, smallest=True),
+                   b.decode_cy_per_token(cb, calibrated=False),
+                   b.decode_cy_per_token(cb, smallest_block=True,
+                                         calibrated=False),
+                   b._prefill_entry(cb)["block"],
+                   b.prefill_cy(cb, calibrated=False)) for cb in cbs]
+                 for b in pair]
+        unequal = [cb for cb, a, c in zip(cbs, *views) if a != c]
+        if unequal:
+            failures.append(f"compose brain {dtype}: buckets {unequal} differ "
+                            f"from the attention-backed model")
+        name = str(dtype).removeprefix("torch.")
+        launched = {cb: serve["dtypes"][name]["picks"]["calibrated"][cb]["bkv"]
+                    for cb in cbs}
+        rec["brain"][name] = {
+            "bit_equal": not unequal,
+            "decode_picks": {cb: v[0] for cb, v in zip(cbs, views[1])},
+            "prefill_picks": {cb: list(v[4]) for cb, v in zip(cbs, views[1])},
+            "picks_equal_phase_17s": all(
+                v[0] == launched[cb] for cb, v in zip(cbs, views[1])),
+            "decode_s_per_token": {cb: pair[1].seconds(v[2])
+                                   for cb, v in zip(cbs, views[1])}}
+
+    # (iv) Eq. 2 on each arch's decode step
+    rec["eq2_decode"] = {"measured": "not measured: one card does not run a "
+                                     "model on a subset of its SMs"}
+    for name in MODEL_PHASES.values():
+        seq = WHISPER_FRAMES if name == "whisper-base" else MODEL_PROMPT
+        ctx = WHISPER_FRAMES if name == "whisper-base" else context
+        cs = scale_model(name, calibrated, phase="decode", seq_len=seq,
+                         context=ctx, **kw)
+        rec["eq2_decode"][name] = cs.saturation_summary()[cs.names[0]]
+    return failures, rec
+
+
 def _check_compute_report(report: dict) -> list[str]:
     where = f"{report['op']} {report['dims']} {report['dtype']}"
     out, failures = report["output"], []
@@ -3263,12 +3599,30 @@ def main() -> int:
                      | {"s": model_s["serve"]}))
     failures += serve_failures
     torch.cuda.empty_cache()
+
+    # 18. the composed step against the card: host arithmetic over the
+    # records of phases 6 and 10-17, no launch
+    t_path = time.perf_counter()
+    compose_failures, composed = _compose_phase(machine, calibrated, models,
+                                                serve)
+    model_s["compose"] = time.perf_counter() - t_path
+    tag = {"phase": "18 compose"}
+    for name, rec in composed["served"].items():
+        print(json.dumps(tag | {"arch": name} | rec))
+    for key in ("train", "brain", "eq2_decode"):
+        print(json.dumps(tag | {key: composed[key]}))
+    print(json.dumps(tag | {"card": composed["card"],
+                            "elem_bytes": composed["elem_bytes"],
+                            "tolerance": composed["tolerance"],
+                            "failures": compose_failures,
+                            "s": model_s["compose"]}))
+    failures += compose_failures
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
         "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 18. the kernels line; the attention's launches add the power fit's,
+    # 19. the kernels line; the attention's launches add the power fit's,
     # the model phases' and the serve phase's, the combine's the serve
     # phase's
     model_launches = {name: m["launches"]["flash_attention"]
@@ -3380,4 +3734,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-gate-reference"]:
+        sys.path.insert(0, str(SRC))
+        sys.exit(_gate_cpu_side(sys.argv[2], smoke="--smoke" in sys.argv[3:]))
     sys.exit(main())

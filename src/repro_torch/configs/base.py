@@ -5,7 +5,7 @@ An :class:`ArchDef` binds a model family's functions (spec / loss /
 prefill / decode / cache-spec) to one concrete configuration, and knows
 how to build its inputs for each assigned input shape as numpy arrays.
 The reference's dry-run stand-ins (``abstract_batch``) wait for the
-port's dry-run (ROADMAP §1 item 7).
+port's dry-run (ROADMAP §1 item 7b).
 
 Input shapes (assigned, global):
 

@@ -18,10 +18,11 @@ engine on the port's ``ECMBatch`` and ``GPUMachineModel``:
 * :func:`scale_workloads` builds a ``ChipScaling`` from the one-SM ECMs
   (``core/gpu_ecm.py`` ``one_sm_ecm``) of the Table I ops named, on a
   calibrated machine at its one clock (the port sets no clock).  The port has no workload registry, so it takes op
-  names where the reference takes registry workloads.
+  names where the reference takes registry workloads;
+* :func:`scale_model` builds one from a whole model step: the one-SM
+  aggregate of its op walk (``core/compose.py`` ``model_lowered``).
 
-Not copied: ``scale_model`` (it needs the whole-model composition,
-``core/compose.py``), ``tpu_dp_scaling`` (it needs the mesh model,
+Not copied: ``tpu_dp_scaling`` (it needs the mesh model,
 ``core/mesh.py``), ``scaling_zoo`` and ``saturation_table`` (they walk a
 registry of machines the port does not have).
 """
@@ -35,7 +36,8 @@ from .ecm import ECMBatch
 from .gpu_ecm import one_sm_ecm
 from .machine import GPUMachineModel
 
-__all__ = ["ChipScaling", "fill_domains", "frequency_scale", "scale_workloads"]
+__all__ = ["ChipScaling", "fill_domains", "frequency_scale", "scale_model",
+           "scale_workloads"]
 
 
 def frequency_scale(batch: ECMBatch, f_ghz, *, f_nominal_ghz: float,
@@ -270,17 +272,15 @@ class ChipScaling:
         return [seen[n] for n in (self.names or sorted(seen))]
 
 
-def scale_workloads(ops, machine: GPUMachineModel) -> ChipScaling:
-    """The chip-scaling engine of the Table I ``ops`` on ``machine`` (a
-    calibrated ``GPUMachineModel``: the one-SM ECM reads its L2 plateau),
-    at the card's one clock.  One card is one domain of ``sm_count``
-    SMs."""
-    batch = ECMBatch.from_models([one_sm_ecm(op, machine) for op in ops])
+def _chip_scaling(batch: ECMBatch, machine: GPUMachineModel,
+                  names: tuple[str, ...]) -> ChipScaling:
+    """The chip-scaling engine of one-SM ECMs on ``machine`` at the card's
+    one clock; one card is one domain of ``sm_count`` SMs."""
     f = np.asarray(machine.frequency_grid(), float)
     scaled = frequency_scale(batch, f, f_nominal_ghz=machine.nominal_ghz)
     return ChipScaling(
         machine=machine,
-        names=tuple(ops),
+        names=names,
         f_ghz=f,
         t_single=scaled.predictions()[..., -1],
         bottleneck=scaled.transfers[..., -1],
@@ -288,3 +288,36 @@ def scale_workloads(ops, machine: GPUMachineModel) -> ChipScaling:
         cores_per_domain=machine.sm_count,
         n_domains=1,
     )
+
+
+def scale_workloads(ops, machine: GPUMachineModel) -> ChipScaling:
+    """The chip-scaling engine of the Table I ``ops`` on ``machine`` (a
+    calibrated ``GPUMachineModel``: the one-SM ECM reads its L2 plateau),
+    at the card's one clock.  One card is one domain of ``sm_count``
+    SMs."""
+    batch = ECMBatch.from_models([one_sm_ecm(op, machine) for op in ops])
+    return _chip_scaling(batch, machine, tuple(ops))
+
+
+def scale_model(config, machine: GPUMachineModel, *, phase: str = "decode",
+                batch: int = 1, seq_len: int = 4096,
+                context: int | None = None,
+                elem_bytes: int = 4) -> ChipScaling:
+    """Eq. 2 saturation / energy surfaces for a **whole model config** on a
+    calibrated card.
+
+    The composition (``core/compose.py``) walks one phase of the config
+    and aggregates its ops into one one-SM record whose unit of work is
+    one step (``model_lowered``); this function feeds that record to the
+    same Eq. 2 machinery every single-kernel workload uses.  ``t_single``
+    is the pipelined composed step time on one SM, the bottleneck term
+    the step's summed HBM transfer cycles — so ``n_saturation()``,
+    ``energy()`` and ``operating_points()`` answer "how many SMs does
+    *this model step* need" directly.
+    """
+    from .compose import model_lowered
+
+    lowered = model_lowered(config, machine, phase=phase, batch=batch,
+                            seq_len=seq_len, context=context,
+                            elem_bytes=elem_bytes)
+    return _chip_scaling(lowered, machine, lowered.names)

@@ -1,10 +1,13 @@
-"""The compute-bound workloads: blocked GEMM and flash-attention tiles.
+"""The workloads of the GPU model: blocked GEMM, flash-attention tiles and
+the Table I stream ops of a model step.
 
 The port's copy of the part of the reference's ``repro/core/workload.py``
-(``COMPUTE_LC_SAFETY``, ``MatmulWorkload``, ``AttentionWorkload``) that the
-GPU model reads: the dimensions, the tiling, and the device-memory traffic
-law of each kernel, evaluated at one cache level, the card's L2, and
-returned in bytes.  The reference counts cache lines per line of output
+(``COMPUTE_LC_SAFETY``, ``MatmulWorkload``, ``AttentionWorkload``,
+``StreamWorkload``) that the GPU model and the whole-model composition
+(``core/compose.py``) read: the dimensions, the tiling, and the
+device-memory traffic law of each kernel, evaluated at one cache level,
+the card's L2, and returned in bytes; and each workload's
+``work_per_elem``, the reference's useful-work count per output element.  The reference counts cache lines per line of output
 at every level of a CPU hierarchy, with a write-allocate stream for the
 output; here stores write whole sectors, so there is no RFO stream, as in
 the port's stream and stencil models.  The reference's uop mixes and CPU
@@ -15,6 +18,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import NamedTuple
+
+from .kernel_spec import StreamKernelSpec
 
 #: reuse-set safety factor: a panel or KV set survives a cache level only if
 #: it fits in half of it (the reference's, as for the layer conditions)
@@ -57,6 +62,10 @@ class MatmulWorkload:
     def flops(self) -> float:
         return 2.0 * self.m * self.n * self.k
 
+    def work_per_elem(self) -> tuple[int, int]:
+        """The reference's (FLOP, updates) per output element: ``2k``."""
+        return 2 * self.k, 1
+
     def traffic(self, capacity: int) -> Traffic:
         eb = self.elem_bytes
         a, b = self.m * self.k * eb, self.k * self.n * eb
@@ -80,9 +89,13 @@ class AttentionWorkload:
       where it is read once.
     * **O** is written once.
 
-    Work per visited score: ``4 * d`` FLOP for the two products and
+    Two counts of the work: :attr:`flops`, the operations the FFMA units
+    issue (``4 * d`` FLOP a visited score for the two products and
     :data:`SOFTMAX_FLOPS_PER_SCORE` for the softmax, as the reference
-    counts it (under 2 % of the work at d = 128).
+    counts its uops; under 2 % of the work at d = 128), which the GPU model
+    times; and :meth:`work_per_elem`, the reference's useful FLOP per
+    output element (``round(4 * skv * kv_fraction)``, no softmax term),
+    which the composition's FLOP totals count.
     """
 
     sq: int
@@ -108,6 +121,11 @@ class AttentionWorkload:
         scores = self.sq * self.skv * self.kv_fraction()
         return scores * (4.0 * self.d + SOFTMAX_FLOPS_PER_SCORE)
 
+    def work_per_elem(self) -> tuple[int, int]:
+        """The reference's (FLOP, updates) per output element: the two
+        products over the visited keys, ``round(4 * skv * kv_fraction)``."""
+        return int(round(4.0 * self.skv * self.kv_fraction())), 1
+
     def traffic(self, capacity: int) -> Traffic:
         eb = self.elem_bytes
         kv = 2 * self.skv * self.d * eb
@@ -115,3 +133,21 @@ class AttentionWorkload:
         read = qo + (kv if kv * COMPUTE_LC_SAFETY <= capacity
                      else kv * self.kv_fraction() * self.sq / self.bq)
         return Traffic(read, qo)
+
+
+@dataclass(frozen=True)
+class StreamWorkload:
+    """A Table I stream op of a model step (a norm, a residual, a lookup):
+    constant traffic per element, no reuse.  The GPU model prices it per
+    128-lane f32 row (``core/gpu_ecm.py`` ``gpu_stream_ecm``) from its
+    spec's name."""
+
+    spec: StreamKernelSpec
+
+    @property
+    def name(self) -> str:
+        return self.spec.name
+
+    def work_per_elem(self) -> tuple[int, int]:
+        """The spec's (FLOP, updates) per element."""
+        return self.spec.flops_per_elem, self.spec.updates_per_elem

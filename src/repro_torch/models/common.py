@@ -9,7 +9,7 @@ rounds where the reference rounds.  The reference's activation
 annotations (``shard_annotate``, ``set_activation_rules``) have nothing
 to act on in eager PyTorch, where the data-parallel step gathers every
 parameter whole (tensor-parallel compute is ROADMAP §1 item 5c), and its
-dry-run stand-ins (``abstract``) wait for item 7: the port's forward
+dry-run stand-ins (``abstract``) wait for item 7b: the port's forward
 leaves their calls out.
 :func:`grad_barrier` is an identity (an XLA scheduling hint in the
 reference), and the forward leaves its calls out too.

@@ -111,17 +111,19 @@ class BucketModel:
     so no table is rebuilt.  ``counters`` count rankings computed
     (``ranked``), served from the disk cache (``from_cache``) and whole
     rebuilds (``rebuilds``).
+
+    ``source="compose"`` prices each bucket through the whole-model
+    composition (``core/compose.py``) as a one-op walk at the ranked
+    tiling, bit-identical to the direct product (the order of the
+    product above is the composition's, ``t_ecm * (clock_hz * heads *
+    layers)``).
     """
 
     def __init__(self, machine: GPUMachineModel = H100_SXM,
                  model: ServingModel = ServingModel(), *,
                  min_ctx: int = 128, max_ctx: int = 16384,
                  source: str = "attention"):
-        if source == "compose":
-            raise NotImplementedError(
-                "bucket source 'compose': the whole-model composition "
-                "engine is not ported yet (ROADMAP §1 item 7)")
-        if source != "attention":
+        if source not in ("attention", "compose"):
             raise ValueError(f"unknown bucket source {source!r}: "
                              f"expected 'attention' or 'compose'")
         self.machine = machine
@@ -188,8 +190,9 @@ class BucketModel:
         return ranked
 
     def _per_head_layer(self) -> float:
-        """Cycles a second times the heads and layers a token crosses."""
-        return self.machine.clock_hz * self.model.heads * self.model.layers
+        """Cycles a second times the heads x layers a token crosses (the
+        product in the composition's order, ``clock_hz * count``)."""
+        return self.machine.clock_hz * (self.model.heads * self.model.layers)
 
     def _decode_entry(self, cb: int) -> dict:
         self._refresh_if_stale()
@@ -226,13 +229,41 @@ class BucketModel:
 
     # -- predictions --------------------------------------------------------
 
+    def _composed_cy(self, kind: str, cb: int, block, *,
+                     out_tokens: int | None = None) -> float:
+        """The composition view of one bucket: the ranked attention
+        workload as a whole-model op walk (heads x layers folded into the
+        op count), composed under the card's overlap rule
+        (``core/compose.py``).  For this one-op model the result is
+        bit-identical to the direct product — the no-drift guarantee the
+        serving tests pin."""
+        from ..core.compose import attention_op, compose_ops
+
+        hl = self.model.heads * self.model.layers
+        if kind == "decode":
+            op = attention_op("serve.decode_attn", "serve", "decode",
+                              sq=1, skv=cb, d=self.model.d, bq=1,
+                              bkv=int(block), causal=False, count=hl,
+                              elem_bytes=self.model.elem_bytes)
+        else:
+            bq, bkv = block
+            op = attention_op("serve.prefill_attn", "serve", "prefill",
+                              sq=cb, skv=cb, d=self.model.d, bq=int(bq),
+                              bkv=int(bkv), causal=True, count=hl,
+                              out_tokens=out_tokens,
+                              elem_bytes=self.model.elem_bytes)
+        return compose_ops([op], self.machine, name="serving").cycles(kind)
+
     def decode_cy_per_token(self, ctx: int, *, smallest_block: bool = False,
                             calibrated: bool = True) -> float:
         """Predicted core cycles to decode one token at this context."""
         cb = self.ctx_bucket(ctx)
         ent = self._decode_entry(cb)
         bkv = ent["min_bkv"] if smallest_block else ent["best_bkv"]
-        cy = ent["cy_per_token"][bkv]
+        if self.source == "compose":
+            cy = self._composed_cy("decode", cb, bkv)
+        else:
+            cy = ent["cy_per_token"][bkv]
         if calibrated:
             cy *= self.calib.get(("decode", cb), 1.0)
         return cy
@@ -241,7 +272,12 @@ class BucketModel:
                    ) -> float:
         """Predicted core cycles to prefill a prompt (all layers/heads)."""
         cb = self.ctx_bucket(prompt_len)
-        cy = self._prefill_entry(cb)["cy_per_prompt_token"] * prompt_len
+        ent = self._prefill_entry(cb)
+        if self.source == "compose":
+            cy = self._composed_cy("prefill", cb, ent["block"],
+                                   out_tokens=prompt_len)
+        else:
+            cy = ent["cy_per_prompt_token"] * prompt_len
         if calibrated:
             cy *= self.calib.get(("prefill", cb), 1.0)
         return cy
@@ -336,7 +372,8 @@ class EngineConfig:
     max_steps: int = 100_000
     seed: int = 0
     #: where BucketModel sources its predictions: "attention" (the ranked
-    #: attention model); "compose" waits for ROADMAP §1 item 7
+    #: attention model) or "compose" (the same model through the
+    #: whole-model composition engine, bit-identical)
     bucket_source: str = "attention"
 
 

@@ -64,7 +64,7 @@ def test_port_files_exist():
               "train/elastic.py", "dist/__init__.py", "dist/sharding.py",
               "dist/collectives.py", "launch/mesh.py", "launch/train.py",
               "serve/__init__.py", "serve/policy.py", "serve/trace.py",
-              "serve/faults.py", "serve/engine.py"):
+              "serve/faults.py", "serve/engine.py", "core/compose.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -106,7 +106,7 @@ def test_import_leaves_jax_out():
         "import repro_torch.launch.train\n"
         "import repro_torch.serve, repro_torch.serve.policy\n"
         "import repro_torch.serve.trace, repro_torch.serve.faults\n"
-        "import repro_torch.serve.engine\n"
+        "import repro_torch.serve.engine, repro_torch.core.compose\n"
         "from repro_torch.configs import all_archs\n"
         "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

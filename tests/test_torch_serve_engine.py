@@ -15,7 +15,8 @@ reference's ``repro.serve`` on the CPU.
   ``rank``'s first, its cycles the folded ``t_ecm``, its re-calibration
   the reference's EWMA with no table rebuilt, a warm restart ranks
   nothing, another machine rebuilds every table, ``remesh`` takes the
-  cheapest split under the NVLink prior, and ``source="compose"`` raises.
+  cheapest split under the NVLink prior, and an unknown source raises
+  (``source="compose"`` is held in ``tests/test_torch_compose.py``).
 * The port's engine on its own model loses no request under any plan,
   replays bit for bit, and re-calibrates in the slow window.
 """
@@ -354,11 +355,7 @@ def test_remesh_takes_the_cheapest_split(n, batch):
         assert plan["model"] == 1      # a full batch: data ways win
 
 
-def test_compose_source_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        S.BucketModel(source="compose")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        S.ServeEngine(S.EngineConfig(bucket_source="compose"))
+def test_engine_config_equals_the_references():
     with pytest.raises(ValueError, match="unknown bucket source"):
         S.BucketModel(source="simulator")
     assert not hasattr(S.EngineConfig(), "bkv_candidates")
