@@ -240,7 +240,18 @@ plain PyTorch version.  Phases:
    against 3x the composed prefill; the compose-backed ``BucketModel``
    bit-equal to the attention-backed one at every bucket, f32 and bf16;
    ``scale_model``'s Eq. 2 point of each decode step, printed;
-19. one JSON line with the ten kernels (the matmul and attention rows
+19. the dry-run (``repro_torch.launch.dryrun``, ``core/hlo.py``): on fake
+   CUDA tensors with the calibrated machine, in child processes, phase
+   15's train step and each served arch's prefill and decode step at
+   phase 18's shapes, and ``internlm2-1.8b train_4k`` on a fake world of
+   256 ranks (the dry-run CLI); gated: the traced FLOPs of internlm2's
+   flash prefill equal, exactly, ``FlopCounterMode``'s count of the same
+   step run on the card, where the kernel launches (24 tile launches);
+   reported: the traced peak against ``max_memory_allocated`` of phase
+   15's step and of that prefill, the traced ``t_ecm`` against phases
+   15's and 18's measured device ms beside phase 18's composed ratio,
+   and ``rank_meshes``' winner at 8 cards on the calibrated machine;
+20. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
    attention's per path with each model phase's, the train phase's and
    the serve phase's beside the compute loop's and its time at each
@@ -420,6 +431,21 @@ COMPOSE_ELEM_BYTES = 2
 COMPOSE_KINDS = {"attention": "flash_tile_ms", "matmul": "gemm_ms",
                  "stream": "other_ms"}
 TRAIN_STEP_MULT = 3.0
+#: phase 19: the one-card dry-run cells, traced on fake CUDA tensors in
+#: child processes that run at once (one tuple of ``(kind, arch)`` a
+#: child): phase 15's train step, and each served arch's prefill and one
+#: decode step at phase 18's shapes; the fake world's cell (the dry-run
+#: CLI in its own child, 256 ranks); a child's time limit and the
+#: phase's aim (reported)
+DRYRUN_GROUPS = ((("train", TRAIN_ARCH),),
+                 (("prefill", "xlstm-125m"), ("decode", "xlstm-125m")),
+                 (("prefill", "zamba2-1.2b"), ("decode", "zamba2-1.2b"),
+                  ("prefill", "whisper-base"), ("decode", "whisper-base")),
+                 (("prefill", "internlm2-1.8b"), ("decode", "internlm2-1.8b"),
+                  ("prefill", "granite-moe-1b-a400m"),
+                  ("decode", "granite-moe-1b-a400m")))
+DRYRUN_WORLD = ("internlm2-1.8b", "train_4k")
+DRYRUN_CHILD_TIMEOUT_S, DRYRUN_AIM_S = 300, 90
 #: the device split of a train step (``_train_split``)
 TRAIN_SPLIT = ("forward_gemm_ms", "recompute_ms", "backward_gemm_ms",
                "chunked_attention_ms", "cross_entropy_ms", "optimizer_ms",
@@ -3269,6 +3295,244 @@ def _compose_phase(prior, calibrated, models: dict, serve: dict
     return failures, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry-run
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_cell(kind: str, name: str):
+    """``(arch, shape, kw)`` of a phase-19 cell (``kw``: ``trace_cell``'s
+    keywords): phase 15's train step at its configuration, or a served
+    arch at phase 10-14's shapes: the prefill of MODEL_BATCH x
+    MODEL_PROMPT tokens (whisper: WHISPER_FRAMES frames) with the
+    launcher's cache (``prompt + gen + 8`` positions), attention on the
+    flash op, and one decode step at phase 18's context (the prompt's
+    tokens and MODEL_GEN) on that cache (whisper's cross K/V at the
+    frames, as its prefill leaves them)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import whisper
+
+    if kind == "train":
+        return (_train_arch(),
+                ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"), {})
+    arch = get_arch(name)
+    if hasattr(arch.cfg, "attn_impl"):
+        arch = _variant(arch, attn_impl="flash")
+    prompt = WHISPER_FRAMES if name == "whisper-base" else MODEL_PROMPT
+    kw = {"max_len": prompt + MODEL_GEN + 8}
+    shape = ShapeSpec("prefill", prompt, MODEL_BATCH, "prefill")
+    if kind == "prefill":
+        return arch, shape, kw
+    tokens = arch.batch_spec(shape)["tokens"].shape[1]
+    if name == "whisper-base":
+        kw["cache_spec"] = whisper.cache_spec(arch.cfg, MODEL_BATCH,
+                                              kw["max_len"], WHISPER_FRAMES)
+    return (arch, ShapeSpec("decode", tokens + MODEL_GEN, MODEL_BATCH,
+                            "decode"), kw)
+
+
+def _trace_cells_child(out: str, group: int) -> int:
+    """A child of phase 19: trace ``DRYRUN_GROUPS[group]`` on fake CUDA
+    tensors with phase 6's calibrated machine, the records to ``out``."""
+    from repro_torch.core.machine import load_machine_file
+    from repro_torch.launch.dryrun import trace_cell
+
+    machine = load_machine_file(MACHINE_FILE)
+    recs = []
+    for kind, name in DRYRUN_GROUPS[group]:
+        arch, shape, kw = _dryrun_cell(kind, name)
+        recs.append(trace_cell(arch, shape, mesh="card", device="cuda",
+                               machine=machine, **kw)
+                    | {"cell": [kind, name]})
+    Path(out).write_text(json.dumps(recs))
+    return 0
+
+
+def _flop_gate() -> tuple[list[str], dict]:
+    """internlm2-1.8b's flash prefill (phase 10's, bf16, random weights
+    from SEED) run on the card under ``FlopCounterMode`` (with the port's
+    custom ops' formulas, ``core/hlo.py`` ``flop_counter``): its FLOPs,
+    its tile launches (one a layer) and ``max_memory_allocated`` over the
+    step, the bf16 parameters and the batch resident before it.  First the
+    flash op alone at the model's shape: the counter must count it at the
+    plain version's ``4 B H Sq Sk d``."""
+    from repro_torch import kernels
+    from repro_torch.core.hlo import flop_counter
+    from repro_torch.kernels.attention import ops
+    from repro_torch.models.common import cast_params, materialize
+    from repro_torch.train.steps import make_prefill_step
+
+    arch, shape, kw = _dryrun_cell("prefill", "internlm2-1.8b")
+    dev = torch.device("cuda")
+    failures = []
+    a = arch.cfg.attn_cfg
+    q = torch.randn(MODEL_BATCH, shape.seq_len, a.n_heads, a.head_dim,
+                    device=dev, dtype=arch.cfg.dtype)
+    k = torch.randn(MODEL_BATCH, shape.seq_len, a.n_kv_heads, a.head_dim,
+                    device=dev, dtype=arch.cfg.dtype)
+    with flop_counter() as fc:
+        ops.flash_attention(q, k, k)
+    op_flops = fc.get_total_flops()
+    want_op = 4 * MODEL_BATCH * a.n_heads * shape.seq_len ** 2 * a.head_dim
+    if op_flops != want_op:
+        failures.append(f"dry-run gate: the counter counts the flash op at "
+                        f"{op_flops} FLOP, not {want_op}")
+    del q, k
+    params = cast_params(materialize(
+        arch.param_spec(), torch.Generator(device=dev).manual_seed(SEED),
+        device=dev), arch.cfg.dtype)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in arch.make_batch(shape, seed=SEED).items()}
+    step = make_prefill_step(arch, max_len=kw["max_len"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.FLASH_ATTENTION.launches_by_route)
+    with flop_counter() as fc:
+        out = step(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = {r: n - before[r]
+                for r, n in kernels.FLASH_ATTENTION.launches_by_route.items()}
+    finite = bool(torch.isfinite(out[0].float()).all())
+    del out, params, batch
+    torch.cuda.empty_cache()
+    want = {"tile": arch.cfg.n_layers, "split": 0}
+    if launched != want:
+        failures.append(f"dry-run gate: the prefill launched {launched}, "
+                        f"not {want}")
+    if not finite:
+        failures.append("dry-run gate: the prefill's logits are not finite")
+    return failures, {"flops": fc.get_total_flops(), "launches": launched,
+                      "peak_bytes": peak, "resident_bytes": resident,
+                      "flash_op_flops": op_flops}
+
+
+def _ratio(num, den):
+    return num / den if num and den else None
+
+
+def _dryrun_phase(calibrated, models: dict, composed: dict
+                  ) -> tuple[list[str], dict]:
+    """Phase 19: the dry-run's traces on fake CUDA tensors held against
+    what the card ran (module docstring, item 19).  The children (each
+    group of DRYRUN_GROUPS, and the dry-run CLI on a fake world of 256
+    ranks, so that the fake group never meets phase 16's NCCL group) run
+    while this process runs the FLOP gate's prefill on the card."""
+    from repro_torch.core.mesh import rank_meshes
+
+    t0 = time.perf_counter()
+    failures, rec = [], {"card": _card_line()}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        arch_name, shape_name = DRYRUN_WORLD
+        commands = [(f"group {i}", os.path.join(tmp, f"group{i}.json"),
+                     [sys.executable, __file__, "--trace-cells",
+                      os.path.join(tmp, f"group{i}.json"), str(i)])
+                    for i in range(len(DRYRUN_GROUPS))]
+        commands.append((
+            "world", os.path.join(tmp, f"{arch_name}__{shape_name}__16x16.json"),
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch_name, "--shape", shape_name, "--device", "cuda",
+             "--machine", str(MACHINE_FILE), "--out", tmp, "--force"]))
+        children = []
+        for tag, out, cmd in commands:
+            log = open(os.path.join(tmp, f"{tag}.log"), "w+")
+            children.append((tag, out, log, subprocess.Popen(
+                cmd, env=env, stdout=log, stderr=subprocess.STDOUT)))
+        gate_failures, gate = _flop_gate()
+        failures += gate_failures
+        traced, child_s = {}, {}
+        for tag, out, log, proc in children:
+            try:
+                proc.wait(timeout=DRYRUN_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            child_s[tag] = time.perf_counter() - t0
+            log.seek(0)
+            tail = log.read()[-2000:]
+            log.close()
+            if proc.returncode or not os.path.exists(out):
+                failures.append(f"dry-run {tag}: exit {proc.returncode}: "
+                                f"{tail}")
+                continue
+            got = json.loads(Path(out).read_text())
+            for r in (got if isinstance(got, list) else [got]):
+                if r["status"] != "ok":
+                    failures.append(f"dry-run {tag}: {r.get('error')}")
+                traced[tuple(r.get("cell", (tag, arch_name)))] = r
+    rec["children_done_s"] = child_s
+    if failures:
+        rec["s"] = time.perf_counter() - t0
+        return failures, rec
+
+    # the gate: the traced FLOPs of the flash prefill, exactly the card's
+    p = traced[("prefill", "internlm2-1.8b")]
+    rec["flop_gate"] = gate | {"traced_flops": p["cost"]["flops_per_chip"],
+                               "equal": p["cost"]["flops_per_chip"]
+                               == gate["flops"]}
+    if not rec["flop_gate"]["equal"]:
+        failures.append(f"dry-run gate: traced FLOPs "
+                        f"{p['cost']['flops_per_chip']} != the card's "
+                        f"{gate['flops']}")
+
+    # memory: the traced peak against max_memory_allocated
+    train = models[f"train {TRAIN_ARCH}"]
+    t = traced[("train", TRAIN_ARCH)]
+    rec["memory"] = {
+        "train": {"traced_peak": t["peak_bytes_per_chip"],
+                  "traced": t["memory"],
+                  "measured_peak": train["summary"]["peak_bytes"],
+                  "traced_over_measured": _ratio(
+                      t["peak_bytes_per_chip"],
+                      train["summary"]["peak_bytes"])},
+        "prefill internlm2-1.8b": {
+            "traced_peak": p["peak_bytes_per_chip"], "traced": p["memory"],
+            "measured_peak": gate["peak_bytes"],
+            "traced_over_measured": _ratio(p["peak_bytes_per_chip"],
+                                           gate["peak_bytes"])}}
+
+    # time: the traced three-term t_ecm against the measured device ms
+    tsplit = train["device_split"]
+    rec["t_ecm"] = {"train": {
+        "traced_ms": t["ecm"]["t_ecm_s"] * 1e3, "ecm": t["ecm"],
+        "measured_device_ms": tsplit.get("total_ms"),
+        "measured_over_traced": _ratio(tsplit.get("total_ms"),
+                                       t["ecm"]["t_ecm_s"] * 1e3),
+        "composed_measured_over_predicted": composed["train"]["device"].get(
+            "measured_over_predicted")}}
+    for name in MODEL_PHASES.values():
+        m = models[name]
+        for kind, measured in (
+                ("prefill", m["device_split"]["prefill"].get("total_ms")),
+                ("decode", m["summary"]["decode_graph_ms"])):
+            e = traced[(kind, name)]["ecm"]
+            rec["t_ecm"][f"{name} {kind}"] = {
+                "traced_ms": e["t_ecm_s"] * 1e3,
+                "t_comp_ms": e["t_comp_s"] * 1e3,
+                "t_hbm_ms": e["t_hbm_s"] * 1e3, "dominant": e["dominant"],
+                "traced_flops": traced[(kind, name)]["cost"]["flops_per_chip"],
+                "traced_bytes": traced[(kind, name)]["cost"]["bytes_per_chip"],
+                "measured_device_ms": measured,
+                "measured_over_traced": _ratio(measured, e["t_ecm_s"] * 1e3),
+                "composed_measured_over_predicted": composed["served"][name][
+                    kind]["total"].get("measured_over_predicted"),
+                "t_trace_s": traced[(kind, name)]["t_trace_s"]}
+    best = rank_meshes(TRAIN_ARCH, 8, calibrated)[0]
+    rec["rank_meshes_8"] = {k: best[k] for k in (
+        "mesh", "profile", "t_step_us", "t_link_us", "n_saturation",
+        "parallel_efficiency", "hbm_bytes_per_chip", "fits_hbm", "block")}
+    rec["world"] = traced[("world", arch_name)]
+    rec["t_trace_s"] = {f"{k[0]} {k[1]}": r["t_trace_s"]
+                        for k, r in traced.items()}
+    rec["s"] = time.perf_counter() - t0
+    rec["aim_s"] = DRYRUN_AIM_S
+    return failures, rec
+
+
 def _check_compute_report(report: dict) -> list[str]:
     where = f"{report['op']} {report['dims']} {report['dtype']}"
     out, failures = report["output"], []
@@ -3617,12 +3881,22 @@ def main() -> int:
                             "failures": compose_failures,
                             "s": model_s["compose"]}))
     failures += compose_failures
+    torch.cuda.empty_cache()
+
+    # 19. the dry-run: fake CUDA traces in child processes against phases
+    # 10-18's records, and the FLOP gate's prefill on the card
+    dryrun_failures, dryrun = _dryrun_phase(calibrated, models, composed)
+    model_s["dryrun"] = dryrun["s"]
+    tag = {"phase": "19 dryrun"}
+    print(json.dumps(tag | {"world_256": dryrun.pop("world", None)}))
+    print(json.dumps(tag | dryrun | {"failures": dryrun_failures}))
+    failures += dryrun_failures
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
         "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 19. the kernels line; the attention's launches add the power fit's,
+    # 20. the kernels line; the attention's launches add the power fit's,
     # the model phases' and the serve phase's, the combine's the serve
     # phase's
     model_launches = {name: m["launches"]["flash_attention"]
@@ -3737,4 +4011,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-gate-reference"]:
         sys.path.insert(0, str(SRC))
         sys.exit(_gate_cpu_side(sys.argv[2], smoke="--smoke" in sys.argv[3:]))
+    if sys.argv[1:2] == ["--trace-cells"]:
+        sys.path.insert(0, str(SRC))
+        sys.exit(_trace_cells_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -3,9 +3,8 @@
 
 An :class:`ArchDef` binds a model family's functions (spec / loss /
 prefill / decode / cache-spec) to one concrete configuration, and knows
-how to build its inputs for each assigned input shape as numpy arrays.
-The reference's dry-run stand-ins (``abstract_batch``) wait for the
-port's dry-run (ROADMAP §1 item 7b).
+how to build its inputs for each assigned input shape as numpy arrays, or
+as the dry-run's stand-ins (:meth:`ArchDef.abstract_batch`).
 
 Input shapes (assigned, global):
 
@@ -30,7 +29,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..models.common import ParamSpec, count_params, tree_leaves
+from ..models.common import ParamSpec, abstract, count_params, tree_leaves
 
 
 @dataclass(frozen=True)
@@ -154,6 +153,12 @@ class ArchDef:
         if shape.kind == "decode":
             return 1
         return max(shape.seq_len - getattr(self.cfg, "image_prefix", 0), 1)
+
+    def abstract_batch(self, shape: ShapeSpec, *, device) -> dict:
+        """The step's data inputs as :func:`~..models.common.abstract`
+        tensors on ``device`` (fake under the caller's
+        ``FakeTensorMode``)."""
+        return abstract(self.batch_spec(shape), device=device)
 
     def make_batch(self, shape: ShapeSpec, seed: int = 0) -> dict:
         """Concrete numpy batch for this shape, drawn as the reference

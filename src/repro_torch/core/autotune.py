@@ -1,8 +1,10 @@
-"""Rank the tilings of the compute-bound kernels by the GPU model.
+"""Rank the tilings of the compute-bound kernels by the GPU model, and the
+meshes of a model config.
 
 The port's copy of the two compute objectives of the reference's
 ``repro/core/autotune.py`` ``rank`` (``objective="matmul"`` and
-``"attention"``).  Candidates are the tilings the CUDA kernels are
+``"attention"``) and of its mesh axis (``mesh=``, ``core/mesh.py``
+``rank_meshes``).  Candidates are the tilings the CUDA kernels are
 compiled for (``kernels/matmul/kernel.py`` ``TILINGS`` of the operands'
 route, and ``kernels/attention/kernel.py`` ``TILINGS``) that the kernel
 takes for the problem, so nothing it would refuse is offered: matmul
@@ -64,10 +66,20 @@ def attention_block_candidates(sq: int, skv: int, d: int, machine
             and K.smem_bytes(*t, d) <= machine.smem_per_block_optin]
 
 
-def rank(dims: tuple[int, int, int], machine, *, objective: str,
-         causal: bool = True, elem_bytes: int = 4) -> list[dict]:
+def rank(dims, machine=None, *, objective: str | None = None,
+         causal: bool = True, elem_bytes: int = 4, mesh=None, **mesh_opts
+         ) -> list[dict]:
     """Rank the candidate tilings of ``dims`` on the card ``machine`` (a
-    ``GPUMachineModel``), best first.
+    ``GPUMachineModel``), best first; or, with ``mesh``, the meshes of a
+    model config.
+
+    ``rank(config, machine, mesh=n)``: the joint ``(mesh shape, sharding
+    profile)`` ranking of ``config`` (an arch name, an ``ArchDef`` or a
+    raw config) at ``n`` cards, ``core/mesh.py`` ``rank_meshes``'s rows
+    (``machine`` defaults to ``H100_SXM``).  ``mesh`` may also be a dict
+    of ``rank_meshes``'s options with ``n_chips`` among them (default
+    256, the reference's); further keywords pass through.  Those keywords
+    without ``mesh`` raise ``TypeError``.
 
     ``objective="matmul"``: ``dims`` is ``(m, n, k)``, blocks
     ``(bm, bn, bk)``.  ``objective="attention"``: ``dims`` is
@@ -77,6 +89,17 @@ def rank(dims: tuple[int, int, int], machine, *, objective: str,
     ``{"block", "t_ecm" (seconds), "smem_bytes"}``; raises ``ValueError``
     when no compiled tiling fits.
     """
+    if mesh is not None:
+        from .machine import H100_SXM
+        from .mesh import rank_meshes
+
+        opts = dict(mesh) if hasattr(mesh, "keys") else {"n_chips": mesh}
+        n = int(opts.pop("n_chips", 256))
+        return rank_meshes(dims, n, machine or H100_SXM,
+                           **opts | mesh_opts)
+    if mesh_opts:
+        raise TypeError(f"unexpected keyword arguments without mesh=: "
+                        f"{sorted(mesh_opts)}")
     if objective == "matmul":
         from ..kernels.matmul.kernel import smem_bytes
 

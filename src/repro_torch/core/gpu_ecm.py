@@ -3,8 +3,13 @@
 The counterpart of the reference's ``repro/core/tpu_ecm.py`` for one card:
 ``T_comp`` (SM execution, the paper's ``T_OL``) and ``T_hbm`` (device
 memory streaming), composed by Eq. 1 with a fraction of the transfer
-serialized with compute (the ``T_nOL`` role).  Collective terms (ICI/DCN
-in the reference) wait for the multi-card slices of the port.
+serialized with compute (the ``T_nOL`` role).  :class:`GPUStepECM` adds
+the collective terms of a step on a mesh of cards (the reference's
+``TPUStepECM``): ``T_link`` over NVLink (the ``data`` and ``model`` axes,
+the reference's ICI) and ``T_net`` over the network (the ``pod`` axis,
+its DCN); :func:`from_resources` builds one from a traced step's
+resources (``core/hlo.py``).  The one-card :class:`StepECM` stays as it
+is, and everything priced on it.
 
 :func:`gpu_stream_ecm` is the per-row ECM of a Table I stream kernel;
 :func:`gpu_stencil_ecm` builds the step model of one Jacobi sweep, with
@@ -21,6 +26,7 @@ import math
 from dataclasses import dataclass
 
 from .ecm import ECMModel
+from .hlo import HLOResources
 from .kernel_spec import BENCHMARKS
 from .layer_condition import StencilSpec
 from .machine import GPUMachineModel
@@ -56,6 +62,198 @@ class StepECM:
         exposed = self.exposed_hbm_fraction * self.t_hbm
         hidden = (1 - self.exposed_hbm_fraction) * self.t_hbm
         return max(self.t_comp, hidden) + exposed
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Physical interpretation of a mesh for the link and network terms:
+    the axes in ``net_axes`` cross the network (node to node), the others
+    NVLink."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+    #: axes that ride the network (pod to pod) instead of NVLink
+    net_axes: tuple[str, ...] = ("pod",)
+
+    @property
+    def n_chips(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def n_pods(self) -> int:
+        n = 1
+        for s, a in zip(self.shape, self.axes):
+            if a in self.net_axes:
+                n *= s
+        return n
+
+
+@dataclass(frozen=True)
+class GPUStepECM:
+    """Three-term ECM model of one step on a mesh of cards (the
+    reference's ``TPUStepECM``); seconds per step, per card.
+
+    ``t_link`` is the collectives' time over NVLink, ``t_net`` over the
+    network; ``exposed_link_fraction`` the share of both serialized with
+    compute (the reference's ``exposed_ici_fraction``, the ECM ``T_nOL``
+    role), ``exposed_hbm_fraction`` that of the HBM term.
+    """
+
+    name: str
+    t_comp: float
+    t_hbm: float
+    t_link: float
+    t_net: float = 0.0
+    exposed_link_fraction: float = 1.0
+    exposed_hbm_fraction: float = 1.0
+    model_flops: float = 0.0            # useful-work FLOPs (6ND), global
+    hlo_flops: float = 0.0              # traced FLOPs, global
+    details: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def t_roofline(self) -> float:
+        """Full-overlap (light-speed) bound: max of the three terms."""
+        return max(self.t_comp, self.t_hbm, self.t_link + self.t_net)
+
+    @property
+    def t_ecm(self) -> float:
+        """ECM bound: compute overlaps only the non-exposed transfer part."""
+        exposed = (self.exposed_hbm_fraction * self.t_hbm
+                   + self.exposed_link_fraction * (self.t_link + self.t_net))
+        hidden_hbm = (1 - self.exposed_hbm_fraction) * self.t_hbm
+        hidden_link = ((1 - self.exposed_link_fraction)
+                       * (self.t_link + self.t_net))
+        return max(self.t_comp, hidden_hbm, hidden_link) + exposed
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_comp, "memory": self.t_hbm,
+                 "collective": self.t_link + self.t_net}
+        return max(terms, key=terms.get)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Useful-compute fraction of the ECM-bound step time."""
+        if self.t_ecm <= 0:
+            return 0.0
+        return self.t_comp / self.t_ecm * self.useful_flops_fraction
+
+    @property
+    def useful_flops_fraction(self) -> float:
+        if self.hlo_flops <= 0:
+            return 1.0
+        return min(1.0, self.model_flops / self.hlo_flops)
+
+    def summary(self) -> dict:
+        return {
+            "name": self.name,
+            "t_comp_s": self.t_comp,
+            "t_hbm_s": self.t_hbm,
+            "t_link_s": self.t_link,
+            "t_net_s": self.t_net,
+            "t_roofline_s": self.t_roofline,
+            "t_ecm_s": self.t_ecm,
+            "dominant": self.dominant,
+            "model_flops": self.model_flops,
+            "hlo_flops": self.hlo_flops,
+            "useful_flops_fraction": self.useful_flops_fraction,
+            "roofline_fraction": self.roofline_fraction,
+            **{f"detail_{k}": v for k, v in self.details.items()},
+        }
+
+
+def fabric_rates(machine: GPUMachineModel) -> tuple[float, float]:
+    """``(NVLink, network)`` bytes/s a card sends each way; raises where the
+    machine carries neither rate nor a data-sheet prior."""
+    link, net = machine.nvlink_bytes_per_s, machine.net_bytes_per_s
+    if link is None or net is None:
+        raise ValueError(f"{machine.name!r} carries no NVLink or network "
+                         f"rate: the mesh model needs both")
+    return link, net
+
+
+def from_resources(res: HLOResources, mesh: MeshSpec, *,
+                   name: str = "step", machine: GPUMachineModel,
+                   model_flops: float = 0.0, flops_are_global: bool = True,
+                   exposed_link_fraction: float | None = None,
+                   exposed_hbm_fraction: float | None = None,
+                   dtype_peak: float | None = None) -> GPUStepECM:
+    """The per-card three-term model of a step from its resources (the
+    reference's ``from_resources``).
+
+    ``flops_are_global``: ``res`` counts the whole program, divided here
+    over the mesh's cards; a traced rank's program (``core/hlo.py``
+    ``analyze``) is already per card, so pass ``False``.  The collectives'
+    wire bytes are per card.  A collective tagged with a network axis of
+    the mesh (``MeshSpec.net_axes``; ``core/hlo.py`` tags a traced one
+    with the mesh axis of its group) rides the network whole.  An untagged
+    one whose group spans more cards than one pod holds crosses it too:
+    its intra-pod part rides NVLink and one pod's share (``1 / (group /
+    cards a pod)``) the network, as the reference splits ICI and DCN (the
+    reference's rule by group size alone takes a pod-axis group, smaller
+    than a pod, for ICI).  Compute is priced at
+    ``dtype_peak`` (the tensor cores' bf16 peak by default), the
+    exposed fractions at the machine's.
+    """
+    if exposed_link_fraction is None:
+        exposed_link_fraction = machine.exposed_link_fraction
+    if exposed_hbm_fraction is None:
+        exposed_hbm_fraction = machine.exposed_hbm_fraction
+    link_bw, net_bw = fabric_rates(machine)
+    n = mesh.n_chips
+    div = n if flops_are_global else 1
+    flops_chip = res.flops / div
+    bytes_chip = res.bytes_accessed / div
+
+    t_comp = flops_chip / (dtype_peak or machine.peak_bf16_tensor_flops)
+    t_hbm = bytes_chip / machine.hbm_bytes_per_s
+
+    chips_per_pod = n // max(mesh.n_pods, 1)
+    link_bytes = 0.0
+    net_bytes = 0.0
+    for c in res.collectives:
+        w = c.wire_bytes_per_chip
+        if c.axis and c.axis in mesh.net_axes:
+            net_bytes += w
+        elif mesh.n_pods > 1 and c.group_size > chips_per_pod:
+            net_bytes += w / max(c.group_size // chips_per_pod, 1)
+            link_bytes += w
+        else:
+            link_bytes += w
+    return GPUStepECM(
+        name=name,
+        t_comp=t_comp,
+        t_hbm=t_hbm,
+        t_link=link_bytes / link_bw,
+        t_net=net_bytes / net_bw,
+        exposed_link_fraction=exposed_link_fraction,
+        exposed_hbm_fraction=exposed_hbm_fraction,
+        model_flops=model_flops,
+        hlo_flops=res.flops if flops_are_global else res.flops * n,
+        details={
+            "chips": n,
+            "pods": mesh.n_pods,
+            "bytes_chip": bytes_chip,
+            "link_wire_bytes_chip": link_bytes,
+            "net_wire_bytes_chip": net_bytes,
+            "collective_out_bytes": res.collective_bytes,
+            "collectives_by_kind": res.by_kind(),
+        },
+    )
+
+
+def saturation_chips(step: GPUStepECM, bottleneck: str = "collective") -> int:
+    """Eq. 2 analogue: cards after which adding more stops helping for a
+    fixed global problem (the bottleneck term stops shrinking)."""
+    terms = {"compute": step.t_comp, "memory": step.t_hbm,
+             "collective": step.t_link + step.t_net}
+    b = terms[bottleneck]
+    if b <= 0:
+        return 1
+    return max(1, math.ceil(step.t_ecm / b))
 
 
 def overlap_coefficient(measured_s: float, t_comp_s: float,

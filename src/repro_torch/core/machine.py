@@ -32,11 +32,15 @@ from pathlib import Path
 #: Data-sheet rates by card name, as ``torch.cuda.get_device_name`` gives
 #: it: HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense bf16
 #: FLOP/s on the tensor cores, the boost clock that links the rates to
-#: cycles, and the NVLink bytes/s a card sends each way (the counterpart
-#: of the reference's ``ici_link_bytes_per_s * ici_links_per_chip``).
+#: cycles, the NVLink bytes/s a card sends each way (the counterpart
+#: of the reference's ``ici_link_bytes_per_s * ici_links_per_chip``) and
+#: the network bytes/s a card sends each way to another node (the
+#: reference's ``dcn_bytes_per_s``, the mesh's ``pod`` axis).
 #: H100 SXM: NVIDIA H100 data sheet (3.35 TB/s HBM3, 67 TFLOP/s FP32 =
 #: 132 SMs x 128 lanes x 2 x 1.98 GHz, 989 TFLOP/s bf16 dense, 900 GB/s
-#: NVLink = 18 links x 25 GB/s x 2 directions, so 450 GB/s each way).
+#: NVLink = 18 links x 25 GB/s x 2 directions, so 450 GB/s each way); the
+#: network from the DGX H100's eight ConnectX-7 NDR ports for its eight
+#: cards, one 400 Gb/s port a card: 50 GB/s each way.
 DATASHEET: dict[str, dict[str, float]] = {
     "NVIDIA H100 80GB HBM3": {
         "hbm_bytes_per_s": 3.35e12,
@@ -44,11 +48,15 @@ DATASHEET: dict[str, dict[str, float]] = {
         "peak_bf16_tensor_flops": 989e12,
         "clock_hz": 1.98e9,
         "nvlink_bytes_per_s": 450e9,
+        "net_bytes_per_s": 50e9,
     },
 }
 
 _PRIOR_FIELDS = ("hbm_bytes_per_s", "peak_f32_flops", "peak_bf16_tensor_flops",
-                 "clock_hz", "nvlink_bytes_per_s")
+                 "clock_hz", "nvlink_bytes_per_s", "net_bytes_per_s")
+#: the fabric rates: data-sheet priors that nothing fits, filled from
+#: :data:`DATASHEET` when a machine file written before them is loaded
+_FABRIC_FIELDS = ("nvlink_bytes_per_s", "net_bytes_per_s")
 
 
 @dataclass(frozen=True)
@@ -112,9 +120,14 @@ class GPUMachineModel:
     ``power`` is the chip power over the SMs (§III-D): the card's prior
     from :data:`POWER_PRIORS` until the calibration fits it.
 
-    ``nvlink_bytes_per_s`` is a data-sheet prior that nothing fits (one
-    card has no link to measure); ``None`` in a machine file written
-    before it existed.
+    ``nvlink_bytes_per_s`` (the ``data`` and ``model`` axes of a mesh)
+    and ``net_bytes_per_s`` (its ``pod`` axis) are data-sheet priors that
+    nothing fits (one card has no link to measure); a machine file
+    written without them loads with the card's prior.
+    ``exposed_link_fraction`` is the share of the collectives' time
+    serialized with compute (the reference's ``exposed_ici_fraction``),
+    prior 1.0: the port's data-parallel step reduces its gradients after
+    the backward, on the compute stream (``dist/collectives.py``).
     """
 
     name: str
@@ -134,6 +147,8 @@ class GPUMachineModel:
     l2_bytes_per_s: float | None = None
     write_allocate: bool = False
     nvlink_bytes_per_s: float | None = None
+    net_bytes_per_s: float | None = None
+    exposed_link_fraction: float = 1.0
 
     @classmethod
     def from_device(cls, device) -> "GPUMachineModel":
@@ -251,6 +266,10 @@ def machine_from_dict(data: dict) -> GPUMachineModel:
         d["measured_bw"] = {k: float(v) for k, v in d["measured_bw"].items()}
     if "power" in d:
         d["power"] = ChipPower(**{k: float(v) for k, v in d["power"].items()})
+    rates = DATASHEET.get(d.get("name"), {})
+    for k in _FABRIC_FIELDS:
+        if d.get(k) is None and k in rates:
+            d[k] = rates[k]
     return GPUMachineModel(**d)
 
 

@@ -22,8 +22,12 @@ engine on the port's ``ECMBatch`` and ``GPUMachineModel``:
 * :func:`scale_model` builds one from a whole model step: the one-SM
   aggregate of its op walk (``core/compose.py`` ``model_lowered``).
 
-Not copied: ``tpu_dp_scaling`` (it needs the mesh model,
-``core/mesh.py``), ``scaling_zoo`` and ``saturation_table`` (they walk a
+* :func:`gpu_dp_scaling` is Eq. 2 at card granularity: data-parallel
+  scaling of one traced program over NVLink, delegating to
+  ``core/mesh.py`` ``dp_scaling`` as the reference's ``tpu_dp_scaling``
+  does.
+
+Not copied: ``scaling_zoo`` and ``saturation_table`` (they walk a
 registry of machines the port does not have).
 """
 from __future__ import annotations
@@ -36,8 +40,8 @@ from .ecm import ECMBatch
 from .gpu_ecm import one_sm_ecm
 from .machine import GPUMachineModel
 
-__all__ = ["ChipScaling", "fill_domains", "frequency_scale", "scale_model",
-           "scale_workloads"]
+__all__ = ["ChipScaling", "fill_domains", "frequency_scale", "gpu_dp_scaling",
+           "scale_model", "scale_workloads"]
 
 
 def frequency_scale(batch: ECMBatch, f_ghz, *, f_nominal_ghz: float,
@@ -321,3 +325,34 @@ def scale_model(config, machine: GPUMachineModel, *, phase: str = "decode",
                             seq_len=seq_len, context=context,
                             elem_bytes=elem_bytes)
     return _chip_scaling(lowered, machine, lowered.names)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 2 over cards: the collectives as the shared bottleneck
+# ---------------------------------------------------------------------------
+
+
+def gpu_dp_scaling(resources, chip_counts=(1, 2, 4, 8, 16, 32, 64, 128,
+                                           256), *,
+                   machine: GPUMachineModel | None = None,
+                   dtype_peak: float | None = None,
+                   exposed_link_fraction: float | None = None) -> dict:
+    """Eq. 2 at card granularity: data-parallel scaling of one program
+    (the reference's ``tpu_dp_scaling``).
+
+    ``resources`` describes the global program on one card (a
+    ``core/hlo.py`` ``HLOResources``, or anything with ``flops``,
+    ``bytes_accessed`` and a ``collectives`` list of ``CollectiveOp``).
+    Spread over ``n`` cards the compute and HBM terms divide by ``n``,
+    while the ring collectives' per-card wire bytes grow with ``(n-1)/n``
+    towards a floor that plays the role of ``T_L3Mem`` in Eq. 2; the
+    saturation count is ``n_S = ceil(T_single / T_link_floor)``.  Returns
+    per-``n`` lists (``t_*_us`` in microseconds) and ``n_saturation``
+    (``None`` without collectives).  Delegates to ``core/mesh.py``
+    ``dp_scaling`` (``machine`` defaults to ``H100_SXM``)."""
+    from .machine import H100_SXM
+    from .mesh import dp_scaling
+
+    return dp_scaling(resources, chip_counts, machine=machine or H100_SXM,
+                      dtype_peak=dtype_peak,
+                      exposed_link_fraction=exposed_link_fraction)

@@ -30,11 +30,24 @@ score and feeds only the output columns that are dropped, so the result
 is the unpadded one.  Any other head dim raises.  With grad mode on, an
 operand that requires grad raises on both devices
 (:func:`..autograd.refuse_grad`): the kernel has no backward.
+
+The card path is the custom op ``torch.ops.repro_torch.flash_attention``
+(``torch.library.custom_op``), so a trace sees it: on a fake tensor
+(``FakeTensorMode``, the dry-run's ``core/hlo.py``) its fake version
+returns the output's shape and launches nothing, and
+``FlopCounterMode`` counts it by its registered formula (a counter made
+after this module is imported: it copies the registry when made, and
+``core/hlo.py`` ``flop_counter`` imports this module first),
+``4 B H Sq Sk d``: what the plain version computes (two products over
+every score, the masked ones too, at the true head dim), so a step
+counts the same FLOPs on the card as on the CPU.  A real tensor runs the
+kernel, with no fallback.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ...core.machine import H100_SXM, GPUMachineModel
 from ...core.workload import AttentionWorkload
@@ -86,6 +99,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = ref.attention(*fused_inputs(q, k, v), causal=causal)
         return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
     bq, bk = card_blocks(asked, ranked_blocks(sq, sk, d, causal=causal))
+    # a meta tensor (outside a fake mode) reaches the kernel wrappers,
+    # which refuse it, as any other non-CUDA tensor
+    card = _launch if q.device.type == "meta" else _flash_card
+    return card(q, k, v, causal, bq, bk)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, bq: int, bk: int) -> torch.Tensor:
+    """The kernel at the tiling ``(bq, bk)``: the split route for one query
+    row, else the tile route; head dims 16 and 32 padded to 64."""
+    d = q.shape[-1]
     dk = K.PADDED_HEAD_DIMS.get(d, d)
     if dk != d:
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
@@ -96,6 +120,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = K.flash_attention_tile(q, k, v, causal=causal, bq=bq, bk=bk,
                                      scale=d ** -0.5)
     return out[..., :d] if dk != d else out
+
+
+_flash_card = torch.library.custom_op("repro_torch::flash_attention",
+                                      _launch, mutates_args=())
+
+
+@_flash_card.register_fake
+def _(q, k, v, causal, bq, bk):
+    return q.new_empty(q.shape)
+
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, bq, bk, *,
+                 out_shape=None, **kwargs) -> int:
+    """The plain version's products: ``q k^T`` and ``p v`` over every
+    score, ``2 Sq Sk d`` each per head."""
+    b, sq, h, d = q_shape
+    return 4 * b * h * sq * k_shape[1] * d
 
 
 #: ``ranked_blocks``' memo: (dims, causal, machine) -> the ranked tilings

@@ -8,9 +8,9 @@ takes and returns tensors of the reference's shapes and dtypes, and
 rounds where the reference rounds.  The reference's activation
 annotations (``shard_annotate``, ``set_activation_rules``) have nothing
 to act on in eager PyTorch, where the data-parallel step gathers every
-parameter whole (tensor-parallel compute is ROADMAP §1 item 5c), and its
-dry-run stand-ins (``abstract``) wait for item 7b: the port's forward
-leaves their calls out.
+parameter whole (tensor-parallel compute is ROADMAP §1 item 5c): the
+port's forward leaves their calls out.  The dry-run's stand-ins are
+:func:`abstract`'s fake tensors (``launch/dryrun.py``).
 :func:`grad_barrier` is an identity (an XLA scheduling hint in the
 reference), and the forward leaves its calls out too.
 
@@ -100,6 +100,16 @@ def materialize(spec_tree, generator: torch.Generator, dtype=None, *,
     carry the reference's own parameters across instead."""
     return tree_map(lambda s: _init_array(s, generator, dtype, device),
                     spec_tree)
+
+
+def abstract(spec_tree, dtype=None, *, device):
+    """Spec tree -> tree of uninitialized tensors on ``device`` (the
+    reference's ``ShapeDtypeStruct`` stand-ins): made by ``torch.empty``,
+    so under the caller's ``FakeTensorMode`` they are fake tensors with no
+    storage, and no initializer runs (a random draw on a fake CUDA tensor
+    needs a card)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype or s.dtype,
+                                          device=device), spec_tree)
 
 
 def count_params(spec_tree) -> int:

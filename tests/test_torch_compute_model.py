@@ -220,10 +220,12 @@ def test_rank_attention():
 
 def test_rank_has_no_knob_without_a_caller():
     """rank's keywords are the objective, causal and the element size,
-    which the ops' tuned_blocks and the compute loop set."""
+    which the ops' tuned_blocks and the compute loop set, and the mesh
+    axis (``mesh`` and ``rank_meshes``' options), which the mesh model's
+    callers set."""
     params = inspect.signature(rank).parameters
     assert list(params) == ["dims", "machine", "objective", "causal",
-                            "elem_bytes"]
+                            "elem_bytes", "mesh", "mesh_opts"]
     assert list(inspect.signature(MO.tuned_blocks).parameters) == \
         ["m", "n", "k", "dtype", "machine"]
     assert list(inspect.signature(AO.tuned_blocks).parameters) == \

@@ -111,9 +111,11 @@ def test_machine_from_device(monkeypatch):
     assert m.peak_bf16_tensor_flops == 989e12
     assert set(m.priors) == {"hbm_bytes_per_s", "peak_f32_flops",
                              "peak_bf16_tensor_flops", "clock_hz",
-                             "nvlink_bytes_per_s"}
-    # the data sheet's 900 GB/s of NVLink, counted each way
+                             "nvlink_bytes_per_s", "net_bytes_per_s"}
+    # the data sheet's 900 GB/s of NVLink, counted each way; the DGX
+    # H100's network, one 400 Gb/s port a card
     assert m.nvlink_bytes_per_s == 450e9
+    assert m.net_bytes_per_s == 50e9
     assert m.exposed_hbm_fraction == 0.0
     # the FP32 peak is the lanes at the clock: 132 x 128 x 2 x 1.98 GHz
     assert 2 * m.sm_count * m.fp32_lanes_per_sm * m.clock_hz == \

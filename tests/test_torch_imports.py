@@ -64,7 +64,9 @@ def test_port_files_exist():
               "train/elastic.py", "dist/__init__.py", "dist/sharding.py",
               "dist/collectives.py", "launch/mesh.py", "launch/train.py",
               "serve/__init__.py", "serve/policy.py", "serve/trace.py",
-              "serve/faults.py", "serve/engine.py", "core/compose.py"):
+              "serve/faults.py", "serve/engine.py", "core/compose.py",
+              "core/hlo.py", "core/mesh.py", "launch/dryrun.py",
+              "benchmarks/gpu_roofline.py"):
         assert ROOT / "src/repro_torch" / f in PORT_FILES
 
 
@@ -107,6 +109,8 @@ def test_import_leaves_jax_out():
         "import repro_torch.serve, repro_torch.serve.policy\n"
         "import repro_torch.serve.trace, repro_torch.serve.faults\n"
         "import repro_torch.serve.engine, repro_torch.core.compose\n"
+        "import repro_torch.core.hlo, repro_torch.core.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.benchmarks.gpu_roofline\n"
         "from repro_torch.configs import all_archs\n"
         "all_archs(); all_archs(smoke=True)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
