@@ -19,9 +19,11 @@ whisper-base and the recurrent xlstm-125m; trains internlm2-1.8b
 through the driver (``repro_torch.train.driver.Trainer``), also on a
 one-rank NCCL mesh; runs the continuous-batching serving engine
 (``repro_torch.serve``) and launches the split decode route at its
-bucket picks; holds the whole-model composition against the served and
-trained models' device time; and holds every CUDA kernel against its
-plain PyTorch version.  Phases:
+bucket picks; holds the whole-model composition and the dry-run's traces
+against the served and trained models' device time; serves the LM family
+tensor parallel on a one-rank NCCL mesh and traces its serving cells on
+a fake 256-rank world; and holds every CUDA kernel against its plain
+PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -251,7 +253,29 @@ plain PyTorch version.  Phases:
    15's step and of that prefill, the traced ``t_ecm`` against phases
    15's and 18's measured device ms beside phase 18's composed ratio,
    and ``rank_meshes``' winner at 8 cards on the calibrated machine;
-20. one JSON line with the ten kernels (the matmul and attention rows
+20. serving on a mesh (``launch/serve.py`` ``serve`` with ``mesh``, the
+   tensor-parallel steps of ``train/steps.py``) on a one-rank NCCL mesh
+   ``(1, 1)`` under the arch's profile, where every collective runs on
+   the one-rank group: internlm2-1.8b as phase 10 serves it (bf16, flash,
+   B 8, prompt 2048, 32 greedy steps), gated on 24 tile launches and its
+   tokens equal to phase 10's, its prefill and decode times beside phase
+   10's, and one decode step's host and device time on the mesh and
+   without; the same arch at MESH_F32_LAYERS layers at full width, f32, with
+   the cache split by sequence and ``cache_seq_axis="model"`` forced (the
+   flash decode and its three all-reduces), the prefill's and
+   MESH_F32_GEN steps' logits within MODEL_TOL of ``mesh=None``;
+   granite-moe-1b-a400m (``shard_map``, bf16, flash) served MESH_MOE_GEN
+   steps on the mesh, its logits and tokens bit-equal to ``mesh=None``
+   (the multi-shard body on one model shard, its FSDP gathers over
+   ``data``); in a child, the dry-run's MESH_CELLS on fake CUDA tensors on
+   the fake 256-rank ``16x16`` world (attention on the flash op), their
+   per-card TFLOP, bytes, collectives by kind and axis, ``t_link`` and
+   peak, gated: each fits the card, the prefill's useful share (a data
+   group's rows traced on one card, over the per-card FLOPs times the 16
+   model ranks) at least MESH_USEFUL_MIN, and each decode's flash decode
+   in every layer (one max and one denominator all-reduce over ``model``
+   a layer, a numerator sum beside them);
+21. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
    attention's per path with each model phase's, the train phase's and
    the serve phase's beside the compute loop's and its time at each
@@ -259,12 +283,12 @@ plain PyTorch version.  Phases:
    the decode's split plan), then the ``ok`` line.
 
 The calibration, the Eq. 2 sweep, the energy sweep, the models' served
-runs, the train phase's main path and the serve phase's buckets count
-their launches from 0 too, each kernel they run at least once; the
-attention's count in the kernels line adds the power fit's tile
-launches, the served runs', the train phase's evals' and the serve
-phase's split launches to the compute loop's, the combine's the serve
-phase's.  The time of each phase is printed.
+runs, the train phase's main path, the serve phase's buckets and the
+mesh phase count their launches from 0 too, each kernel they run at
+least once; the attention's count in the kernels line adds the power
+fit's tile launches, the served runs', the train phase's evals', the
+serve phase's split launches and the mesh phase's tile launches to the
+compute loop's, the combine's the serve phase's.  The time of each phase is printed.
 
 Any failure exits non-zero and prints no ``ok`` line.
 """
@@ -446,6 +470,26 @@ DRYRUN_GROUPS = ((("train", TRAIN_ARCH),),
                   ("decode", "granite-moe-1b-a400m")))
 DRYRUN_WORLD = ("internlm2-1.8b", "train_4k")
 DRYRUN_CHILD_TIMEOUT_S, DRYRUN_AIM_S = 300, 90
+#: phase 20: serving on a one-rank NCCL mesh ``(1, 1)``: MESH_ARCH as
+#: phase 10 serves it (bf16, flash, MODEL_BATCH x MODEL_PROMPT,
+#: MODEL_GEN greedy steps), through ``launch/serve.py`` ``serve`` on the
+#: mesh, its tokens held equal to phase 10's; the decode split by sequence
+#: (``cache_seq_axis="model"`` forced) at MESH_F32_LAYERS layers at full
+#: width in f32, the prefill's and MESH_F32_GEN steps' logits held to
+#: ``mesh=None`` within MODEL_TOL; MESH_MOE_ARCH (``shard_map``) served
+#: MESH_MOE_GEN steps on the mesh, bit-equal to ``mesh=None``; the
+#: dry-run's MESH_CELLS on the fake 256-rank ``16x16`` world (a child),
+#: the prefill's useful share (a data group's rows on one card over the
+#: per-card FLOPs times the model ranks) at least MESH_USEFUL_MIN and
+#: each decode's flash decode in every layer; the phase's aim (reported)
+MESH_ARCH, MESH_MOE_ARCH = "internlm2-1.8b", "granite-moe-1b-a400m"
+MESH_F32_LAYERS, MESH_F32_GEN, MESH_MOE_GEN = 2, 8, 4
+MESH_CELLS = (("internlm2-1.8b", "prefill_32k"),
+              ("internlm2-1.8b", "decode_32k"),
+              ("granite-moe-1b-a400m", "decode_32k"))
+MESH_WORLD, MESH_DATA_RANKS = "16x16", 16
+MESH_USEFUL_MIN = 0.5
+MESH_CHILD_TIMEOUT_S, MESH_AIM_S = 300, 120
 #: the device split of a train step (``_train_split``)
 TRAIN_SPLIT = ("forward_gemm_ms", "recompute_ms", "backward_gemm_ms",
                "chunked_attention_ms", "cross_entropy_ms", "optimizer_ms",
@@ -1585,6 +1629,7 @@ def _model_phase(name: str, machine) -> tuple[list[str], dict]:
     rec["bf16_flash_vs_chunked_max_abs"] = float(diff.max())
     rec["bf16_tokens_equal_share"] = float(
         (flash.tokens == chunked.tokens).float().mean())
+    rec["bf16_flash_tokens"] = flash.tokens.tolist()
     rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
     rec["attention_launches_by_route"] = dict(
         kernels.FLASH_ATTENTION.launches_by_route)
@@ -3533,6 +3578,373 @@ def _dryrun_phase(calibrated, models: dict, composed: dict
     return failures, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 20: serving on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _mesh_cells_child(out: str) -> int:
+    """A child of phase 20: MESH_CELLS on the fake MESH_WORLD world and a
+    data group's rows of the prefill on one card, on fake CUDA tensors
+    with phase 6's calibrated machine, attention on the flash op (the
+    served path); the records to ``out``."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.core.machine import load_machine_file
+    from repro_torch.launch.dryrun import trace_cell
+
+    machine = load_machine_file(MACHINE_FILE)
+    recs = {}
+    for name, shape_name in MESH_CELLS:
+        arch = _variant(get_arch(name), attn_impl="flash")
+        recs[f"{name} {shape_name}"] = trace_cell(
+            arch, SHAPES[shape_name], mesh=MESH_WORLD, device="cuda",
+            machine=machine)
+    name, shape_name = MESH_CELLS[0]
+    shape = SHAPES[shape_name]
+    recs["rows"] = trace_cell(
+        _variant(get_arch(name), attn_impl="flash"),
+        dataclasses.replace(shape, global_batch=shape.global_batch
+                            // MESH_DATA_RANKS),
+        mesh="card", device="cuda", machine=machine)
+    Path(out).write_text(json.dumps(recs))
+    return 0
+
+
+def _placed_params(arch, params, mesh):
+    """``params`` (whole) placed on ``mesh`` by the arch's profile, as
+    ``launch/serve.py`` places them."""
+    from repro_torch.dist.sharding import get_profile, param_shardings
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    psh = param_shardings(arch.param_spec(), mesh, get_profile(arch.profile),
+                          ensure_model_axis=True)
+    it = iter([sh.distribute(t) for t, sh in
+               zip(tree_leaves(params), tree_leaves(psh))])
+    return tree_map(lambda _: next(it), params)
+
+
+def _mesh_sequence_split(mesh) -> tuple[list[str], dict]:
+    """MESH_ARCH at MESH_F32_LAYERS layers at full width, f32, flash: the
+    prefill with the cache split by sequence (the input profile of KV
+    heads that do not divide ``model``) and MESH_F32_GEN decode steps
+    under ``cache_seq_axis="model"`` (the flash decode, its three
+    all-reduces on the one-rank group), each step's logits against the
+    same step with ``mesh=None`` fed the same tokens."""
+    from repro_torch.benchmarks import gpu_compute_ecm as GC
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.sharding import (get_profile, input_profile,
+                                           param_shardings, use_mesh_context)
+    from repro_torch.kernels.check import compare
+    from repro_torch.models.common import materialize
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    dev = torch.device("cuda")
+    arch = _variant(get_arch(MESH_ARCH), n_layers=MESH_F32_LAYERS,
+                    dtype=torch.float32, attn_impl="flash")
+    vocab = arch.cfg.vocab
+    shape = ShapeSpec("cli_prefill", MODEL_PROMPT, MODEL_BATCH, "prefill")
+    max_len = MODEL_PROMPT + MESH_F32_GEN + 8
+    in_prof = input_profile(multi_pod=False, kv_divisible=False)
+    profile = get_profile(arch.profile)
+    failures, errs = [], []
+    with GC.full_f32():
+        params = materialize(_contracted_fan_in(
+            arch.param_spec(), ("layers", "attn"), arch.cfg.attn_cfg),
+            torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        prompt = {k: torch.from_numpy(v).to(dev)
+                  for k, v in arch.make_batch(shape, seed=SEED).items()}
+        bsh = param_shardings(arch.batch_spec(shape), mesh, in_prof)
+        placed = _placed_params(arch, params, mesh)
+        want, want_cache = make_prefill_step(arch, max_len=max_len)(params,
+                                                                    prompt)
+        with use_mesh_context(mesh, profile):
+            got, cache = make_prefill_step(arch, max_len=max_len,
+                                           cache_profile=in_prof)(
+                placed, {k: bsh[k].distribute(v) for k, v in prompt.items()})
+        pairs = [(got, want)]
+        tok = want[:, -1, :vocab].argmax(-1)[:, None]
+        for _ in range(MESH_F32_GEN):
+            want, want_cache = make_serve_step(arch)(params, want_cache,
+                                                     {"tokens": tok})
+            with use_mesh_context(mesh, profile, cache_seq_axis="model"):
+                got, cache = make_serve_step(arch)(placed, cache,
+                                                   {"tokens": tok})
+            pairs.append((got, want))
+            tok = want[:, -1, :vocab].argmax(-1)[:, None]
+        for j, (got, want) in enumerate(pairs):
+            ok, err, tol = compare(got, want, tol=MODEL_TOL)
+            errs.append(err)
+            if not ok:
+                failures.append(f"mesh sequence split: "
+                                f"{'prefill' if j == 0 else f'step {j}'} "
+                                f"logits off mesh=None by {err} (tol {tol})")
+        spec = cache["k"].placements
+    return failures, {"layers": MESH_F32_LAYERS, "steps": MESH_F32_GEN,
+                      "cache_placements": [str(p) for p in spec],
+                      "max_abs_err": errs, "tol": MODEL_TOL}
+
+
+def _mesh_moe(mesh) -> tuple[list[str], dict]:
+    """MESH_MOE_ARCH (``shard_map``) bf16, flash, served MESH_MOE_GEN
+    steps with ``mesh=None`` and on ``mesh`` (the multi-shard body on one
+    model shard, its FSDP gathers and all-reduces on the one-rank group),
+    twice in turn: the prefill's and every step's logits and the tokens
+    bit-equal, under deterministic kernels; the times of the second
+    turn."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.common import cast_params, materialize
+
+    dev = torch.device("cuda")
+    arch = _variant(get_arch(MESH_MOE_ARCH), attn_impl="flash")
+    params = cast_params(materialize(_contracted_fan_in(
+        arch.param_spec(), ("layers", "attn"), arch.cfg.attn_cfg),
+        torch.Generator(device=dev).manual_seed(SEED), device=dev),
+        arch.cfg.dtype)
+    with _deterministic():
+        turns = [[serve(arch, params, batch=MODEL_BATCH,
+                        prompt_len=MODEL_PROMPT, gen=MESH_MOE_GEN, seed=SEED,
+                        mesh=where) for where in (None, mesh)]
+                 for _ in range(2)]
+    differ = 0
+    for runs in turns:
+        logits = [[r.prefill_logits, *r.step_logits] for r in runs]
+        differ += sum(not torch.equal(a, b) for a, b in zip(*logits))
+    runs = turns[1]
+    rec = {"impl": arch.cfg.moe.impl, "steps": MESH_MOE_GEN,
+           "logits_differ": differ,
+           "tokens_equal": all(torch.equal(a.tokens, b.tokens)
+                               for a, b in turns),
+           "mesh_prefill_s": runs[1].prefill_s,
+           "mesh_decode_s_per_token": runs[1].decode_s / MESH_MOE_GEN,
+           "prefill_s": runs[0].prefill_s,
+           "decode_s_per_token": runs[0].decode_s / MESH_MOE_GEN}
+    failures = [] if not differ and rec["tokens_equal"] else [
+        f"mesh moe: {differ} logits and the tokens "
+        f"({rec['tokens_equal']}) against mesh=None"]
+    return failures, rec
+
+
+def _host_split(fn, calls: int = 3) -> dict:
+    """The host's side of ``fn`` (a decode step, which is host-bound):
+    the wall ms a call (``calls`` calls between two syncs, after a
+    warm-up), and the eight ops of one profiled call with the most self
+    CPU time.  A profiler the machine refuses is reported as not
+    measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    rec = {"wall_ms": (time.perf_counter() - t0) / calls * 1e3}
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    except Exception as e:  # noqa: BLE001 - a refused profiler is a reading not taken
+        return rec | {"not_measured": f"{type(e).__name__}: {e}"}
+    return rec | {"self_cpu_ms": sum(e.self_cpu_time_total for e in rows) / 1e3,
+                  "top": [{"op": e.key[:80], "self_cpu_ms":
+                           e.self_cpu_time_total / 1e3, "count": e.count}
+                          for e in rows[:8]]}
+
+
+def _mesh_decode_split(arch, params, mesh) -> dict:
+    """One decode step of ``arch`` on ``mesh`` (``launch/serve.py``'s
+    mesh path) and with ``mesh=None``, after a prefill of MODEL_BATCH x
+    MODEL_PROMPT: the host's side of each (:func:`_host_split`) and the
+    device's (:func:`_device_split`)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.serve import _on_mesh
+
+    shape = ShapeSpec("cli_prefill", MODEL_PROMPT, MODEL_BATCH, "prefill")
+    prompt = {k: torch.from_numpy(v).cuda()
+              for k, v in arch.make_batch(shape, seed=SEED).items()}
+    max_len = MODEL_PROMPT + MODEL_GEN + 8
+    run_prefill, run_decode = _on_mesh(arch, params, prompt, mesh, False,
+                                       max_len)
+    logits, cache = run_prefill()
+    tok = logits[:, -1, :arch.cfg.vocab].argmax(-1)[:, None]
+    plain_logits, plain_cache = arch.prefill(params, prompt, max_len=max_len)
+    del logits, plain_logits
+    split = {}
+    for name, fn in (("mesh", lambda: run_decode(cache, tok)),
+                     ("mesh_none", lambda: arch.decode(params, plain_cache,
+                                                       {"tokens": tok}))):
+        split[name] = {"host": _host_split(fn), "device": _device_split(fn)}
+    return split
+
+
+def _mesh_cell_gates(cells: dict) -> tuple[list[str], dict]:
+    """The 256-rank serving cells: each ``ok`` and within the card's
+    memory; the prefill's useful share at least MESH_USEFUL_MIN; each
+    decode's flash decode in every layer (one max and one denominator
+    all-reduce over ``model`` a layer, a numerator sum of ``(B, H, hd)``
+    f32 beside them); per-card TFLOP, bytes, collectives, ``t_link``,
+    peak."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
+    failures, rec = [], {}
+    for key, r in cells.items():
+        if r["status"] != "ok":
+            failures.append(f"mesh cell {key}: {r.get('error')}")
+            continue
+        rec[key] = {"tflop_per_card": r["cost"]["flops_per_chip"] / 1e12,
+                    "gb_per_card": r["cost"]["bytes_per_chip"] / 1e9,
+                    "collectives": r["collectives"]["ops_by_kind_axis_group"],
+                    "collective_gb_by_kind": {
+                        k: v / 1e9 for k, v in
+                        r["collectives"]["out_bytes_by_kind"].items()},
+                    "wire_gb_per_card": r["collectives"]["wire_bytes_per_chip"]
+                    / 1e9,
+                    "t_link_ms": r["ecm"]["t_link_s"] * 1e3,
+                    "t_ecm_ms": r["ecm"]["t_ecm_s"] * 1e3,
+                    "peak_gb": r["peak_bytes_per_chip"] / 1e9,
+                    "fits_hbm": r["fits_hbm"],
+                    "local_rows": r.get("local_rows"),
+                    "t_trace_s": r["t_trace_s"]}
+        if key != "rows" and not r["fits_hbm"]:
+            failures.append(f"mesh cell {key}: peak {r['peak_bytes_per_chip']}"
+                            f" B over the card's {r['capacity_bytes']}")
+    if failures:
+        return failures, rec
+    prefill = "{} {}".format(*MESH_CELLS[0])
+    share = dryrun.useful_share(cells[prefill], cells["rows"], MESH_DATA_RANKS)
+    rec[prefill]["useful_share"] = share
+    if share < MESH_USEFUL_MIN:
+        failures.append(f"mesh cell {prefill}: useful share {share} < "
+                        f"{MESH_USEFUL_MIN}")
+    for name, shape_name in MESH_CELLS[1:]:
+        key = f"{name} {shape_name}"
+        cfg = get_arch(name).cfg
+        got = dryrun.flash_decode_reduces(cells[key], cfg)
+        numerator = (cells[key]["local_rows"] * cfg.n_heads * cfg.head_dim_
+                     * 4)
+        got["numerator_sized"] = cells[key]["collectives"][
+            "ops_by_kind_axis_bytes"].get(f"all-reduce.sum/model/{numerator}",
+                                          0)
+        rec[key]["flash_decode_reduces"] = got
+        if not (got["max"] == got["denominator"] == cfg.n_layers
+                and got["numerator_sized"] >= cfg.n_layers):
+            failures.append(f"mesh cell {key}: the flash decode's all-reduces "
+                            f"over model {got}, not one max, one denominator "
+                            f"and a numerator in each of {cfg.n_layers} "
+                            f"layers")
+    return failures, rec
+
+
+def _mesh_phase(models: dict) -> tuple[list[str], dict]:
+    """Phase 20: serving on a one-rank NCCL mesh (module docstring, item
+    20).  The dry-run's 256-rank cells trace in a child (a fake world
+    needs a process without the NCCL group), started after the timed
+    serve, while this process runs the gates on the card; the phase's
+    launches are counted from 0."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.common import cast_params, materialize
+
+    t0 = time.perf_counter()
+    failures, rec = [], {"card": _card_line()}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cells.json")
+        log = open(os.path.join(tmp, "cells.log"), "w+")
+        dev = torch.device("cuda")
+        kernels.reset_launches()
+        mesh = make_host_mesh(model=1, device="cuda")
+        rec["mesh"] = {"shape": list(mesh.shape),
+                       "axes": list(mesh.mesh_dim_names),
+                       "backend": dist.get_backend()}
+        try:
+            # the communicators start at their first collective: before
+            # the timed serve
+            for axis in mesh.mesh_dim_names:
+                dist.all_reduce(torch.zeros(1, device=dev),
+                                group=mesh.get_group(axis))
+            arch = _variant(get_arch(MESH_ARCH), attn_impl="flash")
+            params = cast_params(materialize(_contracted_fan_in(
+                arch.param_spec(), ("layers", "attn"), arch.cfg.attn_cfg),
+                torch.Generator(device=dev).manual_seed(SEED), device=dev),
+                arch.cfg.dtype)
+            attn = kernels.FLASH_ATTENTION
+            before = dict(attn.launches_by_route)
+            served = serve(arch, params, batch=MODEL_BATCH,
+                           prompt_len=MODEL_PROMPT, gen=MODEL_GEN, seed=SEED,
+                           mesh=mesh)
+            launched = {r: n - before[r]
+                        for r, n in attn.launches_by_route.items()}
+            phase10 = models[MESH_ARCH]
+            ten = phase10["runs"]["bfloat16 flash"]
+            tokens_equal = served.tokens.tolist() == phase10["bf16_flash_tokens"]
+            finite = all(bool(torch.isfinite(t).all()) for t in
+                         (served.prefill_logits, *served.step_logits))
+            rec["serve"] = {
+                "arch": MESH_ARCH, "dtype": "bf16", "attn_impl": "flash",
+                "batch": MODEL_BATCH, "prompt": MODEL_PROMPT, "gen": MODEL_GEN,
+                "attention_launches": launched, "tokens_equal_phase10":
+                tokens_equal, "prefill_s": served.prefill_s,
+                "decode_s_per_token": served.decode_s / MODEL_GEN,
+                "phase10_prefill_s": ten["prefill_s"],
+                "phase10_decode_s_per_token": ten["decode_s_per_token"],
+                "prefill_over_phase10": served.prefill_s / ten["prefill_s"],
+                "decode_over_phase10": served.decode_s / MODEL_GEN
+                / ten["decode_s_per_token"]}
+            want = {"tile": arch.cfg.n_layers, "split": 0}
+            if launched != want:
+                failures.append(f"mesh serve: attention launches {launched}, "
+                                f"not {want}")
+            if not tokens_equal or not finite:
+                failures.append(f"mesh serve: tokens equal to phase 10's "
+                                f"{tokens_equal}, logits finite {finite}")
+            del served
+            rec["decode_split"] = _mesh_decode_split(arch, params, mesh)
+            del params
+            # the traces take a core: started once the timed runs are done
+            child = subprocess.Popen(
+                [sys.executable, __file__, "--mesh-cells", out], env=env,
+                stdout=log, stderr=subprocess.STDOUT)
+            torch.cuda.empty_cache()
+            split_failures, rec["sequence_split"] = _mesh_sequence_split(mesh)
+            failures += split_failures
+            torch.cuda.empty_cache()
+            moe_failures, rec["moe"] = _mesh_moe(mesh)
+            failures += moe_failures
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+        rec["attention_launches_by_route"] = dict(
+            kernels.FLASH_ATTENTION.launches_by_route)
+        try:
+            child.wait(timeout=MESH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+        rec["child_done_s"] = time.perf_counter() - t0
+        log.seek(0)
+        tail = log.read()[-2000:]
+        log.close()
+        if child.returncode or not os.path.exists(out):
+            failures.append(f"mesh cells: exit {child.returncode}: {tail}")
+        else:
+            cell_failures, rec["cells"] = _mesh_cell_gates(
+                json.loads(Path(out).read_text()))
+            failures += cell_failures
+    rec["s"] = time.perf_counter() - t0
+    rec["aim_s"] = MESH_AIM_S
+    return failures, rec
+
+
 def _check_compute_report(report: dict) -> list[str]:
     where = f"{report['op']} {report['dims']} {report['dtype']}"
     out, failures = report["output"], []
@@ -3806,7 +4218,8 @@ def main() -> int:
     machine = G.GPUMachineModel.from_device(torch.device("cuda"))
     models, model_s = {}, {}
     phase_of = {"whisper-base": _whisper_phase, "xlstm-125m": _xlstm_phase}
-    apart = ("runs", "attention", "loops", "summary", "device_split")
+    apart = ("runs", "attention", "loops", "summary", "device_split",
+             "bf16_flash_tokens")
     for number, name in MODEL_PHASES.items():
         t_path = time.perf_counter()
         model_failures, model = phase_of.get(name, _model_phase)(name, machine)
@@ -3891,19 +4304,29 @@ def main() -> int:
     print(json.dumps(tag | {"world_256": dryrun.pop("world", None)}))
     print(json.dumps(tag | dryrun | {"failures": dryrun_failures}))
     failures += dryrun_failures
+
+    # 20. serving on a one-rank NCCL mesh and the dry-run's 256-rank
+    # serving cells, its launches counted from 0
+    mesh_failures, mesh_rec = _mesh_phase(models)
+    model_s["mesh"] = mesh_rec["s"]
+    print(json.dumps({"phase": "20 mesh"} | mesh_rec
+                     | {"failures": mesh_failures}))
+    failures += mesh_failures
     print(json.dumps({"phase_s": {
         "build": build_s, "calibrate": record["s"], "stream": stream_s,
         "stencil": stencil_s, "compute": compute_s, "scaling": scaling_s,
         "energy": energy_s, **{f"model {n}": t for n, t in model_s.items()}}}))
 
-    # 20. the kernels line; the attention's launches add the power fit's,
-    # the model phases' and the serve phase's, the combine's the serve
-    # phase's
+    # 21. the kernels line; the attention's launches add the power fit's,
+    # the model phases', the serve phase's and the mesh phase's, the
+    # combine's the serve phase's
     model_launches = {name: m["launches"]["flash_attention"]
                       for name, m in models.items()}
+    mesh_launches = mesh_rec["launches"]["flash_attention"]
     power_launches = record["launches"]["flash_attention"]
     launches["flash_attention"] += power_launches \
-        + sum(model_launches.values()) + serve["launches"]["flash_attention"]
+        + sum(model_launches.values()) + serve["launches"]["flash_attention"] \
+        + mesh_launches
     launches["flash_combine"] += serve["launches"]["flash_combine"]
     serve_points = [p for rec in serve["dtypes"].values() for p in rec["points"]]
     ops_of = {"map": [o for o in G.OPS if o in kernels.pipeline.MAP_OPS],
@@ -3953,14 +4376,16 @@ def main() -> int:
             serve_launches = serve["launches"]["flash_attention"]
             where["launches_by_path"] = {
                 "compute": launches[k.name] - power_launches
-                - sum(model_launches.values()) - serve_launches,
+                - sum(model_launches.values()) - serve_launches
+                - mesh_launches,
                 "calibrate (power fit)": power_launches,
                 **{f"model {n}": v for n, v in model_launches.items()},
-                "serve decode buckets": serve_launches}
+                "serve decode buckets": serve_launches,
+                "serve on a mesh": mesh_launches}
             where["launches_by_route"] = {
                 r: n + record["attention_launches_by_route"][r]
                 + sum(m["attention_launches_by_route"][r]
-                      for m in models.values())
+                      for m in (*models.values(), mesh_rec))
                 + serve["launches"]["flash_attention_by_route"][r]
                 for r, n in attention_routes.items()}
             where["at_engine_buckets"] = {
@@ -4014,4 +4439,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--trace-cells"]:
         sys.path.insert(0, str(SRC))
         sys.exit(_trace_cells_child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--mesh-cells"]:
+        sys.path.insert(0, str(SRC))
+        sys.exit(_mesh_cells_child(sys.argv[2]))
     sys.exit(main())

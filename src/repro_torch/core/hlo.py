@@ -25,7 +25,8 @@ launch) for the dry-run, or on real ones.  :func:`analyze` records
   kind, output bytes and group size, as the reference parses them from
   the HLO text, and priced on the wire by the same ring multipliers
   (:class:`CollectiveOp`); each also names the mesh axis its group spans
-  (a ``DeviceMesh`` runs one group a dim), which the HLO text does not;
+  (a ``DeviceMesh`` runs one group a dim), which the HLO text does not,
+  and a reduction its op;
 * the memory: the bytes of the arguments, the peak of the arguments and
   every storage the step made while it was alive (a weak reference to
   each storage tells when it is freed), the outputs (what the step made
@@ -70,6 +71,9 @@ class CollectiveOp:
     line: str = ""
     #: the mesh axis the group spans, where the trace knows it ("" if not)
     axis: str = ""
+    #: the reduction of an all-reduce or reduce-scatter (``"sum"``,
+    #: ``"max"``, ...; "" where the op names none)
+    op: str = ""
 
     @property
     def wire_bytes_per_chip(self) -> float:
@@ -182,6 +186,10 @@ def _read_bytes(tensors) -> int:
     return total
 
 
+def _named(func, args, kwargs) -> dict:
+    return dict(zip((a.name for a in func._schema.arguments), args)) | kwargs
+
+
 def _group(func, args, kwargs) -> tuple[int, str]:
     """The group of a collective: its size (the ``group_size`` argument of
     an all-gather or reduce-scatter, else the size of the process group
@@ -190,7 +198,7 @@ def _group(func, args, kwargs) -> tuple[int, str]:
     import torch.distributed as dist
     from torch.distributed import distributed_c10d as c10d
 
-    named = dict(zip((a.name for a in func._schema.arguments), args)) | kwargs
+    named = _named(func, args, kwargs)
     group = named.get("group_name", named.get("process_group"))
     if isinstance(group, str):
         group = c10d._resolve_process_group(group)
@@ -251,7 +259,8 @@ class _Recorder(TorchDispatchMode):
                 size, group = _group(func, args, kwargs)
                 self.collectives.append(CollectiveOp(
                     kind, float(_nbytes(outs or _tensors(args[0]))), size,
-                    line=str(func), axis=self.mesh_axes.get(group, "")))
+                    line=str(func), axis=self.mesh_axes.get(group, ""),
+                    op=str(_named(func, args, kwargs).get("reduce_op", ""))))
         elif not func.is_view and name not in _NO_TRAFFIC:
             self.bytes += (_read_bytes(_tensors((args, kwargs)))
                            + _nbytes(outs))

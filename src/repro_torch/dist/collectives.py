@@ -1,11 +1,13 @@
-"""The collectives of the data-parallel train step on a ``DeviceMesh``.
+"""The collectives of the sharded steps on a ``DeviceMesh``.
 
 The state lives sharded at rest, each leaf a DTensor on its
-:class:`~repro_torch.dist.sharding.NamedSharding`.  Every rank computes
-the step on its own batch rows with every parameter gathered whole, so
-the ``model`` axis shards storage only: the model ranks of one data
-group compute the same step on the same rows (tensor-parallel compute is
-ROADMAP §1 item 5c).  :class:`DataParallel` holds what that needs:
+:class:`~repro_torch.dist.sharding.NamedSharding`.
+
+*The data-parallel train step.*  Every rank computes the step on its own
+batch rows with every parameter gathered whole, so the ``model`` axis
+shards storage only: the model ranks of one data group compute the same
+step on the same rows (tensor-parallel training is ROADMAP §1 item 5c).
+:class:`DataParallel` holds what that needs:
 
 * :meth:`~DataParallel.reduce_grad`: a rank's gradient as
   ``Partial("avg")`` over the batch axes, redistributed onto the leaf's
@@ -22,13 +24,31 @@ ROADMAP §1 item 5c).  :class:`DataParallel` holds what that needs:
 
 On a mesh whose every dim has size 1 each of these is the identity, bit
 for bit.
+
+*The tensor-parallel serve steps* (``train/steps.py``
+``make_prefill_step``, ``make_serve_step`` on a mesh) hand the model each
+parameter and cache leaf as a :class:`LocalBlock`: the rank's block
+(one ``to_local()`` a leaf a step) with the spec that placed it.  The
+model computes on its blocks, Megatron style, with the helpers below:
+``_c10d_functional`` ops on the groups of the mesh's axes, which
+``core/hlo.py`` traces with their mesh axis, as the reference's
+``shard_map`` names its ``psum``s: :func:`all_reduce` (sum, max),
+:func:`all_gather` along a dim, and :meth:`LocalBlock.block`, the rank's
+block of a dim (``NamedSharding.index``).  A weight sharded over an axis
+the computation does not split is gathered over it where it is used
+(:meth:`LocalBlock.gathered`), layer by layer, the way GSPMD gathers it.
+On a mesh whose axes all have size 1 the collectives are still
+dispatched; a one-rank group returns the same bits.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
 from ..models.common import tree_leaves
+from .sharding import NamedSharding, _group
 
 
 class DataParallel:
@@ -118,3 +138,135 @@ class DataParallel:
         for d in self._sharded_dims(index, absmax.dim() - 1):
             dist.all_reduce(absmax, op=dist.ReduceOp.MAX,
                             group=self.mesh.get_group(d))
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving: the axis collectives and a rank's blocks
+# ---------------------------------------------------------------------------
+
+
+def axis_group(mesh, axis: str):
+    """The process group of ``mesh``'s dim named ``axis``."""
+    return mesh.get_group(axis)
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced (``"sum"`` or ``"max"``) over ``mesh``'s ``axis``.  A
+    sum of a floating dtype narrower than f32 over more than one rank is
+    taken in f32 and rounded once, as XLA's all-reduce of bf16 partials
+    on the host is: a ring's adds in the narrow dtype would round after
+    each, in an order that depends on the rank.  (On one rank the sum is
+    ``x`` in either dtype.)"""
+    group = axis_group(mesh, axis)
+    fc = torch.ops._c10d_functional
+    wide = (op == "sum" and x.is_floating_point() and group.size() > 1
+            and torch.finfo(x.dtype).bits < 32)
+    out = fc.wait_tensor(fc.all_reduce(x.float() if wide else x, op,
+                                       group.group_name))
+    return out.to(x.dtype) if wide else out
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` over ``mesh``'s ``axis`` concatenated along
+    ``dim``, in the axis's order."""
+    group = axis_group(mesh, axis)
+    n = group.size()
+    fc = torch.ops._c10d_functional
+    out = fc.wait_tensor(fc.all_gather_into_tensor(x.contiguous(), n,
+                                                   group.group_name))
+    if dim % x.ndim:
+        out = torch.cat(out.chunk(n, dim=0), dim=dim)
+    return out
+
+
+def gather_entry(x: torch.Tensor, mesh, entry, dim: int) -> torch.Tensor:
+    """``x``'s dim ``dim`` gathered over every mesh axis of a spec entry
+    (a name, a tuple of names or ``None``): the minor axis first, so a
+    tuple's blocks come back in JAX's order."""
+    for a in reversed(_group(entry)):
+        x = all_gather(x, mesh, a, dim)
+    return x
+
+
+def spec_of(dtensor) -> tuple:
+    """The spec (one entry per tensor dim, as :class:`NamedSharding`'s)
+    that a DTensor's placements encode."""
+    from torch.distributed.tensor import Shard
+
+    names = dtensor.device_mesh.mesh_dim_names
+    axes: list[list[str]] = [[] for _ in range(dtensor.ndim)]
+    for d, p in enumerate(dtensor.placements):
+        if isinstance(p, Shard):
+            axes[p.dim].append(names[d])
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in axes)
+
+
+@dataclass(frozen=True)
+class LocalBlock:
+    """A rank's block ``tensor`` of a tensor placed by ``sharding``: what
+    a tensor-parallel step hands the model for each parameter and cache
+    leaf.  ``full_shape`` is the whole tensor's shape and ``index`` the
+    rank's block of it (``NamedSharding.index``).  Indexing and
+    ``unbind`` along a replicated leading dim (the stacked layers) give
+    the layers' blocks."""
+
+    tensor: torch.Tensor
+    sharding: NamedSharding
+    full_shape: tuple[int, ...]
+    index: tuple[slice, ...]
+
+    @classmethod
+    def at(cls, tensor: torch.Tensor, sharding: NamedSharding,
+           full_shape) -> "LocalBlock":
+        """The rank's block ``tensor`` of a ``full_shape`` tensor."""
+        full_shape = tuple(full_shape)
+        return cls(tensor, sharding, full_shape, sharding.index(
+            sharding.mesh.get_coordinate(), full_shape))
+
+    @classmethod
+    def of(cls, dtensor) -> "LocalBlock":
+        return cls.at(dtensor.to_local(),
+                      NamedSharding(dtensor.device_mesh, spec_of(dtensor)),
+                      dtensor.shape)
+
+    @property
+    def mesh(self):
+        return self.sharding.mesh
+
+    def _layer(self, t: torch.Tensor) -> "LocalBlock":
+        if self.sharding.spec[0] is not None:
+            raise ValueError(f"dim 0 of {self.sharding.spec} is sharded: a "
+                             f"leading stack is replicated")
+        return LocalBlock(t, NamedSharding(self.mesh, self.sharding.spec[1:]),
+                          self.full_shape[1:], self.index[1:])
+
+    def __getitem__(self, i: int) -> "LocalBlock":
+        return self._layer(self.tensor[i])
+
+    def unbind(self, dim: int = 0) -> list:
+        if dim != 0:
+            raise ValueError("a block unbinds along its leading dim only")
+        return [self._layer(t) for t in self.tensor.unbind(0)]
+
+    def block(self, dim: int, axis: str = "model") -> tuple[int, int, bool]:
+        """``(start, stop, split)``: the block of dim ``dim`` this rank
+        holds when the dim is split over ``axis`` alone (``split`` true,
+        even on an axis of size 1), else the whole dim (the block that
+        :meth:`gathered` with ``keep=dim`` returns)."""
+        if self.sharding.spec[dim] != axis:
+            return 0, self.full_shape[dim], False
+        return self.index[dim].start, self.index[dim].stop, True
+
+    def gathered(self, dtype=None, *, keep: int | None = None,
+                 axis: str = "model") -> torch.Tensor:
+        """The block cast to ``dtype`` (before any gather, so the wire
+        carries the compute dtype), then gathered over every mesh axis
+        that shards it but ``axis`` on dim ``keep``."""
+        t = self.tensor if dtype is None else self.tensor.to(dtype)
+        for i, entry in enumerate(self.sharding.spec):
+            if i == keep and entry == axis:
+                continue
+            t = gather_entry(t, self.mesh, entry, i)
+        return t
+

@@ -30,9 +30,20 @@ device; a tuple out of mesh order raises (:meth:`NamedSharding.index`
 gives JAX's block for any spec).
 
 :func:`use_mesh_context` installs the active mesh and profile: code reads
-it back with :func:`current_context` (the data axes).  The reference's
-activation annotations (``shard_annotate``) have nothing to act on in
-eager PyTorch and are not ported.
+it back with :func:`current_context` (the data axes, the MoE's FSDP
+axis, the decode cache's sequence axis).  The reference's activation
+annotations (``shard_annotate``) have nothing to act on in eager
+PyTorch and are not ported: the serve steps compute on each rank's
+blocks explicitly (``dist/collectives.py``).
+
+The reference's serving rules (its ``launch/dryrun.py``), which the
+serve launcher and the dry-run share: :func:`input_profile` places the
+batch and the decode caches (KV heads over ``model`` where they divide
+it, else the sequence), :func:`serving_profile` the decode profile
+with ``heads: None`` where they do not (the q heads whole beside a cache
+split by sequence), and the prefill's ``seq: model``, which is recorded
+and not applied: a sequence-parallel residual stream is GSPMD's rewrite,
+with no reference code to port (ROADMAP §3 item 2).
 """
 from __future__ import annotations
 
@@ -347,6 +358,56 @@ def param_shardings(spec_tree, mesh, profile: ShardingProfile, *,
         return NamedSharding(mesh, pspec)
 
     return tree_map(one, spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# Serving rules
+# ---------------------------------------------------------------------------
+
+
+def input_profile(*, multi_pod: bool, kv_divisible: bool,
+                  batch_axes=None) -> ShardingProfile:
+    """The placement of a serving cell's inputs: the batch over the data
+    axes, the decode caches' KV heads over ``model`` when they divide it,
+    else their sequence, so a 32k-500k cache fits a card."""
+    batch_axes = batch_axes or _batch_axes(multi_pod)
+    rules = {
+        "batch": batch_axes,
+        "embed": None,
+        "layers": None,
+        "head_dim": None,
+        "kv_heads": "model" if kv_divisible else None,
+        "seq": None if kv_divisible else "model",
+        "heads": "model",
+        "mamba_inner": "model",
+    }
+    return ShardingProfile(name="inputs", rules=rules)
+
+
+def kv_divisible(cfg, mesh) -> bool:
+    """Whether the config's KV heads (its heads, where it has no
+    ``n_kv_heads``) divide the mesh's ``model`` axis."""
+    kvh = getattr(cfg, "n_kv_heads", None)
+    if kvh is None:
+        kvh = getattr(cfg, "n_heads", 1)
+    return kvh % _axis_sizes(mesh).get("model", 1) == 0
+
+
+def serving_profile(profile: ShardingProfile, kind: str, *,
+                    kv_divisible: bool) -> ShardingProfile:
+    """A serving cell's profile: a prefill's records ``seq: model`` (not
+    applied), a decode whose cache is split by sequence sets ``heads:
+    None``; other cells keep ``profile``."""
+    import dataclasses
+
+    if kind == "prefill":
+        extra = {"seq": "model"}
+    elif kind == "decode" and not kv_divisible:
+        extra = {"heads": None}
+    else:
+        return profile
+    return dataclasses.replace(
+        profile, activation_rules={**profile.activation_rules, **extra})
 
 
 # ---------------------------------------------------------------------------

@@ -17,12 +17,20 @@ The step traced is the one the port runs there:
 * *train* cells on a production mesh go through ``train/steps.py``
   ``make_sharded_train_step`` on a state sharded by ``param_shardings``
   with the rank's rows of the batch; that step gathers every parameter
-  whole (tensor-parallel compute is ROADMAP §1 item 5c), and the record
+  whole (tensor-parallel training is ROADMAP §1 item 5c), and the record
   shows those gathers;
-* *prefill* and *decode* cells on a production mesh are recorded
-  ``skipped``: ``launch/serve.py`` refuses a mesh (item 5c).  On ``card``
-  they trace ``make_prefill_step`` and ``make_serve_step`` on the
-  parameters cast to the compute dtype, as the launcher serves them;
+* *prefill* and *decode* cells of the LM family (``models/lm.py``) on a
+  production mesh trace ``make_prefill_step`` and ``make_serve_step``
+  tensor parallel, as ``launch/serve.py`` serves on a mesh: the
+  parameters cast to the compute dtype and placed by ``param_shardings``
+  (``ensure_model_axis``), the batch and the cache by the input profile
+  (``dist.sharding.input_profile``: the cache's KV heads over ``model``
+  where they divide it, else its sequence, decoded by the flash decode
+  under ``cache_seq_axis="model"``), under the serving profile
+  (``dist.sharding.serving_profile``).  The other families' serving
+  cells on a production mesh are recorded ``skipped`` (item 5c).  On
+  ``card`` every serving cell traces the same steps on the cast
+  parameters, with no mesh;
 * ``long_500k`` and the encoder-only decode cells are skipped by
   ``ArchDef.shape_supported``, as in the reference.
 
@@ -64,22 +72,26 @@ from ..configs.base import ArchDef, ShapeSpec
 from ..core import hlo as hlo_mod
 from ..core.gpu_ecm import MeshSpec, from_resources
 from ..core.machine import H100_SXM, GPUMachineModel, load_machine_file
-from ..dist.sharding import ShardingProfile, get_profile, param_shardings
+from ..dist.sharding import (get_profile, input_profile,
+                             kv_divisible, param_shardings, serving_profile,
+                             use_mesh_context)
 from ..models.common import abstract, cast_params, tree_leaves, tree_map
 from ..optim import AdamWConfig
 from ..optim.schedule import linear_warmup_cosine
-from ..train.steps import (make_prefill_step, make_serve_step,
+from ..train.steps import (lm_family, make_prefill_step, make_serve_step,
                            make_sharded_train_step, make_train_step,
                            state_spec)
-from .mesh import make_production_mesh, mesh_axis_sizes
+from .mesh import make_production_mesh
 
 #: mesh name -> (shape, axes); ``card`` is one card with no mesh
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
           "card": ((1,), ("data",))}
-#: why a serving cell on a production mesh is not traced
-SERVE_ON_MESH = ("serving on a mesh is not ported: launch/serve.py refuses "
-                 "a mesh until tensor-parallel compute (ROADMAP §1 item 5c)")
+#: why a serving cell of a family other than the LM's is not traced on a
+#: production mesh
+SERVE_ON_MESH = ("serving on a mesh is ported for the LM family: this "
+                 "family's tensor-parallel serving waits for ROADMAP §1 "
+                 "item 5c")
 DEFAULT_OUT = "results/dryrun_torch"
 #: cells traced at once when a run has several, each in its own process
 JOBS = 2
@@ -95,32 +107,6 @@ def input_specs(arch: ArchDef, shape: ShapeSpec, *, device) -> dict:
     caller's ``FakeTensorMode``): the dry-run's replacement for a data
     pipeline."""
     return arch.abstract_batch(shape, device=device)
-
-
-def _input_profile(arch: ArchDef, mesh, *, multi_pod: bool,
-                   kv_divisible: bool, batch_axes=None) -> ShardingProfile:
-    batch_axes = batch_axes or (("pod", "data") if multi_pod else ("data",))
-    rules = {
-        "batch": batch_axes,
-        "embed": None,
-        "layers": None,
-        "head_dim": None,
-        # decode caches: shard kv heads over model when divisible, else
-        # the sequence dim, so 32k-500k caches fit per card
-        "kv_heads": "model" if kv_divisible else None,
-        "seq": None if kv_divisible else "model",
-        "heads": "model",
-        "mamba_inner": "model",
-    }
-    return ShardingProfile(name="inputs", rules=rules)
-
-
-def _kv_divisible(arch: ArchDef, mesh) -> bool:
-    sizes = mesh_axis_sizes(mesh) if mesh is not None else {}
-    kvh = getattr(arch.cfg, "n_kv_heads", None)
-    if kvh is None:
-        kvh = getattr(arch.cfg, "n_heads", 1)
-    return kvh % sizes.get("model", 1) == 0
 
 
 def _local_batch(arch: ArchDef, shape: ShapeSpec, mesh, in_prof, *,
@@ -169,14 +155,16 @@ def _check_device(device: str) -> None:
                            "the CPU (--device cpu)")
 
 
-def _sharded_state(sspec, shardings, device):
-    """Fake state leaves on their shardings (each rank's block; no
+def _placed(tree, shardings):
+    """Fake leaves on their shardings (each rank's block; no
     communication)."""
-    leaves = [sh.distribute(t) for t, sh in
-              zip(tree_leaves(abstract(sspec, device=device)),
-                  tree_leaves(shardings))]
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), sspec)
+    it = iter([sh.distribute(t) for t, sh in
+               zip(tree_leaves(tree), tree_leaves(shardings))])
+    return tree_map(lambda _: next(it), tree)
+
+
+def _sharded_state(sspec, shardings, device):
+    return _placed(abstract(sspec, device=device), shardings)
 
 
 def _train_accum(arch: ArchDef, rows: int) -> int:
@@ -189,10 +177,10 @@ def _train_accum(arch: ArchDef, rows: int) -> int:
 
 def _trace_train_on_mesh(arch, shape, mesh, multi_pod, opt_cfg, device):
     profile = get_profile(arch.profile, multi_pod=multi_pod)
-    kv_div = _kv_divisible(arch, mesh)
+    kv_div = kv_divisible(arch.cfg, mesh)
     batch_axes = profile.activation_rules.get("batch")
-    in_prof = _input_profile(arch, mesh, multi_pod=multi_pod,
-                             kv_divisible=kv_div, batch_axes=batch_axes)
+    in_prof = input_profile(multi_pod=multi_pod, kv_divisible=kv_div,
+                            batch_axes=batch_axes)
     sspec = state_spec(arch, opt_cfg)
     shardings = param_shardings(sspec, mesh, profile, ensure_model_axis=True)
     state = _sharded_state(sspec, shardings, device)
@@ -205,6 +193,44 @@ def _trace_train_on_mesh(arch, shape, mesh, multi_pod, opt_cfg, device):
         shardings=shardings, batch_axes=axes, accum=accum)
     return step, (state, batch), {"accum": accum, "local_rows": rows,
                                   "kv_divisible": kv_div}
+
+
+def _trace_serve_on_mesh(arch, shape, mesh, multi_pod, device, max_len):
+    """A serving cell of the LM family on a production mesh: the steps
+    ``launch/serve.py`` runs there, on rank 0's blocks."""
+    profile = get_profile(arch.profile, multi_pod=multi_pod)
+    kv_div = kv_divisible(arch.cfg, mesh)
+    in_prof = input_profile(multi_pod=multi_pod, kv_divisible=kv_div,
+                            batch_axes=profile.activation_rules.get("batch"))
+    pspec = arch.param_spec()
+    params = _placed(cast_params(abstract(pspec, device=device),
+                                 arch.cfg.dtype),
+                     param_shardings(pspec, mesh, profile,
+                                     ensure_model_axis=True))
+    batch = _placed(input_specs(arch, shape, device=device),
+                    param_shardings(arch.batch_spec(shape), mesh, in_prof))
+    context = {"mesh": mesh, "multi_pod": multi_pod,
+               "profile": serving_profile(profile, shape.kind,
+                                          kv_divisible=kv_div)}
+    if shape.kind == "prefill":
+        inner = make_prefill_step(arch, max_len=max_len,
+                                  cache_profile=in_prof)
+        args = (params, batch)
+    else:
+        cspec = arch.cache_spec(shape.global_batch, max_len)
+        cache = _placed(abstract(cspec, device=device),
+                        param_shardings(cspec, mesh, in_prof))
+        cache["length"] = shape.seq_len - 1
+        context["cache_seq_axis"] = None if kv_div else "model"
+        inner = make_serve_step(arch)
+        args = (params, cache, batch)
+
+    def step(*a):
+        with use_mesh_context(**context):
+            return inner(*a)
+    return step, args, {"kv_divisible": kv_div,
+                        "local_rows": batch["tokens"].to_local().shape[0],
+                        "cache_seq_axis": context.get("cache_seq_axis")}
 
 
 def _serve_cache(arch, shape, device, max_len, spec=None):
@@ -245,8 +271,8 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
     record (the reference's ``lower_cell`` record, ``t_trace_s`` for its
     lowering and compile times, ``t_link_s`` / ``t_net_s`` for its
     ICI / DCN terms).  A production mesh runs inside a fake world of its
-    rank count; ``card`` needs none.  Serving cells on a production mesh
-    come back ``skipped``.  ``max_len``: the cache positions of a serving
+    rank count; ``card`` needs none.  Serving cells of a family other
+    than the LM's come back ``skipped`` on a production mesh.  ``max_len``: the cache positions of a serving
     cell (``shape.seq_len`` by default; a decode cell holds ``seq_len -
     1`` tokens and decodes one); ``cache_spec``: a decode cell's cache spec
     tree where ``arch.cache_spec`` is not the served one (whisper's cross
@@ -259,7 +285,7 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
     dims, axes = MESHES[mesh]
     head = {"arch": arch.name, "shape": shape.name, "mesh": mesh,
             "profile": arch.profile, "kind": shape.kind, "device": device}
-    if mesh != "card" and shape.kind != "train":
+    if mesh != "card" and shape.kind != "train" and not lm_family(arch):
         return head | {"status": "skipped", "reason": SERVE_ON_MESH}
     spec = MeshSpec(shape=dims, axes=axes)
     t0 = time.perf_counter()
@@ -274,9 +300,13 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
                     arch, shape, opt_cfg, device, max_len or shape.seq_len,
                     cache_spec)
                 info.setdefault("kv_divisible", True)
-            else:
+            elif shape.kind == "train":
                 step, args, info = _trace_train_on_mesh(
                     arch, shape, dmesh, mesh == "2x16x16", opt_cfg, device)
+            else:
+                step, args, info = _trace_serve_on_mesh(
+                    arch, shape, dmesh, mesh == "2x16x16", device,
+                    max_len or shape.seq_len)
             t_setup = time.perf_counter() - t0
             axes = {} if dmesh is None else hlo_mod.mesh_axes(dmesh)
             trace = hlo_mod.analyze(step, *args, mesh_axes=axes)
@@ -288,9 +318,13 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
                          flops_are_global=False)
     peak = mem["peak_size_in_bytes"]
     groups: dict[str, int] = {}
+    sizes: dict[str, int] = {}
     for c in res.collectives:
         key = f"{c.kind}/{c.axis or '-'}/{c.group_size}"
         groups[key] = groups.get(key, 0) + 1
+        key = (f"{c.kind}{'.' + c.op if c.op else ''}/{c.axis or '-'}/"
+               f"{int(c.out_bytes)}")
+        sizes[key] = sizes.get(key, 0) + 1
     return head | {
         "status": "ok",
         "kv_divisible": info.pop("kv_divisible"),
@@ -309,10 +343,37 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
             "out_bytes_by_kind": res.by_kind(),
             "wire_bytes_per_chip": res.wire_bytes_per_chip,
             "ops_by_kind_axis_group": groups,
+            "ops_by_kind_axis_bytes": sizes,
         },
         "machine": machine.name,
         "ecm": ecm.summary(),
     }
+
+
+def flash_decode_reduces(rec: dict, cfg) -> dict[str, int]:
+    """The all-reduces over ``model`` of a decode record by what they
+    reduce, on its ``local_rows`` B: ``max`` and ``denominator``, the
+    flash decode's ``(B, kvH, rep)`` f32 max and sum (one each a layer);
+    ``sums``, every sum over ``model``.  The flash decode's numerator
+    ``(B, kvH, rep, hd)`` is a sum beside the tensor-parallel ones."""
+    small = rec["local_rows"] * cfg.n_heads * 4
+    ops = rec["collectives"]["ops_by_kind_axis_bytes"]
+    return {"max": sum(n for k, n in ops.items()
+                       if k.startswith("all-reduce.max/model/")),
+            "denominator": ops.get(f"all-reduce.sum/model/{small}", 0),
+            "sums": sum(n for k, n in ops.items()
+                        if k.startswith("all-reduce.sum/model/"))}
+
+
+def useful_share(mesh_rec: dict, rows_rec: dict, data_ranks: int) -> float:
+    """The share of a cell's work that is not repeated across ranks: the
+    traced FLOPs of one data group's rows on one card (``rows_rec``)
+    over the per-card FLOPs of the cell on the mesh times the ranks of a
+    data group, ``n_chips / data_ranks`` (1/that where the model ranks
+    repeat the whole step)."""
+    n_chips, _ = _chips(mesh_rec["mesh"])
+    return (rows_rec["cost"]["flops_per_chip"]
+            / (mesh_rec["cost"]["flops_per_chip"] * n_chips / data_ranks))
 
 
 @contextmanager

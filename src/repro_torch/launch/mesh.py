@@ -65,7 +65,7 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
     if world != need:
         raise ValueError(f"the {'multi' if multi_pod else 'single'}-pod mesh "
                          f"{shape} needs {need} ranks; the process group has "
-                         f"{world}")
+                         f"{world} (the production meshes take 256 or 512)")
     _start_group(device)
     return _mesh(device, shape, names)
 

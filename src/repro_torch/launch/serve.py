@@ -17,6 +17,19 @@ and ``tokens``.  It runs on the card unless ``--device cpu`` is passed.
 config, ``--no-smoke`` its full one.  An encoder-only arch
 (``has_decoder`` false) is skipped, as the reference skips it.
 
+The LM family (``models/lm.py``) is served on a mesh, as the reference
+serves it: ``--mesh host`` is ``make_host_mesh(model=1)`` over the ranks
+of the process group (one process: a one-rank group of its own, NCCL on
+the card, gloo on the CPU, started and stopped here), ``single-pod`` and
+``multi-pod`` the ``(16, 16)`` and ``(2, 16, 16)`` production meshes,
+which raise on a world that is not 256 or 512 ranks.  The parameters are
+placed by ``param_shardings(..., ensure_model_axis=True)``, the prompt
+and the cache by the input profile, and the steps run tensor parallel
+under ``use_mesh_context`` (:func:`serve` with ``mesh``); rank 0 prints
+the JSON.  The other families (zamba2, whisper, xlstm) serve on the
+host mesh's ranks unsharded and raise on a production mesh (ROADMAP §1
+item 5c).
+
     python -m repro_torch.launch.serve --continuous [--requests 64] \\
         [--faults none|device_loss|slow_step|kv_corruption] [--device cuda]
 
@@ -27,8 +40,6 @@ and the summary JSON reports throughput and latency on the engine's
 virtual clock plus the event counts; it exits 1 when a request is lost.
 The buckets rank on the card's model (``GPUMachineModel.from_device``),
 or on the data sheet's H100 SXM (``H100_SXM``) with ``--device cpu``.
-A ``--mesh`` other than ``host`` (serving on a mesh, ROADMAP §1 item 5c)
-is not ported and raises.
 """
 from __future__ import annotations
 
@@ -38,10 +49,16 @@ import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_arch
 from ..configs.base import ArchDef, ShapeSpec
-from ..models.common import cast_params, materialize, tree_leaves
+from ..dist.sharding import (get_profile, input_profile, kv_divisible,
+                             param_shardings, serving_profile,
+                             use_mesh_context)
+from ..models.common import cast_params, materialize, tree_leaves, tree_map
+from ..train.steps import lm_family, make_prefill_step, make_serve_step
+from .mesh import make_host_mesh, make_production_mesh
 
 
 @dataclass
@@ -77,13 +94,56 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _on_mesh(arch: ArchDef, params, prompt: dict, mesh, multi_pod: bool,
+             max_len: int):
+    """The prefill and decode of :func:`serve` on ``mesh``: the parameters
+    placed by the arch's profile (``ensure_model_axis``), the prompt by
+    the input profile; returns ``run_prefill()`` and ``run_decode(cache,
+    tok)`` (``tok`` the whole batch's tokens), each under its serving
+    profile."""
+    profile = get_profile(arch.profile, multi_pod=multi_pod)
+    kv_div = kv_divisible(arch.cfg, mesh)
+    in_prof = input_profile(multi_pod=multi_pod, kv_divisible=kv_div,
+                            batch_axes=profile.activation_rules.get("batch"))
+    psh = param_shardings(arch.param_spec(), mesh, profile,
+                          ensure_model_axis=True)
+    placed = iter([sh.distribute(t) for t, sh in
+                   zip(tree_leaves(params), tree_leaves(psh))])
+    params = tree_map(lambda _: next(placed), params)
+    shape = ShapeSpec("cli_prefill", seq_len=prompt["tokens"].shape[1],
+                      global_batch=prompt["tokens"].shape[0], kind="prefill")
+    bsh = param_shardings(arch.batch_spec(shape), mesh, in_prof)
+    prompt = {k: bsh[k].distribute(v) for k, v in prompt.items()}
+    rows = bsh["tokens"].index(mesh.get_coordinate(),
+                               prompt["tokens"].shape)[0]
+    prefill = make_prefill_step(arch, max_len=max_len, cache_profile=in_prof)
+    step = make_serve_step(arch)
+
+    def run_prefill():
+        with use_mesh_context(mesh, serving_profile(profile, "prefill",
+                                                    kv_divisible=kv_div),
+                              multi_pod=multi_pod):
+            return prefill(params, prompt)
+
+    def run_decode(cache, tok):
+        with use_mesh_context(mesh, serving_profile(profile, "decode",
+                                                    kv_divisible=kv_div),
+                              multi_pod=multi_pod,
+                              cache_seq_axis=None if kv_div else "model"):
+            return step(params, cache, {"tokens": tok[rows]})
+    return run_prefill, run_decode
+
+
 def serve(arch: ArchDef, params, *, batch: int, prompt_len: int, gen: int,
-          seed: int = 0) -> Served:
+          seed: int = 0, mesh=None, multi_pod: bool = False) -> Served:
     """Prefill a ``batch x prompt_len`` prompt of ``arch.make_batch`` drawn
     from ``seed`` (every array it draws), then ``gen`` greedy decode steps,
     on the device the parameters lie on, with a cache of ``prompt_len +
     gen + 8`` positions (the reference's).  The times run from a device
-    sync to a device sync."""
+    sync to a device sync.  On ``mesh`` (the LM family; ``params`` whole,
+    the same on every rank): each rank keeps its blocks of the parameters
+    and serves tensor parallel, the logits and tokens of the whole batch
+    on every rank, the cache as DTensors."""
     device = tree_leaves(params)[0].device
     vocab = arch.cfg.vocab
     shape = ShapeSpec("cli_prefill", seq_len=prompt_len, global_batch=batch,
@@ -91,10 +151,19 @@ def serve(arch: ArchDef, params, *, batch: int, prompt_len: int, gen: int,
     prompt = {k: torch.from_numpy(v).to(device)
               for k, v in arch.make_batch(shape, seed=seed).items()}
     max_len = prompt_len + gen + 8
+    if mesh is None:
+        def run_prefill():
+            return arch.prefill(params, prompt, max_len=max_len)
+
+        def run_decode(cache, tok):
+            return arch.decode(params, cache, {"tokens": tok})
+    else:
+        run_prefill, run_decode = _on_mesh(arch, params, prompt, mesh,
+                                           multi_pod, max_len)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = arch.prefill(params, prompt, max_len=max_len)
+    logits, cache = run_prefill()
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -103,7 +172,7 @@ def serve(arch: ArchDef, params, *, batch: int, prompt_len: int, gen: int,
     t0 = time.perf_counter()
     for _ in range(gen):
         fed.append(tok)
-        logits, cache = arch.decode(params, cache, {"tokens": tok})
+        logits, cache = run_decode(cache, tok)
         steps.append(logits)
         tok = logits[:, -1, :vocab].argmax(-1)[:, None]
         toks.append(tok)
@@ -169,9 +238,6 @@ def _device(name: str) -> torch.device:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh}: serving on a mesh is "
-                                  f"not ported yet (ROADMAP §1 item 5c)")
     if args.continuous:
         return _continuous(args)
     try:
@@ -182,12 +248,29 @@ def main(argv=None) -> int:
         print(f"{arch.name}: encoder-only, nothing to serve")
         return 0
     device = _device(args.device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = cast_params(materialize(arch.param_spec(), gen, device=device),
-                         arch.cfg.dtype)
-    served = serve(arch, params, batch=args.batch, prompt_len=args.prompt_len,
-                   gen=args.gen, seed=args.seed)
-    print(json.dumps(served.report(arch.name), indent=1))
+    multi_pod = args.mesh == "multi-pod"
+    if args.mesh != "host" and not lm_family(arch):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: serving {arch.name} on a mesh waits for "
+            f"ROADMAP §1 item 5c (the LM family is served)")
+    started = not dist.is_initialized()
+    try:
+        mesh = (make_host_mesh(model=1, device=device.type)
+                if args.mesh == "host" else
+                make_production_mesh(multi_pod=multi_pod, device=device.type))
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = cast_params(materialize(arch.param_spec(), gen,
+                                         device=device), arch.cfg.dtype)
+        served = serve(arch, params, batch=args.batch,
+                       prompt_len=args.prompt_len, gen=args.gen,
+                       seed=args.seed, mesh=mesh if lm_family(arch) else None,
+                       multi_pod=multi_pod)
+        rank = dist.get_rank()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(served.report(arch.name), indent=1))
     return 0
 
 

@@ -7,10 +7,18 @@ tensors on a device, drawn from a ``torch.Generator``.  Every function
 takes and returns tensors of the reference's shapes and dtypes, and
 rounds where the reference rounds.  The reference's activation
 annotations (``shard_annotate``, ``set_activation_rules``) have nothing
-to act on in eager PyTorch, where the data-parallel step gathers every
-parameter whole (tensor-parallel compute is ROADMAP §1 item 5c): the
-port's forward leaves their calls out.  The dry-run's stand-ins are
-:func:`abstract`'s fake tensors (``launch/dryrun.py``).
+to act on in eager PyTorch: the port's forward leaves their calls out.
+On a mesh the serve steps hand each leaf over as the rank's block
+(``dist.collectives.LocalBlock``) and the layers compute on their
+blocks: :func:`weight` makes a leaf ready for use (a block gathered over
+the axes its use does not split), :func:`block` says which rows of a dim
+a rank holds, :func:`embed` looks its vocabulary block up and
+all-reduces, :func:`unembed` is column-parallel over the vocabulary with
+the logits all-gathered, :func:`swiglu` column- then row-parallel with
+one all-reduce.  The data-parallel train step gathers every parameter
+whole and passes tensors (tensor-parallel training is ROADMAP §1 item
+5c).  The dry-run's stand-ins are :func:`abstract`'s fake tensors
+(``launch/dryrun.py``).
 :func:`grad_barrier` is an identity (an XLA scheduling hint in the
 reference), and the forward leaves its calls out too.
 
@@ -74,6 +82,25 @@ def unstack(tree, n: int) -> list:
     reference's scanned layers) as ``n`` trees of views, in order."""
     stacked = tree_map(lambda t: t.unbind(0), tree)
     return [tree_map(lambda ts, i=i: ts[i], stacked) for i in range(n)]
+
+
+def weight(w, dtype=None, *, keep: int | None = None) -> torch.Tensor:
+    """A parameter leaf ready for use in ``dtype``: a tensor cast; a
+    rank's block on a mesh (``dist.collectives.LocalBlock``) cast, then
+    gathered over every mesh axis that shards it but ``model`` along dim
+    ``keep``, which stays split."""
+    if isinstance(w, torch.Tensor):
+        return w if dtype is None else w.to(dtype)
+    return w.gathered(dtype, keep=keep)
+
+
+def block(w, dim: int, axis: str = "model") -> tuple[int, int, bool]:
+    """``(start, stop, split)``: the rows of dim ``dim`` that :func:`weight`
+    with ``keep=dim`` returns, and whether that dim is split over ``axis``
+    (a tensor: its whole dim, unsplit)."""
+    if isinstance(w, torch.Tensor):
+        return 0, w.shape[dim], False
+    return w.block(dim, axis)
 
 
 def _init_array(spec: ParamSpec, generator: torch.Generator, dtype, device):
@@ -215,7 +242,7 @@ def rmsnorm(w, x, eps: float = 1e-6):
     xf = x.float()
     ss = torch.einsum("...d,...d->...", xf, xf)[..., None]
     scale = torch.rsqrt(ss / x.shape[-1] + eps).to(dt)
-    return w.to(dt) * (x * scale)
+    return weight(w, dt) * (x * scale)
 
 
 def layernorm_spec(d: int) -> dict:
@@ -285,9 +312,39 @@ def _silu(x):
 
 
 def swiglu(p, x):
-    g = x @ p["w_gate"].to(x.dtype)
-    u = x @ p["w_up"].to(x.dtype)
-    return (_silu(g) * u) @ p["w_down"].to(x.dtype)
+    """On a mesh: the gate and up products on the rank's ``mlp`` columns,
+    the down product on the same rows, all-reduced over ``model``."""
+    dt = x.dtype
+    g = x @ weight(p["w_gate"], dt, keep=1)
+    u = x @ weight(p["w_up"], dt, keep=1)
+    return row_parallel(_silu(g) * u, block(p["w_gate"], 1), p["w_down"], dt)
+
+
+def row_parallel(h, rows: tuple[int, int, bool], w, dtype):
+    """``h @ w`` contracted over ``w``'s leading dims but the last (``w``
+    ``(n, *inner, d)``, ``h`` ``(..., n_h, *inner)``), where ``h`` holds
+    the rows ``rows`` of the leading one (``(start, stop, split)``,
+    :func:`block`): the product of the rows both hold, all-reduced over
+    ``model`` where either side is split.  Either side may hold the dim
+    whole: the other's block is taken from it."""
+    wt = weight(w, dtype, keep=0)
+    inner = wt.ndim - 2
+    lo, hi, split = rows
+    wlo, whi, wsplit = block(w, 0)
+    if (lo, hi) != (wlo, whi):
+        if not wsplit:
+            wt = wt[lo:hi]
+        elif not split:
+            h = h.narrow(h.ndim - inner - 1, wlo, whi - wlo)
+        else:
+            raise ValueError(f"rows {(lo, hi)} against a weight's block "
+                             f"{(wlo, whi)} of the same dim")
+    out = h.flatten(h.ndim - inner - 1) @ wt.reshape(-1, wt.shape[-1])
+    if split or wsplit:
+        from ..dist.collectives import all_reduce
+
+        out = all_reduce(out, w.mesh, "model")
+    return out
 
 
 def gelu_mlp_spec(d: int, d_ff: int) -> dict:
@@ -324,9 +381,24 @@ def embedding_spec(vocab: int, d: int) -> ParamSpec:
 
 
 def embed(table, tokens):
-    """Rows of ``table`` at ``tokens`` (any integer dtype)."""
-    rows = table.index_select(0, tokens.reshape(-1))
-    return rows.reshape(*tokens.shape, table.shape[-1])
+    """Rows of ``table`` at ``tokens`` (any integer dtype).  On a mesh
+    with the vocabulary split over ``model``: each rank looks up the
+    tokens in its block, zero for the others, and the rows are
+    all-reduced (one rank adds each row, the others zeros: exact)."""
+    lo, hi, split = block(table, 0)
+    t = weight(table, keep=0)
+    ids = tokens.reshape(-1)
+    if split:
+        ids = ids - lo
+        held = (ids >= 0) & (ids < hi - lo)
+        ids = ids.clamp(0, hi - lo - 1)
+    rows = t.index_select(0, ids)
+    if split:
+        from ..dist.collectives import all_reduce
+
+        rows = all_reduce(rows.masked_fill(~held[:, None], 0), table.mesh,
+                          "model")
+    return rows.reshape(*tokens.shape, t.shape[-1])
 
 
 def unembed_spec(d: int, vocab: int) -> ParamSpec:
@@ -334,7 +406,14 @@ def unembed_spec(d: int, vocab: int) -> ParamSpec:
 
 
 def unembed(w, x):
-    return x @ w.to(x.dtype)
+    """On a mesh: the rank's vocabulary columns, the logits all-gathered
+    over ``model`` (the reference's serve steps return them whole)."""
+    logits = x @ weight(w, x.dtype, keep=1)
+    if block(w, 1)[2]:
+        from ..dist.collectives import all_gather
+
+        logits = all_gather(logits, w.mesh, "model", -1)
+    return logits
 
 
 def _xent_terms(lf, labels, z_loss: float):

@@ -15,7 +15,10 @@ is kept, the rest recomputed), ``"dots"`` keeps the layer's matmul
 outputs and recomputes the rest, ``"none"`` keeps everything; with grad
 off every setting is the same plain forward.  The KV cache is ``{"k",
 "v": (L, B, S_max, kvH, hd), "length": int}`` with the length on the
-host; :func:`decode_step` writes into the cache tensors in place.
+host; :func:`decode_step` writes into the cache tensors in place.  On a
+mesh (the serve steps of ``train/steps.py``) every leaf and the cache
+come as the rank's blocks and the layers run unchanged on them, the
+tensor-parallel work inside ``common``, ``attention`` and ``moe``.
 """
 from __future__ import annotations
 
@@ -23,9 +26,11 @@ from dataclasses import dataclass
 
 import torch
 
-from .attention import AttnConfig, attention, attn_spec, decode_attention
+from .attention import (AttnConfig, attention, attn_spec, decode_attention,
+                        write_block)
 from .common import (
     ParamSpec,
+    block,
     embed,
     embedding_spec,
     remat,
@@ -138,9 +143,18 @@ def _layers(params, cfg: LMConfig) -> list:
 
 def _ffn(p_layer, cfg: LMConfig, h):
     """The layer's FFN and its aux loss (0.0 for the dense MLP).  The MoE
-    runs on one model shard (the reference's host mesh)."""
+    reads the ambient mesh, as the reference's: its data axes, and FSDP
+    over ``data`` where the profile shards ``embed`` over it."""
     if cfg.moe is not None:
-        return moe_ffn(p_layer["moe"], cfg.moe, h)
+        from ..dist.sharding import current_context
+
+        ctx = current_context()
+        fsdp = None
+        if (cfg.moe.impl == "shard_map" and ctx.profile is not None
+                and ctx.profile.rules.get("embed") == "data"):
+            fsdp = "data"
+        return moe_ffn(p_layer["moe"], cfg.moe, h, mesh=ctx.mesh,
+                       data_axes=ctx.data_axes, fsdp_axis=fsdp)
     return swiglu(p_layer["mlp"], h), 0.0
 
 
@@ -211,27 +225,39 @@ def cache_spec(cfg: LMConfig, batch: int, max_len: int) -> dict:
     }
 
 
-def prefill(params, cfg: LMConfig, batch, *, max_len: int | None = None):
+def prefill(params, cfg: LMConfig, batch, *, max_len: int | None = None,
+            cache: dict | None = None):
     """Process the prompt, return (logits_last, cache).
 
     Uses the full-sequence path and writes each layer's K/V into a cache
     of ``max(max_len, S)`` positions, zero past the prompt (the
     reference's right padding).  Only the stacked layer layout is
-    supported here, as in the reference.
+    supported here, as in the reference.  ``cache`` (a mesh step's):
+    the rank's zero blocks of ``k`` and ``v`` (``LocalBlock``s), each
+    written with the part of the prompt's K/V it holds: its rows, its KV
+    heads and its sequence range.
     """
     if not cfg.scan_layers:
         raise ValueError("prefill takes the stacked layer layout "
                          "(scan_layers=True), as the reference's does")
     h = _embed(params, cfg, batch["tokens"], batch.get("patch_embeds"))
     b, s = h.shape[:2]
-    shape = (cfg.n_layers, b, max(s, max_len or 0), cfg.n_kv_heads,
-             cfg.head_dim_)
-    ks = torch.zeros(shape, dtype=cfg.dtype, device=h.device)
-    vs = torch.zeros_like(ks)
+    if cache is None:
+        shape = (cfg.n_layers, b, max(s, max_len or 0), cfg.n_kv_heads,
+                 cfg.head_dim_)
+        ks = torch.zeros(shape, dtype=cfg.dtype, device=h.device)
+        vs = torch.zeros_like(ks)
+    else:
+        ks, vs = cache["k"], cache["v"]
     for i, p_l in enumerate(_layers(params, cfg)):
         h, (k, v), _ = remat(_layer, p_l, cfg, h, mode=cfg.remat)
-        ks[i, :, :s] = k
-        vs[i, :, :s] = v
+        if cache is None:
+            ks[i, :, :s] = k
+            vs[i, :, :s] = v
+        else:
+            heads = block(p_l["attn"]["wk"], 1)
+            write_block(ks[i], k, heads)
+            write_block(vs[i], v, heads)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = logits_fn(params, cfg, h[:, -1:, :])
     return logits, {"k": ks, "v": vs, "length": s}

@@ -8,15 +8,19 @@ Three dispatch implementations, sharing the router and expert parameters:
 * ``scatter``   — global sort-based dispatch: a stable sort by expert id,
   a capacity-bounded scatter into an ``(E, cap, d)`` buffer, grouped
   expert matmuls, and the combine as a sum of the k weighted rows.
-* ``shard_map`` — the reference's expert-parallel path, for one model
-  shard: the assignments sorted by expert with an extra trash slot, and
-  the k weighted rows added into zeros in expert-sorted order.  With one
-  shard the reference's ``psum``/``pmean`` are identities and its FSDP
-  gather is skipped; more model shards wait for tensor-parallel compute
-  on the port's mesh (ROADMAP §1 item 5c) and raise.  The data-parallel
-  train step (``train.steps.make_sharded_train_step``) runs it on each
-  rank's rows: the dispatch per data shard, the aux loss averaged over
-  the ranks, as the reference's ``shard_map``.
+* ``shard_map`` — the reference's expert-parallel path: each model shard
+  computes its local experts ``lo .. lo + e_loc`` on its data shard's
+  tokens (every other assignment to the trash id ``e_loc``), the
+  assignments sorted by local expert, the capacity from the rank's
+  tokens, the k weighted rows added into zeros in expert-sorted order,
+  the partial outputs all-reduced over ``model`` and the aux loss
+  averaged over the data axes and ``model``.  The expert weights come as
+  the rank's blocks (``dist.collectives.LocalBlock``, from the serve
+  steps on a mesh), their FSDP shards gathered over the ``fsdp_axis`` in
+  the compute dtype; with whole tensors (no mesh, or the data-parallel
+  train step, which gathers every parameter whole) it is the one-shard
+  body, ``lo = 0``, with no collective: the train step dispatches each
+  rank's rows and averages the aux loss over the ranks itself.
 
 Routing is the reference's: the router in ``router_dtype`` (f32), top-k
 with ties to the lower expert index, the k weights renormalised and cast
@@ -32,7 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .common import ParamSpec, _silu
+from .common import ParamSpec, _silu, block, weight
 
 
 @dataclass(frozen=True)
@@ -60,7 +64,7 @@ def _route(p, cfg: MoEConfig, xf):
 
     ``lax.top_k`` breaks ties to the lower index; ``torch.topk`` promises
     no order, so the k largest are taken from a stable descending sort."""
-    logits = xf.to(cfg.router_dtype) @ p["router"].to(cfg.router_dtype)
+    logits = xf.to(cfg.router_dtype) @ weight(p["router"], cfg.router_dtype)
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, ids = weights[:, :cfg.top_k], ids[:, :cfg.top_k]
@@ -156,46 +160,101 @@ def moe_ffn_scatter(p, cfg: MoEConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# shard_map: expert parallelism, one model shard
+# shard_map: expert parallelism
 # ---------------------------------------------------------------------------
 
 
-def moe_ffn_shard_map(p, cfg: MoEConfig, x, *, model_shards: int = 1):
-    """The body of the reference's ``shard_map`` on one model shard
-    (``lo = 0``, every expert local).  Each token's k weighted rows are
-    added into zeros one after another in expert-sorted order, as the
-    reference's ``.at[token_of].add`` adds them, and not by atomics, so
-    the bf16 sums are deterministic on the card too."""
-    if model_shards != 1:
-        raise NotImplementedError(f"shard_map MoE over {model_shards} model "
-                                  f"shards: tensor-parallel compute is not "
-                                  f"ported yet (ROADMAP §1 item 5c)")
-    b, s, d = x.shape
-    xf = x.reshape(-1, d)
-    n = xf.shape[0]
-    k, e = cfg.top_k, cfg.n_experts
+def _local_experts(p, cfg: MoEConfig, xf, lo: int, e_loc: int):
+    """The body of the reference's ``shard_map`` on one model shard: the
+    experts ``lo .. lo + e_loc`` of ``p`` (tensors of those experts) on
+    the tokens ``xf``; returns this shard's partial output
+    (zeros for every row routed elsewhere) and the aux loss.  Each
+    token's k weighted rows are added into zeros one after another in
+    expert-sorted order, as the reference's ``.at[token_of].add`` adds
+    them, and not by atomics, so the bf16 sums are deterministic on the
+    card too (a row of another shard adds an exact zero)."""
+    n, d = xf.shape
+    k = cfg.top_k
     weights, ids, aux = _route(p, cfg, xf)
+    local = (ids >= lo) & (ids < lo + e_loc)
+    loc_ids = torch.where(local, ids - lo, e_loc)            # e_loc = trash
     cap = _capacity(n, cfg)
-    sort_idx, sorted_ids, pos = _dispatch(ids.reshape(-1), e)
-    valid = pos < cap
-    slot = torch.where(valid, sorted_ids * cap + pos, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    sort_idx, sorted_ids, pos = _dispatch(loc_ids.reshape(-1), e_loc + 1)
+    valid = (pos < cap) & (sorted_ids < e_loc)
+    slot = torch.where(valid, sorted_ids * cap + pos, e_loc * cap)
+    buf = torch.zeros((e_loc * cap + 1, d), dtype=xf.dtype, device=xf.device)
     buf.index_add_(0, slot, xf[sort_idx // k] * valid[:, None].to(xf.dtype))
     h = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"],
-                    buf[:-1].view(e, cap, d))
-    rows = torch.cat([h.reshape(e * cap, d), h.new_zeros((1, d))])[slot]
-    contrib = rows * weights.reshape(-1)[sort_idx][:, None]
+                    buf[:-1].view(e_loc, cap, d))
+    rows = torch.cat([h.reshape(e_loc * cap, d), h.new_zeros((1, d))])[slot]
+    w_sorted = (weights * local.to(weights.dtype)).reshape(-1)[sort_idx]
+    contrib = rows * w_sorted[:, None]
     # token t's entries in sorted order, ascending: the scatter's order
     order = torch.argsort(sort_idx).view(n, k).sort(dim=1).values
     out = torch.zeros((n, d), dtype=xf.dtype, device=xf.device)
     for j in range(k):
         out = out + contrib[order[:, j]]
-    return out.reshape(b, s, d), aux
+    return out, aux
 
 
-def moe_ffn(p, cfg: MoEConfig, x, *, model_shards: int = 1):
+def moe_ffn_shard_map(p, cfg: MoEConfig, x, *, mesh=None,
+                      data_axes=("data",), model_axis: str = "model",
+                      fsdp_axis: str | None = None):
+    """Expert-parallel MoE (the reference's ``moe_ffn_shard_map``): ``x``
+    the rank's rows.  With the weights as whole tensors holding every
+    expert, the one-shard body (no collective).  With the rank's blocks
+    (``LocalBlock``, on ``mesh``): the experts of its ``model_axis`` block,
+    each expert weight gathered over ``fsdp_axis`` (the only other axis
+    that may shard it) in the compute dtype, the router whole; the
+    partial outputs all-reduced over ``model_axis`` and the aux loss
+    averaged over ``data_axes`` and ``model_axis``.  Expert weights of
+    more than one model shard need a mesh, as the reference's."""
+    b, s, d = x.shape
+    xf = x.reshape(-1, d)
+    e = cfg.n_experts
+    wg = p["w_gate"]
+    if isinstance(wg, torch.Tensor):
+        if wg.shape[0] != e:
+            raise ValueError(f"shard_map MoE over {e // wg.shape[0]} model "
+                             f"shards needs a mesh and the rank's blocks "
+                             f"(expert weights of {wg.shape[0]} of {e} "
+                             f"experts)")
+        out, aux = _local_experts(p, cfg, xf, 0, e)
+        return out.reshape(b, s, d), aux
+    if mesh is None:
+        raise ValueError("shard_map MoE on the rank's blocks needs a mesh")
+    from ..dist.collectives import all_reduce
+
+    lo, hi, split = block(wg, 0, model_axis)
+    if not split:
+        raise ValueError(f"the experts of {wg.sharding.spec} are not split "
+                         f"over {model_axis!r}")
+    loc = {"router": p["router"]}
+    for name in ("w_gate", "w_up", "w_down"):
+        w = p[name]
+        others = {a for ent in w.sharding.spec[1:]
+                  for a in ((ent,) if isinstance(ent, str) else ent or ())}
+        if others - {fsdp_axis}:
+            raise ValueError(f"{name} {w.sharding.spec}: sharded over "
+                             f"{sorted(others - {fsdp_axis})}, not the FSDP "
+                             f"axis {fsdp_axis!r}")
+        loc[name] = w.gathered(x.dtype, keep=0, axis=model_axis)
+    out, aux = _local_experts(loc, cfg, xf, lo, hi - lo)
+    out = all_reduce(out, mesh, model_axis)
+    n = 1
+    for a in (*data_axes, model_axis):
+        aux = all_reduce(aux, mesh, a)
+        n *= dict(zip(mesh.mesh_dim_names, mesh.shape))[a]
+    return out.reshape(b, s, d), aux / n
+
+
+def moe_ffn(p, cfg: MoEConfig, x, *, mesh=None, data_axes=("data",),
+            model_axis: str = "model", fsdp_axis: str | None = None):
+    if cfg.impl == "shard_map":
+        return moe_ffn_shard_map(p, cfg, x, mesh=mesh, data_axes=data_axes,
+                                 model_axis=model_axis, fsdp_axis=fsdp_axis)
+    # the global dispatches take every expert: a rank's blocks gathered
+    p = {k: weight(v) for k, v in p.items()}
     if cfg.impl == "ref":
         return moe_ffn_ref(p, cfg, x)
-    if cfg.impl == "shard_map":
-        return moe_ffn_shard_map(p, cfg, x, model_shards=model_shards)
     return moe_ffn_scatter(p, cfg, x)

@@ -25,6 +25,7 @@ other metrics are the micro-batches' means.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Callable
 
 import torch
@@ -223,8 +224,8 @@ def make_sharded_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
     local shards in place (``optim.adamw_step`` with the clipping norm
     and the int8 row absmax over the whole leaves).  The ``model`` axis
     shards storage only: the model ranks of one data group compute the
-    same step on the same rows (tensor-parallel compute is ROADMAP §1
-    item 5c).
+    same step on the same rows (tensor-parallel training is ROADMAP §1
+    item 5c; the serve steps below compute tensor parallel).
 
     The masked cross entropy of each micro-batch is normalized by the
     tokens of the whole data-parallel micro-batch (``xent_over``), so the
@@ -263,21 +264,131 @@ def make_sharded_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
     return train_step
 
 
+def lm_family(arch: ArchDef) -> bool:
+    """Whether ``arch`` is of the LM family (``models/lm.py``), whose
+    serve steps run tensor parallel on a mesh."""
+    from ..models import lm
+
+    return arch.spec_fn is lm.lm_spec
+
+
+def _tensor_parallel(arch: ArchDef, params) -> bool:
+    """Whether ``params`` are sharded DTensors: the steps then run tensor
+    parallel, for the LM family only."""
+    if not isinstance(tree_leaves(params)[0], DTensor):
+        return False
+    if not lm_family(arch):
+        raise NotImplementedError(
+            f"{arch.name}: serving on a mesh is ported for the LM family; "
+            f"the {arch.family} family waits for ROADMAP §1 item 5c")
+    return True
+
+
+def _blocks(arch: ArchDef, params, cast_once: bool):
+    """Each parameter DTensor as the rank's ``LocalBlock`` (one
+    ``to_local()`` a leaf); ``cast_once``: the >= 2-D f32 blocks cast to
+    the compute dtype, as :func:`cast_params_for_compute` casts."""
+    from ..dist.collectives import LocalBlock
+
+    cdt = getattr(arch.cfg, "dtype", None)
+
+    def one(d):
+        b = LocalBlock.of(d)
+        if (cast_once and cdt is not None and b.tensor.ndim >= 2
+                and b.tensor.dtype == torch.float32):
+            b = dataclasses.replace(b, tensor=b.tensor.to(cdt))
+        return b
+    return tree_map(one, params)
+
+
+def _placed(b) -> DTensor:
+    """A ``LocalBlock`` as the DTensor its sharding places (no copy)."""
+    return DTensor.from_local(b.tensor, b.mesh, b.sharding.placements(),
+                              run_check=False)
+
+
+def _all_rows(logits, batch_entry, mesh):
+    """The logits of every rank's rows, gathered over the batch axes (the
+    reference's serve steps return them whole: ``out_shardings=None``)."""
+    from ..dist.collectives import gather_entry
+
+    return gather_entry(logits, mesh, batch_entry, 0)
+
+
 def make_prefill_step(arch: ArchDef, *, max_len: int | None = None,
-                      cast_once: bool = False) -> Callable:
+                      cast_once: bool = False, cache_profile=None) -> Callable:
+    """``prefill_step(params, batch) -> (logits, cache)``.
+
+    On a mesh (tensor parallel, the LM family; run it under
+    ``dist.use_mesh_context``): ``params`` DTensors placed by
+    ``param_shardings(..., ensure_model_axis=True)``, ``batch`` DTensors
+    placed by the input profile ``cache_profile``
+    (``dist.sharding.input_profile``).  Each leaf's block is taken once
+    (``to_local()``), never gathered whole; the model computes on the
+    blocks and the rank's rows.  The cache comes back as DTensors placed
+    by ``param_shardings(arch.cache_spec(B, max_len), mesh,
+    cache_profile)`` with the host length, the logits of the whole batch
+    gathered (the reference's ``out_shardings=None``)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        p = cast_params_for_compute(arch, params) if cast_once else params
-        return arch.prefill(p, batch, max_len=max_len)
+        if not _tensor_parallel(arch, params):
+            p = cast_params_for_compute(arch, params) if cast_once else params
+            return arch.prefill(p, batch, max_len=max_len)
+        from ..dist.collectives import LocalBlock, spec_of
+        from ..dist.sharding import mesh_device, param_shardings
+
+        if cache_profile is None:
+            raise ValueError("a prefill on a mesh places its cache by the "
+                             "input profile: pass cache_profile")
+        tokens = batch["tokens"]
+        if not isinstance(tokens, DTensor):
+            raise TypeError("a prefill on a mesh takes the batch as DTensors "
+                            "placed by the input profile")
+        mesh = tokens.device_mesh
+        prefix = batch.get("patch_embeds")
+        seq = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
+        spec = arch.cache_spec(tokens.shape[0], max(seq, max_len or 0))
+        shardings = param_shardings(spec, mesh, cache_profile)
+        coord = mesh.get_coordinate()
+        cache = {}
+        for k in ("k", "v"):
+            shape = [sl.stop - sl.start for sl in
+                     shardings[k].index(coord, spec[k].shape)]
+            cache[k] = LocalBlock.at(torch.zeros(shape, dtype=spec[k].dtype,
+                                                 device=mesh_device(mesh)),
+                                     shardings[k], spec[k].shape)
+        logits, out = arch.prefill_fn(
+            _blocks(arch, params, cast_once), arch.cfg,
+            {k: _local(v) for k, v in batch.items()}, max_len=max_len,
+            cache=cache)
+        return (_all_rows(logits, spec_of(tokens)[0], mesh),
+                {"k": _placed(cache["k"]), "v": _placed(cache["v"]),
+                 "length": out["length"]})
     return prefill_step
 
 
 def make_serve_step(arch: ArchDef, *, cast_once: bool = False) -> Callable:
-    """One batched decode step: ``serve_step(params, cache, batch)``."""
+    """One batched decode step: ``serve_step(params, cache, batch)``.  On
+    a mesh (the LM family; under ``dist.use_mesh_context``, with its
+    ``cache_seq_axis`` where the cache is split by sequence): the
+    parameters and the cache DTensors as :func:`make_prefill_step` makes
+    them, ``batch`` the tokens (the rank's rows, or DTensors); the cache's
+    blocks are written in place and the logits of the whole batch
+    returned."""
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        p = cast_params_for_compute(arch, params) if cast_once else params
-        return arch.decode(p, cache, batch)
+        if not _tensor_parallel(arch, params):
+            p = cast_params_for_compute(arch, params) if cast_once else params
+            return arch.decode(p, cache, batch)
+        from ..dist.collectives import LocalBlock
+
+        blocks = {"k": LocalBlock.of(cache["k"]), "v": LocalBlock.of(cache["v"]),
+                  "length": cache["length"]}
+        logits, out = arch.decode(_blocks(arch, params, cast_once), blocks,
+                                  {k: _local(v) for k, v in batch.items()})
+        k = blocks["k"]
+        return (_all_rows(logits, k.sharding.spec[1], k.mesh),
+                {"k": cache["k"], "v": cache["v"], "length": out["length"]})
     return serve_step
 
 

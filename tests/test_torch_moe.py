@@ -178,12 +178,18 @@ def test_shard_map_combine_adds_in_scatter_order(params):
 
 
 def test_more_than_one_model_shard_raises(params):
+    """Expert weights of more than one model shard (here one shard's half
+    of the experts) with no mesh raise, as the reference's ``moe_ffn``
+    asserts a mesh for ``shard_map``; whole weights with no mesh are the
+    one-shard body.  The multi-shard body runs on a mesh in
+    ``tests/test_torch_moe_mesh.py``."""
     _, _, pp, tx = _inputs(params, "f32")
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        moe.moe_ffn_shard_map(pp, cfg, tx, model_shards=2)
+    half = {**pp, **{k: pp[k][:E // 2] for k in ("w_gate", "w_up", "w_down")}}
+    with pytest.raises(ValueError, match="2 model shards needs a mesh"):
+        moe.moe_ffn_shard_map(half, cfg, tx)
     shard_map = moe.MoEConfig(E, K, F, impl="shard_map")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        moe.moe_ffn(pp, shard_map, tx, model_shards=2)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        moe.moe_ffn(half, shard_map, tx)
     out, _ = moe.moe_ffn(pp, shard_map, tx)
     assert torch.equal(out, moe.moe_ffn_shard_map(pp, cfg, tx)[0])

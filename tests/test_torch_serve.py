@@ -144,7 +144,10 @@ def test_continuous_runs_the_engine(capsys):
 
 
 def test_what_is_not_ported_raises(capsys):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """A production mesh on a one-process world raises, naming the 256 and
+    512 ranks the two meshes take (the reference fails with too few
+    devices); an unknown arch is refused."""
+    with pytest.raises(ValueError, match="needs 256 ranks.*256 or 512"):
         serve.main(["--mesh", "single-pod", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--arch", "gpt-5", "--device", "cpu"])
