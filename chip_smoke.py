@@ -20,10 +20,10 @@ through the driver (``repro_torch.train.driver.Trainer``), also on a
 one-rank NCCL mesh; runs the continuous-batching serving engine
 (``repro_torch.serve``) and launches the split decode route at its
 bucket picks; holds the whole-model composition and the dry-run's traces
-against the served and trained models' device time; serves the LM family
-tensor parallel on a one-rank NCCL mesh and traces its serving cells on
-a fake 256-rank world; and holds every CUDA kernel against its plain
-PyTorch version.  Phases:
+against the served and trained models' device time; serves the five
+models tensor parallel on a one-rank NCCL mesh and traces their
+families' serving cells on a fake 256-rank world; and holds every CUDA kernel
+against its plain PyTorch version.  Phases:
 
 1. require CUDA (there is no CPU fallback) and print the card's
    ``nvidia-smi`` name and power limit;
@@ -267,14 +267,20 @@ PyTorch version.  Phases:
    granite-moe-1b-a400m (``shard_map``, bf16, flash) served MESH_MOE_GEN
    steps on the mesh, its logits and tokens bit-equal to ``mesh=None``
    (the multi-shard body on one model shard, its FSDP gathers over
-   ``data``); in a child, the dry-run's MESH_CELLS on fake CUDA tensors on
-   the fake 256-rank ``16x16`` world (attention on the flash op), their
-   per-card TFLOP, bytes, collectives by kind and axis, ``t_link`` and
-   peak, gated: each fits the card, the prefill's useful share (a data
-   group's rows traced on one card, over the per-card FLOPs times the 16
-   model ranks) at least MESH_USEFUL_MIN, and each decode's flash decode
-   in every layer (one max and one denominator all-reduce over ``model``
-   a layer, a numerator sum beside them);
+   ``data``); zamba2-1.2b, whisper-base and xlstm-125m (MESH_FAMILIES)
+   served on the mesh as phases 12-14 serve them (bf16, full width and
+   depth, B 8, prompt 2048 or 1500 frames, 32 greedy steps), gated on
+   their tokens equal to the phase's and 7, 12 and 0 tile launches a
+   prefill, their prefill and decode times beside the phase's; in child
+   processes (MESH_CHILDREN, at once), the dry-run's MESH_CELLS on fake
+   CUDA tensors on the fake 256-rank ``16x16`` world (attention on the
+   flash op; zamba2 at MESH_CUT's depth), their per-card TFLOP, bytes,
+   collectives by kind and axis, ``t_link`` and peak, gated: each fits
+   the card, each prefill's useful share (a data group's rows traced on
+   one card, over the per-card FLOPs times the 16 model ranks) at least
+   MESH_USEFUL_MIN, and each LM decode's flash decode in every layer (one
+   max and one denominator all-reduce over ``model`` a layer, a
+   numerator sum beside them);
 21. one JSON line with the ten kernels (the matmul and attention rows
    with their launches per route, the matmul's per path too, the
    attention's per path with each model phase's, the train phase's and
@@ -481,13 +487,32 @@ DRYRUN_CHILD_TIMEOUT_S, DRYRUN_AIM_S = 300, 90
 #: dry-run's MESH_CELLS on the fake 256-rank ``16x16`` world (a child),
 #: the prefill's useful share (a data group's rows on one card over the
 #: per-card FLOPs times the model ranks) at least MESH_USEFUL_MIN and
-#: each decode's flash decode in every layer; the phase's aim (reported)
+#: each of MESH_FLASH_DECODES' flash decode in every layer; the phase's
+#: aim (reported).  MESH_FAMILIES: the archs outside ``models/lm.py``
+#: served on the mesh as phases 12-14 serve them, their tokens held equal
+#: to the phase's, with the tile launches a prefill each must make.
+#: MESH_CHILDREN: the cells each child traces, all children at once (a
+#: ``card`` cell traces a data group's rows on one card); MESH_CUT: the
+#: depth a cell of an arch is traced at here (zamba2's full-depth
+#: ``prefill_32k`` takes minutes a side to trace: its SSD chunk loop;
+#: six layers are one period of its shared block, at full width)
 MESH_ARCH, MESH_MOE_ARCH = "internlm2-1.8b", "granite-moe-1b-a400m"
 MESH_F32_LAYERS, MESH_F32_GEN, MESH_MOE_GEN = 2, 8, 4
+MESH_FAMILIES = {"zamba2-1.2b": 7, "whisper-base": 12, "xlstm-125m": 0}
 MESH_CELLS = (("internlm2-1.8b", "prefill_32k"),
               ("internlm2-1.8b", "decode_32k"),
-              ("granite-moe-1b-a400m", "decode_32k"))
+              ("granite-moe-1b-a400m", "decode_32k"),
+              ("zamba2-1.2b", "prefill_32k"),
+              ("whisper-base", "decode_32k"),
+              ("xlstm-125m", "decode_32k"))
+MESH_FLASH_DECODES = MESH_CELLS[1:3]
 MESH_WORLD, MESH_DATA_RANKS = "16x16", 16
+MESH_CHILDREN = (tuple((n, s, MESH_WORLD) for n, s in MESH_CELLS
+                       if n != "zamba2-1.2b")
+                 + (("internlm2-1.8b", "prefill_32k", "card"),),
+                 (("zamba2-1.2b", "prefill_32k", MESH_WORLD),),
+                 (("zamba2-1.2b", "prefill_32k", "card"),))
+MESH_CUT = {"zamba2-1.2b": 6}
 MESH_USEFUL_MIN = 0.5
 MESH_CHILD_TIMEOUT_S, MESH_AIM_S = 300, 120
 #: the device split of a train step (``_train_split``)
@@ -1889,6 +1914,7 @@ def _whisper_phase(name: str, machine) -> tuple[list[str], dict]:
         (flash.prefill_logits.float() - chunked.prefill_logits.float()).abs().max())
     rec["bf16_tokens_equal_share"] = float(
         (flash.tokens == chunked.tokens).float().mean())
+    rec["bf16_flash_tokens"] = flash.tokens.tolist()
     rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
     rec["attention_launches_by_route"] = dict(kernels.FLASH_ATTENTION.launches_by_route)
     del chunked
@@ -2026,6 +2052,7 @@ def _xlstm_phase(name: str, machine) -> tuple[list[str], dict]:
     params = cast_params(params, cfg.dtype)
     torch.cuda.empty_cache()
     served = runs(params, MODEL_GEN)
+    rec["bf16_tokens"] = served.tokens.tolist()
     rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
     rec["attention_launches_by_route"] = dict(kernels.FLASH_ATTENTION.launches_by_route)
     # the two loops at the prefill's shape, bf16, the first layer of each kind
@@ -3583,29 +3610,34 @@ def _dryrun_phase(calibrated, models: dict, composed: dict
 # ---------------------------------------------------------------------------
 
 
-def _mesh_cells_child(out: str) -> int:
-    """A child of phase 20: MESH_CELLS on the fake MESH_WORLD world and a
-    data group's rows of the prefill on one card, on fake CUDA tensors
-    with phase 6's calibrated machine, attention on the flash op (the
-    served path); the records to ``out``."""
+def _mesh_cell_key(name: str, shape_name: str, mesh: str) -> str:
+    return f"{name} {shape_name}" + (" rows" if mesh == "card" else "")
+
+
+def _mesh_cells_child(out: str, group: int) -> int:
+    """A child of phase 20: the cells of MESH_CHILDREN[group] on the fake
+    MESH_WORLD world, or (``card``) a data group's rows of the cell on one
+    card, on fake CUDA tensors with phase 6's calibrated machine,
+    attention on the flash op (the served path), each arch at its
+    MESH_CUT depth; the records to ``out``."""
     from repro_torch.configs import SHAPES, get_arch
     from repro_torch.core.machine import load_machine_file
     from repro_torch.launch.dryrun import trace_cell
 
     machine = load_machine_file(MACHINE_FILE)
     recs = {}
-    for name, shape_name in MESH_CELLS:
-        arch = _variant(get_arch(name), attn_impl="flash")
-        recs[f"{name} {shape_name}"] = trace_cell(
-            arch, SHAPES[shape_name], mesh=MESH_WORLD, device="cuda",
+    for name, shape_name, mesh in MESH_CHILDREN[group]:
+        arch = get_arch(name)
+        kw = {"n_layers": MESH_CUT[name]} if name in MESH_CUT else {}
+        if hasattr(arch.cfg, "attn_impl"):
+            kw["attn_impl"] = "flash"
+        shape = SHAPES[shape_name]
+        if mesh == "card":
+            shape = dataclasses.replace(
+                shape, global_batch=shape.global_batch // MESH_DATA_RANKS)
+        recs[_mesh_cell_key(name, shape_name, mesh)] = trace_cell(
+            _variant(arch, **kw), shape, mesh=mesh, device="cuda",
             machine=machine)
-    name, shape_name = MESH_CELLS[0]
-    shape = SHAPES[shape_name]
-    recs["rows"] = trace_cell(
-        _variant(get_arch(name), attn_impl="flash"),
-        dataclasses.replace(shape, global_batch=shape.global_batch
-                            // MESH_DATA_RANKS),
-        mesh="card", device="cuda", machine=machine)
     Path(out).write_text(json.dumps(recs))
     return 0
 
@@ -3621,6 +3653,78 @@ def _placed_params(arch, params, mesh):
     it = iter([sh.distribute(t) for t, sh in
                zip(tree_leaves(params), tree_leaves(psh))])
     return tree_map(lambda _: next(it), params)
+
+
+def _family_params(name: str):
+    """The bf16 weights phases 12-14 serve ``name`` with: drawn from SEED
+    on the card by ``materialize``, the attention projections at their
+    contracted fan-in (zamba2's shared block, whisper's three attention
+    subtrees; xlstm has none), cast once to the config's dtype."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import cast_params, materialize
+
+    arch = get_arch(name)
+    cfg, spec = arch.cfg, arch.param_spec()
+    if arch.family == "hybrid":
+        spec = _contracted_fan_in(spec, ("shared", "attn"), cfg.attn_cfg)
+    elif name == "whisper-base":
+        for path in (("enc", "layers", "attn"), ("dec", "layers", "self_attn"),
+                     ("dec", "layers", "cross_attn")):
+            spec = _contracted_fan_in(spec, path, cfg.attn_cfg(causal=False))
+    dev = torch.device("cuda")
+    return cast_params(materialize(
+        spec, torch.Generator(device=dev).manual_seed(SEED), device=dev),
+        cfg.dtype)
+
+
+def _mesh_families(mesh, models: dict) -> tuple[list[str], dict]:
+    """MESH_FAMILIES served on ``mesh`` through ``launch/serve.py``
+    ``serve`` as phases 12-14 serve them (bf16, their weights, flash where
+    they attend, MODEL_BATCH x MODEL_PROMPT, whisper WHISPER_FRAMES
+    frames, MODEL_GEN greedy steps): the tile launches a prefill and no
+    split launch, the tokens equal to the phase's, the logits finite;
+    the prefill and per-token decode times beside the phase's."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+
+    failures, rec = [], {}
+    attn = kernels.FLASH_ATTENTION
+    for name, tiles in MESH_FAMILIES.items():
+        arch = get_arch(name)
+        flash = hasattr(arch.cfg, "attn_impl")
+        if flash:
+            arch = _variant(arch, attn_impl="flash")
+        params = _family_params(name)
+        before = dict(attn.launches_by_route)
+        served = serve(arch, params, batch=MODEL_BATCH,
+                       prompt_len=WHISPER_FRAMES if name == "whisper-base"
+                       else MODEL_PROMPT, gen=MODEL_GEN, seed=SEED, mesh=mesh)
+        launched = {r: n - before[r] for r, n in attn.launches_by_route.items()}
+        phase = models[name]
+        ran = phase["runs"]["bfloat16 flash" if flash else "bfloat16 model"]
+        want_tokens = phase["bf16_flash_tokens" if flash else "bf16_tokens"]
+        tokens_equal = served.tokens.tolist() == want_tokens
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                      (served.prefill_logits, *served.step_logits))
+        decode_s = served.decode_s / MODEL_GEN
+        rec[name] = {
+            "attention_launches": launched, "tokens_equal_phase":
+            tokens_equal, "finite": finite, "prefill_s": served.prefill_s,
+            "decode_s_per_token": decode_s,
+            "phase_prefill_s": ran["prefill_s"],
+            "phase_decode_s_per_token": ran["decode_s_per_token"],
+            "prefill_over_phase": served.prefill_s / ran["prefill_s"],
+            "decode_over_phase": decode_s / ran["decode_s_per_token"]}
+        if launched != {"tile": tiles, "split": 0}:
+            failures.append(f"mesh serve {name}: attention launches "
+                            f"{launched}, not {tiles} tile and no split")
+        if not tokens_equal or not finite:
+            failures.append(f"mesh serve {name}: tokens equal to its phase's "
+                            f"{tokens_equal}, logits finite {finite}")
+        del served, params
+        torch.cuda.empty_cache()
+    return failures, rec
 
 
 def _mesh_sequence_split(mesh) -> tuple[list[str], dict]:
@@ -3782,11 +3886,11 @@ def _mesh_decode_split(arch, params, mesh) -> dict:
 
 def _mesh_cell_gates(cells: dict) -> tuple[list[str], dict]:
     """The 256-rank serving cells: each ``ok`` and within the card's
-    memory; the prefill's useful share at least MESH_USEFUL_MIN; each
-    decode's flash decode in every layer (one max and one denominator
-    all-reduce over ``model`` a layer, a numerator sum of ``(B, H, hd)``
-    f32 beside them); per-card TFLOP, bytes, collectives, ``t_link``,
-    peak."""
+    memory; each prefill's useful share at least MESH_USEFUL_MIN; each of
+    MESH_FLASH_DECODES' flash decode in every layer (one max and one
+    denominator all-reduce over ``model`` a layer, a numerator sum of
+    ``(B, H, hd)`` f32 beside them); per-card TFLOP, bytes, collectives,
+    ``t_link``, peak."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import dryrun
 
@@ -3808,19 +3912,25 @@ def _mesh_cell_gates(cells: dict) -> tuple[list[str], dict]:
                     "peak_gb": r["peak_bytes_per_chip"] / 1e9,
                     "fits_hbm": r["fits_hbm"],
                     "local_rows": r.get("local_rows"),
+                    "n_layers": MESH_CUT.get(r["arch"]),
                     "t_trace_s": r["t_trace_s"]}
-        if key != "rows" and not r["fits_hbm"]:
+        if r["mesh"] != "card" and not r["fits_hbm"]:
             failures.append(f"mesh cell {key}: peak {r['peak_bytes_per_chip']}"
                             f" B over the card's {r['capacity_bytes']}")
     if failures:
         return failures, rec
-    prefill = "{} {}".format(*MESH_CELLS[0])
-    share = dryrun.useful_share(cells[prefill], cells["rows"], MESH_DATA_RANKS)
-    rec[prefill]["useful_share"] = share
-    if share < MESH_USEFUL_MIN:
-        failures.append(f"mesh cell {prefill}: useful share {share} < "
-                        f"{MESH_USEFUL_MIN}")
-    for name, shape_name in MESH_CELLS[1:]:
+    for name, shape_name in MESH_CELLS:
+        if shape_name != "prefill_32k":
+            continue
+        key = _mesh_cell_key(name, shape_name, MESH_WORLD)
+        share = dryrun.useful_share(
+            cells[key], cells[_mesh_cell_key(name, shape_name, "card")],
+            MESH_DATA_RANKS)
+        rec[key]["useful_share"] = share
+        if share < MESH_USEFUL_MIN:
+            failures.append(f"mesh cell {key}: useful share {share} < "
+                            f"{MESH_USEFUL_MIN}")
+    for name, shape_name in MESH_FLASH_DECODES:
         key = f"{name} {shape_name}"
         cfg = get_arch(name).cfg
         got = dryrun.flash_decode_reduces(cells[key], cfg)
@@ -3841,10 +3951,10 @@ def _mesh_cell_gates(cells: dict) -> tuple[list[str], dict]:
 
 def _mesh_phase(models: dict) -> tuple[list[str], dict]:
     """Phase 20: serving on a one-rank NCCL mesh (module docstring, item
-    20).  The dry-run's 256-rank cells trace in a child (a fake world
-    needs a process without the NCCL group), started after the timed
-    serve, while this process runs the gates on the card; the phase's
-    launches are counted from 0."""
+    20).  The dry-run's 256-rank cells trace in children
+    (MESH_CHILDREN; a fake world needs a process without the NCCL group),
+    started after the timed serves, while this process runs the gates on
+    the card; the phase's launches are counted from 0."""
     import torch.distributed as dist
 
     from repro_torch import kernels
@@ -3857,7 +3967,8 @@ def _mesh_phase(models: dict) -> tuple[list[str], dict]:
     failures, rec = [], {"card": _card_line()}
     env = dict(os.environ, PYTHONPATH=str(SRC))
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "cells.json")
+        outs = [os.path.join(tmp, f"cells{g}.json")
+                for g in range(len(MESH_CHILDREN))]
         log = open(os.path.join(tmp, "cells.log"), "w+")
         dev = torch.device("cuda")
         kernels.reset_launches()
@@ -3909,11 +4020,15 @@ def _mesh_phase(models: dict) -> tuple[list[str], dict]:
             del served
             rec["decode_split"] = _mesh_decode_split(arch, params, mesh)
             del params
-            # the traces take a core: started once the timed runs are done
-            child = subprocess.Popen(
-                [sys.executable, __file__, "--mesh-cells", out], env=env,
-                stdout=log, stderr=subprocess.STDOUT)
             torch.cuda.empty_cache()
+            family_failures, rec["families"] = _mesh_families(mesh, models)
+            failures += family_failures
+            # the traces take a core each: started once the timed runs are
+            # done
+            children = [subprocess.Popen(
+                [sys.executable, __file__, "--mesh-cells", out, str(g)],
+                env=env, stdout=log, stderr=subprocess.STDOUT)
+                for g, out in enumerate(outs)]
             split_failures, rec["sequence_split"] = _mesh_sequence_split(mesh)
             failures += split_failures
             torch.cuda.empty_cache()
@@ -3925,20 +4040,25 @@ def _mesh_phase(models: dict) -> tuple[list[str], dict]:
         rec["launches"] = {k.name: k.launches for k in kernels.KERNELS}
         rec["attention_launches_by_route"] = dict(
             kernels.FLASH_ATTENTION.launches_by_route)
-        try:
-            child.wait(timeout=MESH_CHILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            child.kill()
-            child.wait()
+        deadline = time.perf_counter() + MESH_CHILD_TIMEOUT_S
+        for child in children:
+            try:
+                child.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
         rec["child_done_s"] = time.perf_counter() - t0
         log.seek(0)
         tail = log.read()[-2000:]
         log.close()
-        if child.returncode or not os.path.exists(out):
-            failures.append(f"mesh cells: exit {child.returncode}: {tail}")
+        codes = [c.returncode for c in children]
+        if any(codes) or not all(os.path.exists(o) for o in outs):
+            failures.append(f"mesh cells: exits {codes}: {tail}")
         else:
-            cell_failures, rec["cells"] = _mesh_cell_gates(
-                json.loads(Path(out).read_text()))
+            cells = {}
+            for o in outs:
+                cells.update(json.loads(Path(o).read_text()))
+            cell_failures, rec["cells"] = _mesh_cell_gates(cells)
             failures += cell_failures
     rec["s"] = time.perf_counter() - t0
     rec["aim_s"] = MESH_AIM_S
@@ -4219,7 +4339,7 @@ def main() -> int:
     models, model_s = {}, {}
     phase_of = {"whisper-base": _whisper_phase, "xlstm-125m": _xlstm_phase}
     apart = ("runs", "attention", "loops", "summary", "device_split",
-             "bf16_flash_tokens")
+             "bf16_flash_tokens", "bf16_tokens")
     for number, name in MODEL_PHASES.items():
         t_path = time.perf_counter()
         model_failures, model = phase_of.get(name, _model_phase)(name, machine)
@@ -4441,5 +4561,5 @@ if __name__ == "__main__":
         sys.exit(_trace_cells_child(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--mesh-cells"]:
         sys.path.insert(0, str(SRC))
-        sys.exit(_mesh_cells_child(sys.argv[2]))
+        sys.exit(_mesh_cells_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

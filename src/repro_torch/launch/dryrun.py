@@ -19,18 +19,17 @@ The step traced is the one the port runs there:
   with the rank's rows of the batch; that step gathers every parameter
   whole (tensor-parallel training is ROADMAP §1 item 5c), and the record
   shows those gathers;
-* *prefill* and *decode* cells of the LM family (``models/lm.py``) on a
-  production mesh trace ``make_prefill_step`` and ``make_serve_step``
-  tensor parallel, as ``launch/serve.py`` serves on a mesh: the
-  parameters cast to the compute dtype and placed by ``param_shardings``
-  (``ensure_model_axis``), the batch and the cache by the input profile
+* *prefill* and *decode* cells on a production mesh trace
+  ``make_prefill_step`` and ``make_serve_step`` tensor parallel, as
+  ``launch/serve.py`` serves on a mesh: the parameters cast to the
+  compute dtype and placed by ``param_shardings`` (``ensure_model_axis``)
+  under the arch's profile, the batch and the cache by the input profile
   (``dist.sharding.input_profile``: the cache's KV heads over ``model``
   where they divide it, else its sequence, decoded by the flash decode
-  under ``cache_seq_axis="model"``), under the serving profile
-  (``dist.sharding.serving_profile``).  The other families' serving
-  cells on a production mesh are recorded ``skipped`` (item 5c).  On
-  ``card`` every serving cell traces the same steps on the cast
-  parameters, with no mesh;
+  under ``cache_seq_axis="model"``; the Mamba2 and xLSTM states by their
+  heads where those divide it), under the serving profile
+  (``dist.sharding.serving_profile``).  On ``card`` every serving cell
+  traces the same steps on the cast parameters, with no mesh;
 * ``long_500k`` and the encoder-only decode cells are skipped by
   ``ArchDef.shape_supported``, as in the reference.
 
@@ -78,7 +77,7 @@ from ..dist.sharding import (get_profile, input_profile,
 from ..models.common import abstract, cast_params, tree_leaves, tree_map
 from ..optim import AdamWConfig
 from ..optim.schedule import linear_warmup_cosine
-from ..train.steps import (lm_family, make_prefill_step, make_serve_step,
+from ..train.steps import (make_prefill_step, make_serve_step,
                            make_sharded_train_step, make_train_step,
                            state_spec)
 from .mesh import make_production_mesh
@@ -87,11 +86,6 @@ from .mesh import make_production_mesh
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
           "card": ((1,), ("data",))}
-#: why a serving cell of a family other than the LM's is not traced on a
-#: production mesh
-SERVE_ON_MESH = ("serving on a mesh is ported for the LM family: this "
-                 "family's tensor-parallel serving waits for ROADMAP §1 "
-                 "item 5c")
 DEFAULT_OUT = "results/dryrun_torch"
 #: cells traced at once when a run has several, each in its own process
 JOBS = 2
@@ -195,9 +189,10 @@ def _trace_train_on_mesh(arch, shape, mesh, multi_pod, opt_cfg, device):
                                   "kv_divisible": kv_div}
 
 
-def _trace_serve_on_mesh(arch, shape, mesh, multi_pod, device, max_len):
-    """A serving cell of the LM family on a production mesh: the steps
-    ``launch/serve.py`` runs there, on rank 0's blocks."""
+def _trace_serve_on_mesh(arch, shape, mesh, multi_pod, device, max_len,
+                         cache_spec):
+    """A serving cell on a production mesh: the steps ``launch/serve.py``
+    runs there, on rank 0's blocks."""
     profile = get_profile(arch.profile, multi_pod=multi_pod)
     kv_div = kv_divisible(arch.cfg, mesh)
     in_prof = input_profile(multi_pod=multi_pod, kv_divisible=kv_div,
@@ -217,7 +212,7 @@ def _trace_serve_on_mesh(arch, shape, mesh, multi_pod, device, max_len):
                                   cache_profile=in_prof)
         args = (params, batch)
     else:
-        cspec = arch.cache_spec(shape.global_batch, max_len)
+        cspec = cache_spec or arch.cache_spec(shape.global_batch, max_len)
         cache = _placed(abstract(cspec, device=device),
                         param_shardings(cspec, mesh, in_prof))
         cache["length"] = shape.seq_len - 1
@@ -271,12 +266,12 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
     record (the reference's ``lower_cell`` record, ``t_trace_s`` for its
     lowering and compile times, ``t_link_s`` / ``t_net_s`` for its
     ICI / DCN terms).  A production mesh runs inside a fake world of its
-    rank count; ``card`` needs none.  Serving cells of a family other
-    than the LM's come back ``skipped`` on a production mesh.  ``max_len``: the cache positions of a serving
-    cell (``shape.seq_len`` by default; a decode cell holds ``seq_len -
-    1`` tokens and decodes one); ``cache_spec``: a decode cell's cache spec
-    tree where ``arch.cache_spec`` is not the served one (whisper's cross
-    K/V at the prompt's frames, not the config's ``max_frames``)."""
+    rank count; ``card`` needs none.  ``max_len``: the cache positions of
+    a serving cell (``shape.seq_len`` by default; a decode cell holds
+    ``seq_len - 1`` tokens and decodes one); ``cache_spec``: a decode
+    cell's cache spec tree where ``arch.cache_spec`` is not the served one
+    (whisper's cross K/V at the prompt's frames, not the config's
+    ``max_frames``), on one card or placed by the input profile."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     _check_device(device)
@@ -285,8 +280,6 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
     dims, axes = MESHES[mesh]
     head = {"arch": arch.name, "shape": shape.name, "mesh": mesh,
             "profile": arch.profile, "kind": shape.kind, "device": device}
-    if mesh != "card" and shape.kind != "train" and not lm_family(arch):
-        return head | {"status": "skipped", "reason": SERVE_ON_MESH}
     spec = MeshSpec(shape=dims, axes=axes)
     t0 = time.perf_counter()
     with _world(mesh):
@@ -306,7 +299,7 @@ def trace_cell(arch: ArchDef, shape: ShapeSpec, *, mesh: str = "16x16",
             else:
                 step, args, info = _trace_serve_on_mesh(
                     arch, shape, dmesh, mesh == "2x16x16", device,
-                    max_len or shape.seq_len)
+                    max_len or shape.seq_len, cache_spec)
             t_setup = time.perf_counter() - t0
             axes = {} if dmesh is None else hlo_mod.mesh_axes(dmesh)
             trace = hlo_mod.analyze(step, *args, mesh_axes=axes)

@@ -17,18 +17,16 @@ and ``tokens``.  It runs on the card unless ``--device cpu`` is passed.
 config, ``--no-smoke`` its full one.  An encoder-only arch
 (``has_decoder`` false) is skipped, as the reference skips it.
 
-The LM family (``models/lm.py``) is served on a mesh, as the reference
-serves it: ``--mesh host`` is ``make_host_mesh(model=1)`` over the ranks
-of the process group (one process: a one-rank group of its own, NCCL on
-the card, gloo on the CPU, started and stopped here), ``single-pod`` and
+Every arch with a decoder is served on a mesh, as the reference serves
+it: ``--mesh host`` is ``make_host_mesh(model=1)`` over the ranks of the
+process group (one process: a one-rank group of its own, NCCL on the
+card, gloo on the CPU, started and stopped here), ``single-pod`` and
 ``multi-pod`` the ``(16, 16)`` and ``(2, 16, 16)`` production meshes,
 which raise on a world that is not 256 or 512 ranks.  The parameters are
-placed by ``param_shardings(..., ensure_model_axis=True)``, the prompt
-and the cache by the input profile, and the steps run tensor parallel
-under ``use_mesh_context`` (:func:`serve` with ``mesh``); rank 0 prints
-the JSON.  The other families (zamba2, whisper, xlstm) serve on the
-host mesh's ranks unsharded and raise on a production mesh (ROADMAP §1
-item 5c).
+placed by ``param_shardings(..., ensure_model_axis=True)`` under the
+arch's profile, the prompt and the cache by the input profile, and the
+steps run tensor parallel under ``use_mesh_context`` (:func:`serve` with
+``mesh``); rank 0 prints the JSON.
 
     python -m repro_torch.launch.serve --continuous [--requests 64] \\
         [--faults none|device_loss|slow_step|kv_corruption] [--device cuda]
@@ -57,7 +55,7 @@ from ..dist.sharding import (get_profile, input_profile, kv_divisible,
                              param_shardings, serving_profile,
                              use_mesh_context)
 from ..models.common import cast_params, materialize, tree_leaves, tree_map
-from ..train.steps import lm_family, make_prefill_step, make_serve_step
+from ..train.steps import make_prefill_step, make_serve_step
 from .mesh import make_host_mesh, make_production_mesh
 
 
@@ -140,8 +138,8 @@ def serve(arch: ArchDef, params, *, batch: int, prompt_len: int, gen: int,
     from ``seed`` (every array it draws), then ``gen`` greedy decode steps,
     on the device the parameters lie on, with a cache of ``prompt_len +
     gen + 8`` positions (the reference's).  The times run from a device
-    sync to a device sync.  On ``mesh`` (the LM family; ``params`` whole,
-    the same on every rank): each rank keeps its blocks of the parameters
+    sync to a device sync.  On ``mesh`` (``params`` whole, the same on
+    every rank): each rank keeps its blocks of the parameters
     and serves tensor parallel, the logits and tokens of the whole batch
     on every rank, the cache as DTensors."""
     device = tree_leaves(params)[0].device
@@ -249,10 +247,6 @@ def main(argv=None) -> int:
         return 0
     device = _device(args.device)
     multi_pod = args.mesh == "multi-pod"
-    if args.mesh != "host" and not lm_family(arch):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: serving {arch.name} on a mesh waits for "
-            f"ROADMAP §1 item 5c (the LM family is served)")
     started = not dist.is_initialized()
     try:
         mesh = (make_host_mesh(model=1, device=device.type)
@@ -263,8 +257,7 @@ def main(argv=None) -> int:
                                          device=device), arch.cfg.dtype)
         served = serve(arch, params, batch=args.batch,
                        prompt_len=args.prompt_len, gen=args.gen,
-                       seed=args.seed, mesh=mesh if lm_family(arch) else None,
-                       multi_pod=multi_pod)
+                       seed=args.seed, mesh=mesh, multi_pod=multi_pod)
         rank = dist.get_rank()
     finally:
         if started and dist.is_initialized():

@@ -232,24 +232,28 @@ def attention(p, cfg: AttnConfig, x, *, positions=None):
 
 
 def _to_heads(t, have: tuple[int, int, bool], want: tuple[int, int, bool],
-              mesh):
-    """``t`` (B, S, heads, hd) holding the heads ``have``, as the heads
-    ``want``: gathered over ``model`` where ``have`` is split and ``want``
-    reaches past it, then sliced."""
+              mesh, dim: int = 2):
+    """``t`` (B, S, heads, hd; the heads on ``dim``) holding the heads
+    ``have``, as the heads ``want``: gathered over ``model`` where
+    ``have`` is split and ``want`` reaches past it, then sliced."""
     if have[:2] == want[:2]:
         return t
     lo = have[0]
     if have[2] and not (have[0] <= want[0] and want[1] <= have[1]):
         from ..dist.collectives import all_gather
 
-        t, lo = all_gather(t, mesh, "model", 2), 0
-    return t[:, :, want[0] - lo:want[1] - lo]
+        t, lo = all_gather(t, mesh, "model", dim), 0
+    return t.narrow(dim, want[0] - lo, want[1] - want[0])
 
 
 def write_block(dst, kv, heads: tuple[int, int, bool]) -> None:
     """The part of a layer's prompt K or V (``kv`` (B_loc, S, heads, hd),
     holding the KV heads ``heads``) that the cache block ``dst``
-    (``LocalBlock`` (B_loc, S_blk, kvH_blk, hd)) holds, written into it."""
+    (``LocalBlock`` (B_loc, S_blk, kvH_blk, hd)) holds, written into it;
+    ``dst`` a tensor (B, S_max, kvH, hd): the layer's whole cache."""
+    if isinstance(dst, torch.Tensor):
+        dst[:, :kv.shape[1]] = kv
+        return
     kv = _to_heads(kv, heads, dst.block(2), dst.mesh)
     lo, hi, _ = dst.block(1)
     n = min(hi, kv.shape[1]) - lo
@@ -264,12 +268,10 @@ def _flash_decode(q, ck, cv, k_new, v_new, cache_len: int, offset: int, *,
     starts at position ``offset``: the rank whose block holds
     ``cache_len`` writes the new K and V there, then the local scores
     over the global columns, masked past ``cache_len``, and the softmax
-    completed by three all-reduces over ``axis`` (max, denominator,
-    numerator).  q holds every head; the cache is never repeated (the q
-    group rides along) and only the score and probability tiles are f32,
-    the probabilities rounded to the cache's dtype before ``p @ v``."""
-    from ..dist.collectives import all_reduce
-
+    completed over ``axis`` (:func:`_split_softmax`).  q holds every
+    head; the cache is never repeated (the q group rides along) and only
+    the score and probability tiles are f32, the probabilities rounded to
+    the cache's dtype before ``p @ v``."""
     s_loc = ck.shape[1]
     idx = cache_len - offset
     if 0 <= idx < s_loc:
@@ -281,13 +283,27 @@ def _flash_decode(q, ck, cv, k_new, v_new, cache_len: int, offset: int, *,
     s = torch.einsum("bkrd,bskd->bkrs", qg.float(), ck.float()) * scale
     cols = offset + torch.arange(s_loc, device=q.device)
     s = s.masked_fill(cols > cache_len, NEG_INF)
-    m = all_reduce(s.amax(dim=-1), mesh, axis, "max")        # (b,kvh,rep)
+    out = _split_softmax(s, cv, "bkrs,bskd->bkrd", mesh, axis, cv.dtype)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _split_softmax(s, v, pv: str, mesh, axis: str, p_dtype=None):
+    """The softmax of the scores ``s`` (f32 (..., S_loc), masked: this
+    rank's columns of rows split over ``axis``) applied to the rank's
+    values ``v``, completed by three all-reduces over ``axis``: the rows'
+    max, the denominator, and the numerator ``einsum(pv, p, v)`` in f32,
+    the probabilities ``p`` rounded to ``p_dtype`` first where given.
+    Returns the numerator over the denominator (f32, the rows' dims
+    first, as ``pv`` lays them out)."""
+    from ..dist.collectives import all_reduce
+
+    m = all_reduce(s.amax(dim=-1), mesh, axis, "max")
     pr = torch.exp(s - m[..., None])
     denom = all_reduce(pr.sum(dim=-1), mesh, axis)
-    num = torch.einsum("bkrs,bskd->bkrd", pr.to(cv.dtype).float(), cv.float())
-    num = all_reduce(num, mesh, axis)
-    out = (num / denom.clamp_min(1e-30)[..., None]).reshape(b, 1, h, d)
-    return out.to(q.dtype)
+    if p_dtype is not None:
+        pr = pr.to(p_dtype)
+    num = all_reduce(torch.einsum(pv, pr.float(), v.float()), mesh, axis)
+    return num / denom.clamp_min(1e-30)[..., None]
 
 
 def decode_attention(p, cfg: AttnConfig, x, cache_k, cache_v, cache_len: int):

@@ -12,13 +12,15 @@ On a mesh the serve steps hand each leaf over as the rank's block
 (``dist.collectives.LocalBlock``) and the layers compute on their
 blocks: :func:`weight` makes a leaf ready for use (a block gathered over
 the axes its use does not split), :func:`block` says which rows of a dim
-a rank holds, :func:`embed` looks its vocabulary block up and
+a rank holds, :func:`rows` takes a range of a dim from the block where
+it holds it, :func:`embed` looks its vocabulary block up and
 all-reduces, :func:`unembed` is column-parallel over the vocabulary with
-the logits all-gathered, :func:`swiglu` column- then row-parallel with
-one all-reduce.  The data-parallel train step gathers every parameter
-whole and passes tensors (tensor-parallel training is ROADMAP §1 item
-5c).  The dry-run's stand-ins are :func:`abstract`'s fake tensors
-(``launch/dryrun.py``).
+the logits all-gathered, :func:`swiglu` and :func:`gelu_mlp` column-
+then row-parallel with one all-reduce, :func:`rmsnorm` over a dim split
+across ranks all-reduces its sum of squares.  The data-parallel train
+step gathers every parameter whole and passes tensors (tensor-parallel
+training is ROADMAP §1 item 5c).  The dry-run's stand-ins are
+:func:`abstract`'s fake tensors (``launch/dryrun.py``).
 :func:`grad_barrier` is an identity (an XLA scheduling hint in the
 reference), and the forward leaves its calls out too.
 
@@ -101,6 +103,18 @@ def block(w, dim: int, axis: str = "model") -> tuple[int, int, bool]:
     if isinstance(w, torch.Tensor):
         return 0, w.shape[dim], False
     return w.block(dim, axis)
+
+
+def rows(w, lo: int, hi: int, dtype=None, *, dim: int = 0) -> torch.Tensor:
+    """Entries ``lo:hi`` of dim ``dim`` of a parameter leaf in ``dtype``:
+    from the rank's block where it holds them (:func:`weight` with
+    ``keep=dim``), else from the leaf gathered whole."""
+    wlo, whi, _ = block(w, dim)
+    if wlo <= lo and hi <= whi:
+        t = weight(w, dtype, keep=dim)
+    else:
+        t, wlo = weight(w, dtype), 0
+    return t.narrow(dim, lo - wlo, hi - lo)
 
 
 def _init_array(spec: ParamSpec, generator: torch.Generator, dtype, device):
@@ -234,14 +248,22 @@ def rmsnorm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), ("embed",), init="ones")
 
 
-def rmsnorm(w, x, eps: float = 1e-6):
+def rmsnorm(w, x, eps: float = 1e-6, *, split=None):
     """RMSNorm with the reference's rounding: the sum of squares in f32,
     the per-row rsqrt cast to the compute dtype, then ``w * (x * scale)``
-    in the compute dtype."""
+    in the compute dtype.  ``split`` ``(mesh, width)``: ``x`` holds a
+    block of a normalized dim of ``width`` split over ``model`` (``w``
+    the same block), its sum of squares all-reduced over the axis."""
     dt = x.dtype
     xf = x.float()
     ss = torch.einsum("...d,...d->...", xf, xf)[..., None]
-    scale = torch.rsqrt(ss / x.shape[-1] + eps).to(dt)
+    width = x.shape[-1]
+    if split is not None:
+        from ..dist.collectives import all_reduce
+
+        mesh, width = split
+        ss = all_reduce(ss, mesh, "model")
+    scale = torch.rsqrt(ss / width + eps).to(dt)
     return weight(w, dt) * (x * scale)
 
 
@@ -255,7 +277,8 @@ def layernorm(p, x, eps: float = 1e-5):
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, correction=0, keepdim=True)
-    return (p["scale"] * (xf - mu) * torch.rsqrt(var + eps) + p["bias"]).to(dt)
+    return (weight(p["scale"]) * (xf - mu) * torch.rsqrt(var + eps)
+            + weight(p["bias"])).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -366,9 +389,14 @@ def _gelu(x):
 
 
 def gelu_mlp(p, x):
-    h = x @ p["w_in"].to(x.dtype) + p["b_in"].to(x.dtype)
+    """On a mesh: the input product and its bias on the rank's ``mlp``
+    columns, the output product on the same rows all-reduced over
+    ``model``, then its bias."""
+    dt = x.dtype
+    lo, hi, split = block(p["w_in"], 1)
+    h = x @ weight(p["w_in"], dt, keep=1) + rows(p["b_in"], lo, hi, dt)
     h = _gelu(h)
-    return h @ p["w_out"].to(x.dtype) + p["b_out"].to(x.dtype)
+    return row_parallel(h, (lo, hi, split), p["w_out"], dt) + weight(p["b_out"], dt)
 
 
 # ---------------------------------------------------------------------------
@@ -405,11 +433,15 @@ def unembed_spec(d: int, vocab: int) -> ParamSpec:
     return ParamSpec((d, vocab), ("embed", "vocab"))
 
 
-def unembed(w, x):
-    """On a mesh: the rank's vocabulary columns, the logits all-gathered
-    over ``model`` (the reference's serve steps return them whole)."""
-    logits = x @ weight(w, x.dtype, keep=1)
-    if block(w, 1)[2]:
+def unembed(w, x, *, tied: bool = False):
+    """``x @ w`` (``w`` (d, vocab)), or with ``tied`` ``x @ w.T`` (``w``
+    the (vocab, d) embedding).  On a mesh: the rank's vocabulary columns,
+    the logits all-gathered over ``model`` (the reference's serve steps
+    return them whole)."""
+    vocab = 0 if tied else 1
+    wt = weight(w, x.dtype, keep=vocab)
+    logits = x @ (wt.t() if tied else wt)
+    if block(w, vocab)[2]:
         from ..dist.collectives import all_gather
 
         logits = all_gather(logits, w.mesh, "model", -1)

@@ -251,13 +251,9 @@ def prefill(params, cfg: LMConfig, batch, *, max_len: int | None = None,
         ks, vs = cache["k"], cache["v"]
     for i, p_l in enumerate(_layers(params, cfg)):
         h, (k, v), _ = remat(_layer, p_l, cfg, h, mode=cfg.remat)
-        if cache is None:
-            ks[i, :, :s] = k
-            vs[i, :, :s] = v
-        else:
-            heads = block(p_l["attn"]["wk"], 1)
-            write_block(ks[i], k, heads)
-            write_block(vs[i], v, heads)
+        heads = block(p_l["attn"]["wk"], 1)
+        write_block(ks[i], k, heads)
+        write_block(vs[i], v, heads)
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = logits_fn(params, cfg, h[:, -1:, :])
     return logits, {"k": ks, "v": vs, "length": s}

@@ -13,6 +13,17 @@ chunks; here a loop).  Decode is the single-step recurrence.  The state
 update and the decays run in f32; the depthwise causal conv frontend
 (kernel 4) on (x, B, C) and the gated RMSNorm output stage round where
 the reference rounds.
+
+On a mesh (:func:`mamba2_layer` on the rank's blocks, the serve steps
+of ``train/steps.py``) a rank computes its own heads, the block of
+``a_log``'s heads it holds: its heads' columns of ``z``, ``x`` and
+``dt`` and the shared ``B``, ``C`` (one group), their conv, the SSD on
+its heads, the gated RMSNorm with the sum of squares all-reduced over
+``model``, and ``out_proj`` row-parallel.  ``in_proj``'s columns split
+over ``model`` in contiguous blocks that straddle the segments ``z | x |
+B | C | dt``, so the rank gathers what it needs: for a prompt the weight
+(d x proj_out, the same bytes at any length), for a decode step (S == 1)
+the product's columns (B x proj_out a token).
 """
 from __future__ import annotations
 
@@ -21,7 +32,9 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, _silu, remat, rmsnorm
+from .attention import _to_heads
+from .common import (ParamSpec, _silu, block, remat, rmsnorm, row_parallel,
+                     rows, weight)
 
 
 @dataclass(frozen=True)
@@ -62,11 +75,6 @@ def mamba2_spec(cfg: Mamba2Config) -> dict:
         "norm": ParamSpec((di,), ("mamba_inner",), init="ones"),
         "out_proj": ParamSpec((di, d), ("mamba_inner", "embed")),
     }
-
-
-def _split_proj(cfg: Mamba2Config, zxbcdt):
-    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
-    return zxbcdt.split([di, di, g * n, g * n, cfg.n_heads], dim=-1)
 
 
 def _softplus(x):
@@ -157,47 +165,131 @@ def _ssd_chunked(cfg: Mamba2Config, x, bmat, cmat, dt, a_log):
     return torch.cat(ys, dim=1)[:, :s_orig], h_prev
 
 
+def _step(h_prev, x, bmat, cmat, dt, a_log):
+    """The single-step (decode) recurrence: y (B,1,H,P) in x's dtype and
+    the new state (B,H,N,P) f32 from ``h_prev`` (None: zeros), x
+    (B,1,H,P), bmat/cmat (B,1,G,N), dt (B,1,H) f32."""
+    bsz, _, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if h_prev is None:
+        h_prev = torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                             device=x.device)
+    a = torch.exp(a_log.float())
+    at = torch.exp(-dt[:, 0] * a)                            # (B,H)
+    hpg = h // g
+    bfull = bmat[:, 0].float().repeat_interleave(hpg, dim=1)
+    cfull = cmat[:, 0].float().repeat_interleave(hpg, dim=1)
+    contrib = (dt[:, 0, :, None] * bfull)[..., None] \
+        * x[:, 0].float()[:, :, None, :]                     # (B,H,N,P)
+    h_fin = at[..., None, None] * h_prev + contrib
+    y = torch.einsum("bhn,bhnp->bhp", cfull, h_fin)[:, None].to(x.dtype)
+    return y, h_fin
+
+
+def _mix(cfg: Mamba2Config, x, bmat, cmat, dt, a_log, d_skip, ssm_state):
+    """The SSD (chunked for a prompt, the recurrence for a step) on the
+    heads of x (B,S,H,P) and the skip: y (B,S,H*P) in x's dtype and the
+    final state."""
+    bsz, s, h, p = x.shape
+    if ssm_state is None and s > 1:
+        y, h_fin = _ssd_chunked(cfg, x, bmat, cmat, dt, a_log)
+    else:
+        y, h_fin = _step(ssm_state, x, bmat, cmat, dt, a_log)
+    y = y + (d_skip.float()[:, None] * x.float()).to(x.dtype)
+    return y.reshape(bsz, s, h * p), h_fin
+
+
+def _merged(ranges) -> list[tuple[int, int]]:
+    """``(start, stop)`` ranges in order, adjacent ones merged."""
+    out: list[tuple[int, int]] = []
+    for lo, hi in ranges:
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def _take(t, ranges, dim: int):
+    """The ranges of ``t``'s dim ``dim``, concatenated in order (one view
+    where they make one range)."""
+    parts = [t.narrow(dim, lo, hi - lo) for lo, hi in _merged(ranges)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
 def mamba2_layer(p, cfg: Mamba2Config, u, *, ssm_state=None, conv_state=None,
                  return_state: bool = False):
     """Full Mamba2 block.  u: (B, S, d_model).
 
-    Train/prefill: ``ssm_state``/``conv_state`` None.  Decode: S == 1 and
-    both states given; returns (out, (ssm_state, conv_state)) with
-    ``return_state``."""
+    ``ssm_state`` (B, H, N, P) f32 and ``conv_state`` (B, K-1, conv_dim):
+    None for a prompt or a first step, which start from zero states and
+    return new ones; else the states' slots (a prefill's zero), read where
+    S == 1 (a decode step) and written in place with the new states.
+    Returns (out, (ssm_state, conv_state)) with ``return_state``.
+
+    On a mesh ``p`` holds the rank's blocks (``dist.collectives.LocalBlock``),
+    u the rank's rows, and the rank computes the heads of its ``a_log``
+    block (module docstring); the slots are then this layer's cache
+    blocks, ``(B_loc, H_blk, N, P)`` and ``(B_loc, K-1, conv_blk)``."""
+    from ..dist.collectives import all_gather
+
     bsz, s, _ = u.shape
     dt_ = u.dtype
-    zxbcdt = u @ p["in_proj"].to(dt_)
-    z, x, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
-    xbc = torch.cat([x, bmat, cmat], dim=-1)
-    xbc, new_conv = _causal_conv(p["conv_w"].to(dt_), p["conv_b"].to(dt_),
-                                 xbc, state=conv_state)
-    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
-    x = xbc[..., :di].reshape(bsz, s, cfg.n_heads, cfg.head_dim)
-    bmat = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
-    cmat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
-    dt = _softplus(dt.float() + p["dt_bias"].float())
-
-    if ssm_state is None and s > 1:
-        y, h_fin = _ssd_chunked(cfg, x, bmat, cmat, dt, p["a_log"])
-    else:
-        # single-step (decode) recurrence
-        h_prev = (torch.zeros((bsz, cfg.n_heads, n, cfg.head_dim),
-                              dtype=torch.float32, device=u.device)
-                  if ssm_state is None else ssm_state)
-        a = torch.exp(p["a_log"].float())
-        at = torch.exp(-dt[:, 0] * a)                        # (B,H)
-        hpg = cfg.n_heads // g
-        bfull = bmat[:, 0].float().repeat_interleave(hpg, dim=1)
-        cfull = cmat[:, 0].float().repeat_interleave(hpg, dim=1)
-        contrib = (dt[:, 0, :, None] * bfull)[..., None] \
-            * x[:, 0].float()[:, :, None, :]                 # (B,H,N,P)
-        h_fin = at[..., None, None] * h_prev + contrib
-        y = torch.einsum("bhn,bhnp->bhp", cfull, h_fin)[:, None].to(dt_)
-
-    y = y + (p["d_skip"].float()[:, None] * x.float()).to(dt_)
-    y = y.reshape(bsz, s, di)
-    y = rmsnorm(p["norm"], y * _silu(z))
-    out = y @ p["out_proj"].to(dt_)
+    heads = hlo, hhi, split = block(p["a_log"], 0)
+    mesh = None if isinstance(p["a_log"], torch.Tensor) else p["a_log"].mesh
+    pd, di, g, n = cfg.head_dim, cfg.d_inner, cfg.n_groups, cfg.d_state
+    if split and g != 1:
+        raise ValueError(f"Mamba2 heads split over model share one group of "
+                         f"B and C; this config has {g}")
+    gn, xs = g * n, (hlo * pd, hhi * pd)        # the rank's x (and z) columns
+    hp = xs[1] - xs[0]
+    conv_cols = [xs, (di, di + 2 * gn)]
+    blocks = not isinstance(ssm_state, (torch.Tensor, type(None)))
+    h_prev = c_prev = None
+    if s == 1 and ssm_state is not None:
+        h_prev, c_prev = ssm_state, conv_state
+        if blocks:
+            h_prev = _to_heads(h_prev.tensor, h_prev.block(1), heads, mesh,
+                               dim=1)
+            c_prev = _take(c_prev.gathered(keep=0, axis=c_prev.sharding.spec[0]),
+                           conv_cols, -1)
+    cols = [xs, (di + xs[0], di + xs[1]), (2 * di, 2 * di + 2 * gn),
+            (2 * di + 2 * gn + hlo, 2 * di + 2 * gn + hhi)]
+    if s == 1:                                  # the product's columns
+        zxbcdt = u @ weight(p["in_proj"], dt_, keep=1)
+        if block(p["in_proj"], 1)[2]:
+            zxbcdt = all_gather(zxbcdt, mesh, "model", -1)
+        zxbcdt = _take(zxbcdt, cols, -1)
+    else:                                       # the weight's columns
+        zxbcdt = u @ _take(weight(p["in_proj"], dt_), cols, 1)
+    z, x, bmat, cmat, dt = zxbcdt.split([hp, hp, gn, gn, hhi - hlo], dim=-1)
+    xbc, new_conv = _causal_conv(_take(weight(p["conv_w"], dt_), conv_cols, 1),
+                                 _take(weight(p["conv_b"], dt_), conv_cols, 0),
+                                 torch.cat([x, bmat, cmat], dim=-1),
+                                 state=c_prev)
+    x = xbc[..., :hp].reshape(bsz, s, hhi - hlo, pd)
+    bmat = xbc[..., hp:hp + gn].reshape(bsz, s, g, n)
+    cmat = xbc[..., hp + gn:].reshape(bsz, s, g, n)
+    dt = _softplus(dt.float() + rows(p["dt_bias"], hlo, hhi).float())
+    y, h_fin = _mix(cfg, x, bmat, cmat, dt, rows(p["a_log"], hlo, hhi),
+                    rows(p["d_skip"], hlo, hhi), h_prev)
+    y = rmsnorm(rows(p["norm"], *xs), y * _silu(z),
+                split=(mesh, di) if split else None)
+    out = row_parallel(y, (*xs, split), p["out_proj"], dt_)
+    if blocks:
+        # the conv cache's block straddles the heads: its x columns gathered
+        x_all = new_conv[..., :hp]
+        if split:
+            x_all = all_gather(x_all, mesh, "model", -1)
+        conv_state.tensor.copy_(torch.cat([x_all, new_conv[..., hp:]], dim=-1)[
+            ..., conv_state.index[-1]])
+        ssm_state.tensor.copy_(_to_heads(h_fin, heads, ssm_state.block(1),
+                                         mesh, dim=1))
+    elif ssm_state is not None:
+        ssm_state.copy_(h_fin)
+        conv_state.copy_(new_conv)
+    if ssm_state is not None:
+        h_fin, new_conv = ssm_state, conv_state
     if return_state:
         return out, (h_fin, new_conv)
     return out

@@ -17,6 +17,18 @@ caches each layer's cross-attention K/V; :func:`decode_step` grows the
 self-attention cache a token at a time, in place.  The cache is
 ``{"self_k", "self_v", "cross_k", "cross_v": (L, B, S, H, hd), "length":
 int}`` with the length on the host.
+
+On a mesh (the serve steps of ``train/steps.py``) every leaf comes as the
+rank's block (``dist.collectives.LocalBlock``) and the layers compute on
+their blocks, as :mod:`.lm`'s do: the encoder on the rank's rows of the
+frames, the attention on the rank's heads (every head where they do not
+divide ``model``), the MLP column- then row-parallel, the tied
+vocabulary split in :func:`~.common.embed` and
+:func:`~.common.unembed`.  :func:`prefill` writes the blocks of the
+cache it is given; decode reads the self cache as :mod:`.attention`
+does (split by sequence under the context's ``cache_seq_axis``) and the
+cross cache by its own placement: split by heads, whole, or split by
+sequence, whose softmax is completed by three all-reduces.
 """
 from __future__ import annotations
 
@@ -29,14 +41,18 @@ from .attention import (
     AttnConfig,
     _chunked_attn,
     _dense_attn,
-    _out_proj,
+    _kv_for,
     _project,
+    _split_softmax,
+    _to_heads,
     attention,
     attn_spec,
     decode_attention,
+    write_block,
 )
 from .common import (
     ParamSpec,
+    block,
     embed,
     gelu_mlp,
     gelu_mlp_spec,
@@ -44,8 +60,10 @@ from .common import (
     layernorm_spec,
     masked_xent,
     remat,
+    row_parallel,
     unembed,
     unstack,
+    weight,
 )
 from .lm import _stack_spec, pad_vocab
 
@@ -162,20 +180,49 @@ def _cross_attention(p, cfg: WhisperConfig, x, enc_k, enc_v):
     """x: (B, Sq, d) decoder states attending to the encoder's K/V.
     Chunked (online softmax) under ``attn_impl="chunked"`` when Sq > 1,
     else dense, under ``"flash"`` too, as in the reference: the kernel
-    never takes the cross-attention."""
+    never takes the cross-attention.  On a mesh the q heads are the
+    rank's; ``enc_k``, ``enc_v`` are the K/V of the heads the rank's
+    ``wk`` gives (prefill) or the cross cache's blocks (decode:
+    :func:`_cross_decode`)."""
     dt = x.dtype
-    q = _project(x, p["wq"].to(dt))
+    q = _project(x, weight(p["wq"], dt, keep=1))
+    heads = block(p["wq"], 1)
+    if not isinstance(enc_k, torch.Tensor):
+        return _cross_decode(p, q, heads, enc_k, enc_v, dt)
+    enc_k, enc_v, _ = _kv_for(enc_k, enc_v, heads, block(p["wk"], 1), 1)
     if cfg.attn_impl == "chunked" and q.shape[1] > 1:
         out = _chunked_attn(q, enc_k, enc_v, causal=False, chunk=cfg.attn_chunk)
     else:
         out = _dense_attn(q, enc_k, enc_v, causal=False)
-    return _out_proj(out, p["wo"].to(dt))
+    return row_parallel(out, heads, p["wo"], dt)
+
+
+def _cross_decode(p, q, heads, ck, cv, dt):
+    """One token's cross-attention on the cross cache's blocks ``ck``,
+    ``cv`` (``LocalBlock`` (B, S_blk, H_blk, hd)): the q heads as the
+    cache's heads, dense where the cache holds its frames whole; where
+    they are split by sequence, the local scores and the softmax
+    completed over the axis (:func:`~.attention._split_softmax`), the
+    probabilities kept in f32 as the dense path keeps them."""
+    c_heads = ck.block(2)
+    q = _to_heads(q, heads, c_heads, ck.mesh)
+    axis = ck.sharding.spec[1]
+    if axis is None:
+        out = _dense_attn(q, ck.tensor, cv.tensor, causal=False)
+    else:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck.tensor.float()) * scale
+        out = _split_softmax(s, cv.tensor, "bhqk,bkhd->bhqd", ck.mesh,
+                            axis).transpose(1, 2).to(dt)
+    return row_parallel(out, c_heads, p["wo"], dt)
 
 
 def _enc_kv(p_l, cfg: WhisperConfig, enc_out):
+    """The cross-attention's K and V of the encoder states (on a mesh, of
+    the heads the rank's ``wk`` block gives)."""
     dt = enc_out.dtype
-    return (_project(enc_out, p_l["cross_attn"]["wk"].to(dt)),
-            _project(enc_out, p_l["cross_attn"]["wv"].to(dt)))
+    return (_project(enc_out, weight(p_l["cross_attn"]["wk"], dt, keep=1)),
+            _project(enc_out, weight(p_l["cross_attn"]["wv"], dt, keep=1)))
 
 
 def _dec_layer(p_l, cfg: WhisperConfig, h, enc_kv, *, self_cache=None,
@@ -199,10 +246,16 @@ def _dec_layer(p_l, cfg: WhisperConfig, h, enc_kv, *, self_cache=None,
 
 
 def _embed(params, cfg: WhisperConfig, tokens, start: int = 0):
-    """Token embeddings plus the learned positions ``start ..``."""
+    """Token embeddings plus the learned positions ``start ..`` (on a
+    mesh the positions' rows looked up as :func:`~.common.embed` looks
+    up tokens: the table may be split over ``model`` by its rows)."""
     s = tokens.shape[1]
     h = embed(params["dec"]["embedding"], tokens).to(cfg.dtype)
-    return h + params["dec"]["pos"][start:start + s].to(cfg.dtype)[None]
+    pos = params["dec"]["pos"]
+    if isinstance(pos, torch.Tensor):
+        return h + pos[start:start + s].to(cfg.dtype)[None]
+    at = torch.arange(start, start + s, device=h.device)
+    return h + embed(pos, at).to(cfg.dtype)[None]
 
 
 def decode_train(params, cfg: WhisperConfig, tokens, enc_out):
@@ -232,7 +285,7 @@ def loss_fn(params, cfg: WhisperConfig, batch):
 
 def _logits(params, cfg: WhisperConfig, h):
     """The tied unembedding: the decoder's embedding, transposed."""
-    return unembed(params["dec"]["embedding"].t(), h)
+    return unembed(params["dec"]["embedding"], h, tied=True)
 
 
 # ---------------------------------------------------------------------------
@@ -256,34 +309,38 @@ def cache_spec(cfg: WhisperConfig, batch: int, max_len: int,
     }
 
 
-def prefill(params, cfg: WhisperConfig, batch, *, max_len: int | None = None):
+def prefill(params, cfg: WhisperConfig, batch, *, max_len: int | None = None,
+            cache: dict | None = None):
     """Encode the frames, prefill the decoder on the prompt tokens; returns
     (last-token logits, cache).  The self-attention K/V go into a cache of
     ``max(max_len, S)`` positions, zero past the prompt (the reference's
-    right padding); the cross K/V keep the frames' length."""
+    right padding); the cross K/V keep the frames' length.  ``cache`` (a
+    mesh step's): the rank's zero blocks of the four K/V leaves, each
+    written with the part it holds (its rows, heads and positions)."""
     frames, tokens = batch["frames"], batch["tokens"]
     b, s = tokens.shape
     enc_out = encode(params, cfg, frames)
     h = _embed(params, cfg, tokens)
     dev = h.device
-    self_shape = (cfg.n_layers, b, max(s, max_len or 0), cfg.n_heads,
-                  cfg.head_dim_)
-    ks = torch.zeros(self_shape, dtype=cfg.dtype, device=dev)
-    vs = torch.zeros_like(ks)
-    cross_shape = (cfg.n_layers, b, enc_out.shape[1], cfg.n_heads,
-                   cfg.head_dim_)
-    cks = torch.empty(cross_shape, dtype=cfg.dtype, device=dev)
-    cvs = torch.empty_like(cks)
+    if cache is None:
+        self_shape = (cfg.n_layers, b, max(s, max_len or 0), cfg.n_heads,
+                      cfg.head_dim_)
+        cross_shape = (cfg.n_layers, b, enc_out.shape[1], cfg.n_heads,
+                       cfg.head_dim_)
+        cache = {"self_k": torch.zeros(self_shape, dtype=cfg.dtype, device=dev),
+                 "self_v": torch.zeros(self_shape, dtype=cfg.dtype, device=dev),
+                 "cross_k": torch.empty(cross_shape, dtype=cfg.dtype, device=dev),
+                 "cross_v": torch.empty(cross_shape, dtype=cfg.dtype, device=dev)}
     for i, p_l in enumerate(unstack(params["dec"]["layers"], cfg.n_layers)):
         enc_kv = _enc_kv(p_l, cfg, enc_out)
-        h, (k, v) = _dec_layer(p_l, cfg, h, enc_kv)
-        ks[i, :, :s] = k
-        vs[i, :, :s] = v
-        cks[i], cvs[i] = enc_kv
+        h, kv = _dec_layer(p_l, cfg, h, enc_kv)
+        for (name, attn), pair in ((("self", "self_attn"), kv),
+                                   (("cross", "cross_attn"), enc_kv)):
+            for t, leaf in zip(pair, (f"{name}_k", f"{name}_v")):
+                write_block(cache[leaf][i], t, block(p_l[attn]["wk"], 1))
     h = layernorm(params["dec"]["ln_f"], h, cfg.norm_eps)
     logits = _logits(params, cfg, h[:, -1:, :])
-    return logits, {"self_k": ks, "self_v": vs, "cross_k": cks,
-                    "cross_v": cvs, "length": s}
+    return logits, {**cache, "length": s}
 
 
 def decode_step(params, cfg: WhisperConfig, cache, batch):

@@ -19,6 +19,12 @@ state is f32; the projections run in the compute dtype.
 Both blocks follow the paper's pre-LN residual layout; the xlstm-125m
 config has d_ff = 0, so the feed-forward capacity lives inside the blocks
 (mLSTM: x2 up-projection; sLSTM: 4/3 gated MLP after the cell).
+
+On a mesh (the serve steps of ``train/steps.py``) each weight comes as
+the rank's block (``dist.collectives.LocalBlock``) and is gathered whole
+where it is used (:func:`~.common.weight`): the arch's ``dp_vocab``
+profile splits no block dim, so every rank computes its rows with every
+head.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, _gelu, _silu, remat
+from .common import ParamSpec, _gelu, _silu, remat, weight
 
 #: the sLSTM's gates, in the reference's order
 GATES = ("z", "i", "f", "o")
@@ -196,14 +202,14 @@ def _mlstm_project(p, cfg: XLSTMConfig, u):
     f_raw (B,S,H), in u's dtype."""
     b, s, _ = u.shape
     dt = u.dtype
-    x = u @ p["w_up"].to(dt)
-    z = u @ p["w_z"].to(dt)
+    x = u @ weight(p["w_up"], dt)
+    z = u @ weight(p["w_z"], dt)
     h, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["w_q"].to(dt)).reshape(b, s, h, hd)
-    k = (x @ p["w_k"].to(dt)).reshape(b, s, h, hd)
-    v = (x @ p["w_v"].to(dt)).reshape(b, s, h, hd)
-    i_raw = x @ p["w_i"].to(dt) + p["b_i"].to(dt)
-    f_raw = x @ p["w_f"].to(dt) + p["b_f"].to(dt)
+    q = (x @ weight(p["w_q"], dt)).reshape(b, s, h, hd)
+    k = (x @ weight(p["w_k"], dt)).reshape(b, s, h, hd)
+    v = (x @ weight(p["w_v"], dt)).reshape(b, s, h, hd)
+    i_raw = x @ weight(p["w_i"], dt) + weight(p["b_i"], dt)
+    f_raw = x @ weight(p["w_f"], dt) + weight(p["b_f"], dt)
     return z, (q, k, v, i_raw, f_raw)
 
 
@@ -216,7 +222,7 @@ def mlstm_block(p, cfg: XLSTMConfig, u, *, state=None, return_state=False):
                                          chunk=cfg.chunk)
     else:
         core, new_state = _mlstm_core(q, k, v, i_raw, f_raw, state=state)
-    out = (core.reshape(b, s, cfg.d_inner) * _silu(z)) @ p["w_down"].to(dt)
+    out = (core.reshape(b, s, cfg.d_inner) * _silu(z)) @ weight(p["w_down"], dt)
     if return_state:
         return out, new_state
     return out
@@ -253,7 +259,8 @@ def _slstm_core(p, cfg: XLSTMConfig, x, *, state=None):
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.s_head_dim
     dt = x.dtype
-    pre = torch.stack([(x @ p[f"w_{g}"].to(dt) + p[f"b_{g}"].to(dt)).float()
+    pre = torch.stack([(x @ weight(p[f"w_{g}"], dt)
+                        + weight(p[f"b_{g}"], dt)).float()
                        for g in GATES], 2).view(b, s, 4, h, hd)
     if state is None:
         c = torch.zeros((b, h, hd), device=x.device)
@@ -262,7 +269,8 @@ def _slstm_core(p, cfg: XLSTMConfig, x, *, state=None):
         m = torch.zeros((b, h, hd), device=x.device)
     else:
         c, n, hid, m = state
-    rw = torch.cat([p[f"r_{g}"].float() for g in GATES], -1)   # (H,hd,4hd)
+    rw = torch.cat([weight(p[f"r_{g}"], torch.float32) for g in GATES],
+                   -1)                                        # (H,hd,4hd)
     hs = []
     for t in range(s):
         rec = torch.einsum("bhk,hkj->bhj", hid, rw).reshape(b, h, 4, hd)
@@ -287,9 +295,9 @@ def slstm_block(p, cfg: XLSTMConfig, u, *, state=None, return_state=False):
     core, new_state = _slstm_core(p, cfg, u, state=state)
     # post gated MLP (factor 4/3)
     dt = u.dtype
-    g = core @ p["ff_gate"].to(dt)
-    up = core @ p["ff_up"].to(dt)
-    out = (_gelu(g) * up) @ p["ff_down"].to(dt)
+    g = core @ weight(p["ff_gate"], dt)
+    up = core @ weight(p["ff_up"], dt)
+    out = (_gelu(g) * up) @ weight(p["ff_down"], dt)
     if return_state:
         return out, new_state
     return out

@@ -12,7 +12,12 @@ matmul outputs too, as in :mod:`.lm` (the reference checkpoints it as
 ``"full"``: the same grads).  Decode carries
 per-layer recurrent states (the matrix memory of an mLSTM, the scalar cell
 of an sLSTM): O(1) a token.  The cache is ``{"layer_{i}": {...}, "length":
-int}`` with the length on the host.
+int}`` with the length on the host.  On a mesh (the serve steps of
+``train/steps.py``) each state leaf comes as the rank's block
+(``dist.collectives.LocalBlock``: its rows, and its heads where the input
+profile splits them over ``model``): a rank reads its rows' states with
+every head gathered, computes every head, and writes its block back in
+place.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from .common import (
     ParamSpec,
     embed,
+    tree_map,
     embedding_spec,
     masked_xent,
     remat,
@@ -169,32 +175,59 @@ def _state_dict(cfg: XLSTMLMConfig, i: int, st) -> dict:
     return {"c": c, "n": n, "m": m}
 
 
+def _rows_whole(leaf):
+    """A state leaf as the rank's rows with every head: a tensor as it
+    is, a block with its other dims gathered whole."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return leaf.gathered(keep=0, axis=leaf.sharding.spec[0])
+
+
 def _run_with_state(params, cfg: XLSTMLMConfig, tokens, cache):
     h = embed(params["embedding"], tokens).to(cfg.dtype)
     new_cache: dict = {}
     for i in range(cfg.n_layers):
         key = f"layer_{i}"
-        st = _state_tuple(cfg, i, cache.get(key) if cache else None)
+        entry = cache.get(key) if cache else None
+        st = _state_tuple(cfg, i, None if entry is None
+                          else tree_map(_rows_whole, entry))
         h, st = _block(params["layers"][key], cfg, i, h, state=st,
                        return_state=True)
         new_cache[key] = _state_dict(cfg, i, st)
     return rmsnorm(params["ln_f"], h, cfg.norm_eps), new_cache
 
 
-def prefill(params, cfg: XLSTMLMConfig, batch, *, max_len: int | None = None):
+def _written(blocks: dict, new_cache: dict) -> dict:
+    """The states of ``new_cache`` (the rank's rows, every head) written
+    into the part of them that the cache's blocks (``blocks``, a mesh
+    step's) hold, in place, and the blocks returned; ``new_cache``
+    itself without blocks."""
+    if blocks is None:
+        return new_cache
+    for key, entry in new_cache.items():
+        for k, t in entry.items():
+            dst = blocks[key][k]
+            dst.tensor.copy_(t[(slice(None), *dst.index[1:])])
+    return {k: v for k, v in blocks.items() if k != "length"}
+
+
+def prefill(params, cfg: XLSTMLMConfig, batch, *, max_len: int | None = None,
+            cache: dict | None = None):
     """Process the prompt; return (last-token logits, the states after it).
-    ``max_len`` is taken for the launcher's signature: the state is O(1)."""
+    ``max_len`` is taken for the launcher's signature: the state is O(1).
+    ``cache`` (a mesh step's): the rank's blocks of every state leaf,
+    written in place."""
     tokens = batch["tokens"]
-    h, cache = _run_with_state(params, cfg, tokens, None)
+    h, states = _run_with_state(params, cfg, tokens, None)
     logits = unembed(params["unembed"], h[:, -1:, :])
-    cache["length"] = tokens.shape[1]
-    return logits, cache
+    return logits, {**_written(cache, states), "length": tokens.shape[1]}
 
 
 def decode_step(params, cfg: XLSTMLMConfig, cache, batch):
     """One-token decode (each mLSTM on its recurrence, S = 1); returns the
-    logits and new states, ``length + 1``."""
-    h, new_cache = _run_with_state(params, cfg, batch["tokens"], cache)
+    logits and new states, ``length + 1`` (on a mesh the cache's blocks,
+    written in place)."""
+    h, states = _run_with_state(params, cfg, batch["tokens"], cache)
     logits = unembed(params["unembed"], h)
-    new_cache["length"] = cache["length"] + 1
-    return logits, new_cache
+    blocks = None if isinstance(cache["layer_0"]["c"], torch.Tensor) else cache
+    return logits, {**_written(blocks, states), "length": cache["length"] + 1}

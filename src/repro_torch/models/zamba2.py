@@ -13,6 +13,13 @@ Decode carries one SSM state and one conv state per Mamba layer and one
 KV cache per shared-block *application* (``n_shared`` of them, not
 ``n_layers``).  The cache is ``{"ssm", "conv", "k", "v", "length"}`` with
 the length a host int; :func:`decode_step` writes every state in place.
+
+On a mesh (the serve steps of ``train/steps.py``) every leaf and the
+cache come as the rank's blocks (``dist.collectives.LocalBlock``): each
+Mamba2 layer computes the rank's heads (:func:`.mamba2.mamba2_layer`),
+the shared block its attention heads and SwiGLU columns as :mod:`.lm`'s
+layers do, its per-application gain and LoRA read through
+:func:`~.common.weight`.
 """
 from __future__ import annotations
 
@@ -20,9 +27,11 @@ from dataclasses import dataclass
 
 import torch
 
-from .attention import AttnConfig, attention, attn_spec, decode_attention
+from .attention import (AttnConfig, attention, attn_spec, decode_attention,
+                        write_block)
 from .common import (
     ParamSpec,
+    block,
     embed,
     embedding_spec,
     masked_xent,
@@ -34,6 +43,7 @@ from .common import (
     unembed,
     unembed_spec,
     unstack,
+    weight,
 )
 from .lm import _stack_spec, pad_vocab
 from .mamba2 import Mamba2Config, mamba2_layer, mamba2_spec
@@ -128,14 +138,15 @@ def _apply_shared(ps, cfg: Zamba2Config, h, app_idx: int, *, cache=None,
     selects the per-use gain and LoRA.  Returns (h, (k, v)): this
     application's K, V (train/prefill), or the cache tensors, written in
     place at ``cache_len`` (decode)."""
-    x = rmsnorm(ps["ln_attn"], h, cfg.norm_eps) * ps["use_gain"][app_idx].to(h.dtype)
+    dt = h.dtype
+    x = rmsnorm(ps["ln_attn"], h, cfg.norm_eps) * weight(ps["use_gain"][app_idx], dt)
     if cache is None:
         a, kv = attention(ps["attn"], cfg.attn_cfg, x)
     else:
         a, ck, cv = decode_attention(ps["attn"], cfg.attn_cfg, x, *cache,
                                      cache_len)
         kv = (ck, cv)
-    a = a + (x @ ps["lora_a"][app_idx].to(h.dtype)) @ ps["lora_b"][app_idx].to(h.dtype)
+    a = a + (x @ weight(ps["lora_a"][app_idx], dt)) @ weight(ps["lora_b"][app_idx], dt)
     h = h + a
     h = h + swiglu(ps["mlp"], rmsnorm(ps["ln_ffn"], h, cfg.norm_eps))
     return h, kv
@@ -206,39 +217,45 @@ def cache_spec(cfg: Zamba2Config, batch: int, max_len: int) -> dict:
     }
 
 
-def prefill(params, cfg: Zamba2Config, batch, *, max_len: int | None = None):
+def prefill(params, cfg: Zamba2Config, batch, *, max_len: int | None = None,
+            cache: dict | None = None):
     """Process the prompt; return (last-token logits, decode cache).
 
     Each application's K/V is written into a cache of ``max(max_len, S)``
     positions, zero past the prompt (the reference's right padding); each
-    Mamba layer's final SSM and conv states into theirs."""
+    Mamba layer's final SSM and conv states into theirs.  ``cache`` (a
+    mesh step's): the rank's blocks of the four leaves, written in
+    place."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = embed(params["embedding"], tokens).to(cfg.dtype)
     ps = params["shared"]
     m = cfg.mamba_cfg
-    kv_shape = (cfg.n_shared, b, max(s, max_len or 0), cfg.n_kv_heads,
-                cfg.head_dim_)
-    ks = torch.zeros(kv_shape, dtype=cfg.dtype, device=h.device)
-    vs = torch.zeros_like(ks)
-    ssms = torch.empty((cfg.n_layers, b, m.n_heads, m.d_state, m.head_dim),
-                       dtype=torch.float32, device=h.device)
-    convs = torch.empty((cfg.n_layers, b, m.conv_kernel - 1, m.conv_dim),
-                        dtype=cfg.dtype, device=h.device)
+    if cache is None:
+        kv_shape = (cfg.n_shared, b, max(s, max_len or 0), cfg.n_kv_heads,
+                    cfg.head_dim_)
+        cache = {
+            "ssm": torch.zeros((cfg.n_layers, b, m.n_heads, m.d_state,
+                                m.head_dim), dtype=torch.float32,
+                               device=h.device),
+            "conv": torch.zeros((cfg.n_layers, b, m.conv_kernel - 1,
+                                 m.conv_dim), dtype=cfg.dtype, device=h.device),
+            "k": torch.zeros(kv_shape, dtype=cfg.dtype, device=h.device),
+            "v": torch.zeros(kv_shape, dtype=cfg.dtype, device=h.device)}
     app = 0
     for i, p_l in enumerate(unstack(params["layers"], cfg.n_layers)):
         if _fires(cfg, i):
             h, (k, v) = _apply_shared(ps, cfg, h, app)
-            ks[app, :, :s] = k
-            vs[app, :, :s] = v
+            heads = block(ps["attn"]["wk"], 1)
+            write_block(cache["k"][app], k, heads)
+            write_block(cache["v"][app], v, heads)
             app += 1
-        mixed, (ssms[i], convs[i]) = mamba2_layer(   # written in place
-            p_l["mamba"], m, rmsnorm(p_l["ln"], h, cfg.norm_eps),
-            return_state=True)
-        h = h + mixed
+        h = h + mamba2_layer(p_l["mamba"], m, rmsnorm(p_l["ln"], h, cfg.norm_eps),
+                             ssm_state=cache["ssm"][i],
+                             conv_state=cache["conv"][i])   # written in place
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = unembed(params["unembed"], h[:, -1:, :])
-    return logits, {"ssm": ssms, "conv": convs, "k": ks, "v": vs, "length": s}
+    return logits, {**cache, "length": s}
 
 
 def decode_step(params, cfg: Zamba2Config, cache, batch):
@@ -256,13 +273,10 @@ def decode_step(params, cfg: Zamba2Config, cache, batch):
                                  cache=(cache["k"][app], cache["v"][app]),
                                  cache_len=length)
             app += 1
-        mixed, (ssm, conv) = mamba2_layer(
-            p_l["mamba"], cfg.mamba_cfg, rmsnorm(p_l["ln"], h, cfg.norm_eps),
-            ssm_state=cache["ssm"][i], conv_state=cache["conv"][i],
-            return_state=True)
-        cache["ssm"][i] = ssm
-        cache["conv"][i] = conv
-        h = h + mixed
+        h = h + mamba2_layer(p_l["mamba"], cfg.mamba_cfg,
+                             rmsnorm(p_l["ln"], h, cfg.norm_eps),
+                             ssm_state=cache["ssm"][i],
+                             conv_state=cache["conv"][i])   # written in place
     h = rmsnorm(params["ln_f"], h, cfg.norm_eps)
     logits = unembed(params["unembed"], h)
     return logits, {**cache, "length": length + 1}

@@ -264,24 +264,10 @@ def make_sharded_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
     return train_step
 
 
-def lm_family(arch: ArchDef) -> bool:
-    """Whether ``arch`` is of the LM family (``models/lm.py``), whose
-    serve steps run tensor parallel on a mesh."""
-    from ..models import lm
-
-    return arch.spec_fn is lm.lm_spec
-
-
-def _tensor_parallel(arch: ArchDef, params) -> bool:
+def _tensor_parallel(params) -> bool:
     """Whether ``params`` are sharded DTensors: the steps then run tensor
-    parallel, for the LM family only."""
-    if not isinstance(tree_leaves(params)[0], DTensor):
-        return False
-    if not lm_family(arch):
-        raise NotImplementedError(
-            f"{arch.name}: serving on a mesh is ported for the LM family; "
-            f"the {arch.family} family waits for ROADMAP §1 item 5c")
-    return True
+    parallel."""
+    return isinstance(tree_leaves(params)[0], DTensor)
 
 
 def _blocks(arch: ArchDef, params, cast_once: bool):
@@ -307,6 +293,11 @@ def _placed(b) -> DTensor:
                               run_check=False)
 
 
+def _split_length(cache: dict) -> tuple[dict, object]:
+    """A cache tree without its host ``length``, and the length."""
+    return {k: v for k, v in cache.items() if k != "length"}, cache["length"]
+
+
 def _all_rows(logits, batch_entry, mesh):
     """The logits of every rank's rows, gathered over the batch axes (the
     reference's serve steps return them whole: ``out_shardings=None``)."""
@@ -315,23 +306,50 @@ def _all_rows(logits, batch_entry, mesh):
     return gather_entry(logits, mesh, batch_entry, 0)
 
 
+def _batch_leaf(arch: ArchDef) -> tuple[int, int]:
+    """``(leaf, dim)``: the first leaf of the arch's cache tree (its host
+    ``length`` left out) with a ``batch`` axis, and that axis's dim; its
+    placement places the batch's rows (every family's cache has one; a
+    decode's tokens may come as the rank's rows, with no placement)."""
+    axes = tree_leaves(tree_map(lambda s: s.axes,
+                                _split_length(arch.cache_spec(1, 1))[0]))
+    for i, ax in enumerate(axes):
+        if "batch" in ax:
+            return i, ax.index("batch")
+    raise ValueError(f"{arch.name}: no cache leaf has a batch axis")
+
+
+def _prefill_cache_spec(arch: ArchDef, batch: dict, max_len: int | None):
+    """The cache spec tree a prefill of ``batch`` fills: the arch's cache
+    at ``max(prompt, max_len)`` positions, whisper's cross K/V at the
+    frames the batch carries (not the config's ``max_frames``)."""
+    tokens = batch["tokens"]
+    prefix = batch.get("patch_embeds")
+    seq = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
+    kw = {"n_frames": batch["frames"].shape[1]} if "frames" in batch else {}
+    return arch.cache_spec_fn(arch.cfg, tokens.shape[0],
+                              max(seq, max_len or 0), **kw)
+
+
 def make_prefill_step(arch: ArchDef, *, max_len: int | None = None,
                       cast_once: bool = False, cache_profile=None) -> Callable:
     """``prefill_step(params, batch) -> (logits, cache)``.
 
-    On a mesh (tensor parallel, the LM family; run it under
-    ``dist.use_mesh_context``): ``params`` DTensors placed by
-    ``param_shardings(..., ensure_model_axis=True)``, ``batch`` DTensors
-    placed by the input profile ``cache_profile``
-    (``dist.sharding.input_profile``).  Each leaf's block is taken once
-    (``to_local()``), never gathered whole; the model computes on the
-    blocks and the rank's rows.  The cache comes back as DTensors placed
-    by ``param_shardings(arch.cache_spec(B, max_len), mesh,
-    cache_profile)`` with the host length, the logits of the whole batch
-    gathered (the reference's ``out_shardings=None``)."""
+    On a mesh (tensor parallel; run it under ``dist.use_mesh_context``):
+    ``params`` DTensors placed by ``param_shardings(...,
+    ensure_model_axis=True)``, ``batch`` DTensors placed by the input
+    profile ``cache_profile`` (``dist.sharding.input_profile``).  Each
+    leaf's block is taken once (``to_local()``), never gathered whole;
+    the model computes on the blocks and the rank's rows.  The cache is
+    the arch's whole cache tree (nested dicts kept), each leaf the rank's
+    zero block of its placement by ``param_shardings(cache_spec,
+    mesh, cache_profile)``, which the family's ``prefill(cache=)``
+    writes in place; it comes back as those DTensors with the host
+    length, the logits of the whole batch gathered (the reference's
+    ``out_shardings=None``)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        if not _tensor_parallel(arch, params):
+        if not _tensor_parallel(params):
             p = cast_params_for_compute(arch, params) if cast_once else params
             return arch.prefill(p, batch, max_len=max_len)
         from ..dist.collectives import LocalBlock, spec_of
@@ -345,50 +363,54 @@ def make_prefill_step(arch: ArchDef, *, max_len: int | None = None,
             raise TypeError("a prefill on a mesh takes the batch as DTensors "
                             "placed by the input profile")
         mesh = tokens.device_mesh
-        prefix = batch.get("patch_embeds")
-        seq = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
-        spec = arch.cache_spec(tokens.shape[0], max(seq, max_len or 0))
-        shardings = param_shardings(spec, mesh, cache_profile)
+        spec, _ = _split_length(_prefill_cache_spec(arch, batch, max_len))
         coord = mesh.get_coordinate()
-        cache = {}
-        for k in ("k", "v"):
-            shape = [sl.stop - sl.start for sl in
-                     shardings[k].index(coord, spec[k].shape)]
-            cache[k] = LocalBlock.at(torch.zeros(shape, dtype=spec[k].dtype,
-                                                 device=mesh_device(mesh)),
-                                     shardings[k], spec[k].shape)
+
+        def zero_block(s, sh):
+            shape = [sl.stop - sl.start for sl in sh.index(coord, s.shape)]
+            return LocalBlock.at(torch.zeros(shape, dtype=s.dtype,
+                                             device=mesh_device(mesh)),
+                                 sh, s.shape)
+        shardings = iter(tree_leaves(param_shardings(spec, mesh,
+                                                     cache_profile)))
+        cache = tree_map(lambda s: zero_block(s, next(shardings)), spec)
         logits, out = arch.prefill_fn(
             _blocks(arch, params, cast_once), arch.cfg,
             {k: _local(v) for k, v in batch.items()}, max_len=max_len,
             cache=cache)
         return (_all_rows(logits, spec_of(tokens)[0], mesh),
-                {"k": _placed(cache["k"]), "v": _placed(cache["v"]),
-                 "length": out["length"]})
+                {**tree_map(_placed, cache), "length": out["length"]})
     return prefill_step
 
 
 def make_serve_step(arch: ArchDef, *, cast_once: bool = False) -> Callable:
     """One batched decode step: ``serve_step(params, cache, batch)``.  On
-    a mesh (the LM family; under ``dist.use_mesh_context``, with its
-    ``cache_seq_axis`` where the cache is split by sequence): the
-    parameters and the cache DTensors as :func:`make_prefill_step` makes
-    them, ``batch`` the tokens (the rank's rows, or DTensors); the cache's
-    blocks are written in place and the logits of the whole batch
-    returned."""
+    a mesh (under ``dist.use_mesh_context``, with its ``cache_seq_axis``
+    where a cache is split by sequence): the parameters and the cache
+    DTensors as :func:`make_prefill_step` makes them, ``batch`` the tokens
+    (the rank's rows, or DTensors); every cache leaf is handed over as
+    the rank's block, which the family's decode writes in place, and the
+    logits of the whole batch are returned."""
+    batch_leaf = None       # (leaf, dim) of the batch's placement, found once
+
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        if not _tensor_parallel(arch, params):
+        nonlocal batch_leaf
+        if not _tensor_parallel(params):
             p = cast_params_for_compute(arch, params) if cast_once else params
             return arch.decode(p, cache, batch)
-        from ..dist.collectives import LocalBlock
+        from ..dist.collectives import LocalBlock, spec_of
 
-        blocks = {"k": LocalBlock.of(cache["k"]), "v": LocalBlock.of(cache["v"]),
-                  "length": cache["length"]}
+        leaves, length = _split_length(cache)
+        blocks = {**tree_map(LocalBlock.of, leaves), "length": length}
         logits, out = arch.decode(_blocks(arch, params, cast_once), blocks,
                                   {k: _local(v) for k, v in batch.items()})
-        k = blocks["k"]
-        return (_all_rows(logits, k.sharding.spec[1], k.mesh),
-                {"k": cache["k"], "v": cache["v"], "length": out["length"]})
+        if batch_leaf is None:
+            batch_leaf = _batch_leaf(arch)
+        leaf = tree_leaves(leaves)[batch_leaf[0]]
+        return (_all_rows(logits, spec_of(leaf)[batch_leaf[1]],
+                          leaf.device_mesh),
+                {**leaves, "length": out["length"]})
     return serve_step
 
 

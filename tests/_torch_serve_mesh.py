@@ -1,6 +1,7 @@
 """The port's serving on a mesh against the reference's sharded serve, for
-tests/test_torch_serve_mesh.py and test_torch_moe_mesh.py (pytest does
-not collect this module).
+tests/test_torch_serve_mesh.py, test_torch_moe_mesh.py and
+test_torch_serve_mesh_{zamba2,whisper,xlstm}.py (pytest does not collect
+this module).
 
 Both sides serve one smoke arch from the same parameters (the
 reference's ``materialize``, carried across in an ``.npz``) on the same
@@ -23,8 +24,10 @@ mesh shapes over four ranks:
 Each case is a prefill of ``BATCH x PROMPT`` then ``GEN`` decode steps:
 greedy in f32 (the tokens are compared), fed fixed tokens in bf16 (so the
 logits compare step by step).  The reference writes its logits, tokens
-and final caches; each port rank writes its logits, tokens and its
-blocks of the final caches with their indices.
+and every leaf of its final cache tree (``flat``'s paths: ``k``,
+``layer_0/c``, ...); each port rank writes its logits, tokens, its
+blocks of every final cache leaf with their indices, and the head count
+of each SSD call it made (a Mamba2 mixer's width on the rank).
 """
 import dataclasses
 import json
@@ -57,14 +60,16 @@ def fixed_tokens(vocab: int) -> np.ndarray:
                                              dtype=np.int32)
 
 
-def flat(tree, prefix=""):
+def flat(tree, prefix="", leaf=np.asarray):
+    """A tree of nested dicts as ``{"a/b": leaf(v)}``, keys in sorted
+    order."""
     out = {}
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
-            out.update(flat(v, f"{prefix}{k}/"))
+            out.update(flat(v, f"{prefix}{k}/", leaf))
         else:
-            out[f"{prefix}{k}"] = np.asarray(v)
+            out[f"{prefix}{k}"] = leaf(v)
     return out
 
 
@@ -152,8 +157,11 @@ def reference(name: str, impl, params_path: str, out_path: str,
                 tok = jnp.argmax(logits[:, -1, :arch.cfg.vocab], -1)[:, None]
                 toks.append(np.asarray(tok[:, 0]))
         out[f"{tag}/tokens"] = np.stack(toks, 1)
-        for k in ("k", "v"):
-            out[f"{tag}/cache_{k}"] = np.asarray(cache[k].astype(jnp.float32))
+        leaves = flat(jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)),
+                                   {k: v for k, v in cache.items()
+                                    if k != "length"}))
+        for key, v in leaves.items():
+            out[f"{tag}/cache/{key}"] = v
         out[f"{tag}/length"] = np.asarray(cache["length"])
     np.savez(out_path, **out)
 
@@ -199,13 +207,21 @@ def port_ranks(rank: int, name: str, impl, params_path: str, out: str,
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.convert import params_from_numpy
+    from repro_torch.dist.collectives import LocalBlock
     from repro_torch.dist.sharding import (get_profile, input_profile,
                                            kv_divisible, param_shardings,
                                            serving_profile, use_mesh_context)
+    from repro_torch.models import mamba2
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     full = params_from_numpy(unflat(dict(np.load(params_path))), device="cpu")
+    ssd, ssd_heads = mamba2._ssd_chunked, []
+
+    def counted_ssd(cfg, x, *args):
+        ssd_heads.append(x.shape[2])
+        return ssd(cfg, x, *args)
+    mamba2._ssd_chunked = counted_ssd
     res = {}
     for mesh_shape, dtype in cases:
         mesh_shape = tuple(mesh_shape)
@@ -234,7 +250,6 @@ def port_ranks(rank: int, name: str, impl, params_path: str, out: str,
                 arch, max_len=MAX_LEN, cache_profile=in_prof)(params, batch)
         tag = f"{mesh_shape[0]}x{mesh_shape[1]}_{dtype}"
         res[f"{tag}/prefill"] = logits.float().numpy()
-        coord = mesh.get_coordinate()
         tsh = bsh["tokens"]
         fixed = fixed_tokens(arch.cfg.vocab)
         tok = logits[:, -1, :arch.cfg.vocab].argmax(-1)[:, None]
@@ -245,20 +260,22 @@ def port_ranks(rank: int, name: str, impl, params_path: str, out: str,
                               cache_seq_axis=None if kv_div else "model"):
             for i in range(GEN):
                 fed = tok if dtype == "f32" else torch.as_tensor(fixed[i])
-                rows = fed[tsh.index(coord, fed.shape)[0]]
+                rows = fed[tsh.index(mesh.get_coordinate(), fed.shape)[0]]
                 logits, cache = step(params, cache, {"tokens": rows})
                 res[f"{tag}/step{i}"] = logits.float().numpy()
                 tok = logits[:, -1, :arch.cfg.vocab].argmax(-1)[:, None]
                 toks.append(tok[:, 0].numpy())
         res[f"{tag}/tokens"] = np.stack(toks, 1)
-        for k in ("k", "v"):
-            blk = cache[k]
-            res[f"{tag}/cache_{k}"] = blk.to_local().float().numpy()
-            sl = param_shardings(arch.cache_spec(BATCH, MAX_LEN), mesh,
-                                 in_prof)[k].index(coord, blk.shape)
-            res[f"{tag}/cache_{k}_index"] = np.array(
-                [[s.start, s.stop] for s in sl])
+        leaves = flat(tree_map(LocalBlock.of, {k: v for k, v in cache.items()
+                                               if k != "length"}),
+                      leaf=lambda b: b)
+        for key, blk in leaves.items():
+            res[f"{tag}/cache/{key}"] = blk.tensor.float().numpy()
+            res[f"{tag}/cache_index/{key}"] = np.array(
+                [[s.start, s.stop] for s in blk.index])
         res[f"{tag}/length"] = np.asarray(cache["length"])
+        res[f"{tag}/ssd_heads"] = np.array(ssd_heads, dtype=np.int64)
+        ssd_heads.clear()
     np.savez(f"{out}/rank{rank}.npz", **res)
 
 
@@ -267,10 +284,21 @@ ONE_RANK = (("internlm2-1.8b", None), ("granite-moe-1b-a400m", "shard_map"),
             ("qwen1.5-110b", None), ("pixtral-12b", None))
 
 
-def one_rank(rank: int, out: str) -> None:
-    """On a one-rank ``(1, 1)`` gloo mesh: each of ONE_RANK served through
+def _cache_leaves(cache) -> list:
+    """A served cache's leaves but its length, whole tensors, in tree
+    order."""
+    from repro_torch.models.common import tree_leaves
+
+    return [t.full_tensor() if hasattr(t, "full_tensor") else t
+            for t in tree_leaves({k: v for k, v in cache.items()
+                                  if k != "length"})]
+
+
+def one_rank(rank: int, out: str, archs=ONE_RANK) -> None:
+    """On a one-rank ``(1, 1)`` gloo mesh: each of ``archs`` served through
     ``launch/serve.py`` ``serve`` with and without the mesh, f32 and bf16;
-    writes whether the logits, tokens and caches are bit-equal."""
+    writes whether the logits, tokens and caches (every leaf) are
+    bit-equal."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -280,7 +308,7 @@ def one_rank(rank: int, out: str) -> None:
 
     mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
     res = {}
-    for name, impl in ONE_RANK:
+    for name, impl in archs:
         for dtype in (torch.float32, torch.bfloat16):
             arch = get_arch(name, smoke=True)
             arch = dataclasses.replace(arch, cfg=_cfg_replace(arch.cfg, dtype,
@@ -295,8 +323,8 @@ def one_rank(rank: int, out: str) -> None:
                     [a.prefill_logits, *a.step_logits],
                     [b.prefill_logits, *b.step_logits])),
                 "tokens": torch.equal(a.tokens, b.tokens),
-                "cache": all(torch.equal(a.cache[k], b.cache[k].full_tensor())
-                             for k in ("k", "v")),
+                "cache": all(torch.equal(x, y) for x, y in zip(
+                    _cache_leaves(a.cache), _cache_leaves(b.cache), strict=True)),
                 "length": a.cache["length"] == b.cache["length"]}
     with open(f"{out}/one_rank.json", "w") as f:
         json.dump(res, f)
@@ -355,7 +383,13 @@ def compare(ref: dict, ranks: list, cases) -> None:
                 assert (got[f"{tag}/tokens"] == ref[f"{tag}/tokens"]).all(), \
                     where
             assert int(got[f"{tag}/length"]) == int(ref[f"{tag}/length"])
-            for k in ("k", "v"):
-                idx = tuple(slice(a, b) for a, b in got[f"{tag}/cache_{k}_index"])
-                _close(got[f"{tag}/cache_{k}"], ref[f"{tag}/cache_{k}"][idx],
+            leaves = [k.split("/cache/", 1)[1] for k in ref
+                      if k.startswith(f"{tag}/cache/")]
+            assert leaves and sorted(leaves) == sorted(
+                k.split("/cache/", 1)[1] for k in got
+                if k.startswith(f"{tag}/cache/")), (where, leaves)
+            for k in leaves:
+                idx = tuple(slice(a, b) for a, b in
+                            got[f"{tag}/cache_index/{k}"])
+                _close(got[f"{tag}/cache/{k}"], ref[f"{tag}/cache/{k}"][idx],
                        tol, (where, k))

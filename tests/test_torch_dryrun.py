@@ -5,9 +5,10 @@ tensors, fake worlds of 256 and 512 ranks, ``--device cpu``.
   process (the world destroyed between them), its collectives by kind,
   mesh axis and group, the pod axis on the network; the roofline reader
   over the records; one-card cells whose traced FLOPs equal
-  ``FlopCounterMode`` on the real CPU step; a serving cell on a
-  production mesh skipped, naming item 5c; ``predict_table``'s
-  ``best_mesh``; ``--device cuda`` refused without a card.
+  ``FlopCounterMode`` on the real CPU step; a serving cell of a family
+  outside ``models/lm.py`` traced on a production mesh (zamba2's
+  ``decode_32k``); ``predict_table``'s ``best_mesh`` beside a cell the
+  reference skips; ``--device cuda`` refused without a card.
 
 The CLI at full width is ``tests/test_torch_dryrun_cli.py``.  Every fake
 world runs in a subprocess: a default process group left in
@@ -115,12 +116,22 @@ def test_card_cells_count_the_real_steps_flops(name, kind):
 
 
 def test_serving_cell_on_a_production_mesh_is_skipped():
-    """A serving cell of a family the mesh serving does not cover yet
-    (zamba2's hybrid) is skipped, naming item 5c; the LM family's are
-    traced (tests/test_torch_dryrun_serve.py)."""
-    rec = dryrun.trace_cell(get_arch("zamba2-1.2b"), SHAPES["decode_32k"],
-                            mesh="16x16", device="cpu")
-    assert rec["status"] == "skipped" and "5c" in rec["reason"]
+    """No serving cell is skipped for want of a port any more: zamba2's
+    hybrid ``decode_32k`` traces ``ok`` on the 256-rank world (in a
+    subprocess: a fake world needs a process of its own), its Mamba2
+    mixers and shared attention tensor parallel over ``model``.  Only the
+    reference's own skips stay (``test_run_cell_records_the_reference_skips``)."""
+    code = ("import json; from repro_torch.configs import SHAPES, get_arch; "
+            "from repro_torch.launch import dryrun; "
+            "rec = dryrun.trace_cell(get_arch('zamba2-1.2b'), "
+            "SHAPES['decode_32k'], mesh='16x16', device='cpu'); "
+            "rec.pop('memory'); print(json.dumps(rec))")
+    out = _run([sys.executable, "-c", code], timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok" and rec["fits_hbm"], rec
+    assert rec["local_rows"] == 8 and rec["kv_divisible"] is True
+    assert rec["collectives"]["ops_by_kind_axis_group"]["all-reduce/model/16"] > 0
 
 
 def test_run_cell_records_the_reference_skips(tmp_path):
@@ -135,13 +146,14 @@ def test_predict_table_carries_best_mesh():
     pred = dryrun.composed_step_s("internlm2-1.8b", SHAPES["decode_32k"], 1)
     rec = {"arch": "internlm2-1.8b", "shape": "decode_32k", "mesh": "card",
            "status": "ok", "ecm": {"t_ecm_s": pred}}
-    skipped = {"arch": "internlm2-1.8b", "shape": "decode_32k",
-               "mesh": "16x16", "status": "skipped",
-               "reason": dryrun.SERVE_ON_MESH}
+    ok, reason = get_arch("internlm2-1.8b").shape_supported(SHAPES["long_500k"])
+    skipped = {"arch": "internlm2-1.8b", "shape": "long_500k",
+               "mesh": "16x16", "status": "skipped", "reason": reason}
     rows = dryrun.predict_table([rec, skipped])
     assert rows[0]["ratio"] == 1.0 and rows[0]["agrees"]
     assert rows[0]["best_mesh"].startswith("dp1/")
-    assert rows[1]["status"] == "skipped" and "5c" in rows[1]["reason"]
+    assert not ok and rows[1]["status"] == "skipped"
+    assert "long_500k" in rows[1]["reason"]
     text = dryrun.format_predict_table(rows)
     assert "best_mesh" in text and "SKIPPED" in text
 
