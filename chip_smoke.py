@@ -212,9 +212,14 @@ against its plain PyTorch version.  Phases:
    injected at step 12 of 20, a fresh driver resumes from checkpoint 10;
    its losses and every state leaf bit-equal to an uninterrupted run's)
    and a one-rank NCCL mesh ``(1, 1)`` under ``tp_dp``
-   (``repro_torch.launch.mesh.make_host_mesh``): the driver on the mesh
-   bit-equal to the driver without one over three steps, at the smoke
-   config and at two layers at full width (f32); deterministic kernels;
+   (``repro_torch.launch.mesh.make_host_mesh``): the driver on the mesh,
+   whose step is tensor parallel on the rank's blocks (every collective
+   and its adjoint on the one-rank group), bit-equal to the driver
+   without one over three steps, at the smoke config and at two layers at
+   full width (f32); deterministic kernels; reported: phase 15's step
+   (full width and depth, B 8 x 4096, bf16, remat full) three times on
+   the mesh beside phase 15's step time without one, with the model's
+   collectives a step and their host time;
 17. the serving engine (``repro_torch.serve``): the reference's serving
    model (8 heads, 16 layers, d 128) in f32 and bf16, its ``BucketModel``
    on the card's data-sheet machine and then on phase 6's calibrated one
@@ -253,6 +258,12 @@ against its plain PyTorch version.  Phases:
    15's step and of that prefill, the traced ``t_ecm`` against phases
    15's and 18's measured device ms beside phase 18's composed ratio,
    and ``rank_meshes``' winner at 8 cards on the calibrated machine;
+   the 256-rank ``train_4k`` cell's tensor-parallel step against a data
+   group's 16 rows traced on one card (a child): its useful share
+   (``dryrun.useful_share``) at least 0.5 and its peak within the card's
+   memory, gated; its per-card TFLOP, GB gathered and all-reduced by
+   axis and peak reported beside the record of the step that gathered
+   every parameter whole (PERF.md §5);
 20. serving on a mesh (``launch/serve.py`` ``serve`` with ``mesh``, the
    tensor-parallel steps of ``train/steps.py``) on a one-rank NCCL mesh
    ``(1, 1)`` under the arch's profile, where every collective runs on
@@ -447,8 +458,9 @@ OPT_TIMED_CALLS = 3
 #: phase 6: the most of the card's power limit a visit of the power sweep
 #: may draw (its load is chosen to stay below it on every SM)
 POWER_MARGIN = 0.95
-#: phase 16: the driver's steps on the one-rank mesh and without one
-DRIVER_MESH_STEPS = 3
+#: phase 16: the driver's steps on the one-rank mesh and without one; the
+#: steps of phase 15's shape timed on the mesh
+DRIVER_MESH_STEPS, MESH_TRAIN_STEPS = 3, 3
 #: phase 17: the reference's serve bench settings (tests/test_serve.py:36-37)
 SERVE_INTERARRIVAL_S = 0.001
 SERVE_STEP_BUDGET_S = 0.001
@@ -463,11 +475,12 @@ COMPOSE_KINDS = {"attention": "flash_tile_ms", "matmul": "gemm_ms",
 TRAIN_STEP_MULT = 3.0
 #: phase 19: the one-card dry-run cells, traced on fake CUDA tensors in
 #: child processes that run at once (one tuple of ``(kind, arch)`` a
-#: child): phase 15's train step, and each served arch's prefill and one
-#: decode step at phase 18's shapes; the fake world's cell (the dry-run
+#: child): phase 15's train step, a data group's rows of the world's
+#: train cell, and each served arch's prefill and one decode step at
+#: phase 18's shapes; the fake world's cell (the dry-run
 #: CLI in its own child, 256 ranks); a child's time limit and the
 #: phase's aim (reported)
-DRYRUN_GROUPS = ((("train", TRAIN_ARCH),),
+DRYRUN_GROUPS = ((("train", TRAIN_ARCH),), (("train_rows", TRAIN_ARCH),),
                  (("prefill", "xlstm-125m"), ("decode", "xlstm-125m")),
                  (("prefill", "zamba2-1.2b"), ("decode", "zamba2-1.2b"),
                   ("prefill", "whisper-base"), ("decode", "whisper-base")),
@@ -475,6 +488,13 @@ DRYRUN_GROUPS = ((("train", TRAIN_ARCH),),
                   ("prefill", "granite-moe-1b-a400m"),
                   ("decode", "granite-moe-1b-a400m")))
 DRYRUN_WORLD = ("internlm2-1.8b", "train_4k")
+#: the world cell's data ranks (its ``train_rows`` cell traces one data
+#: group's rows on one card), and the record of the step that gathered
+#: every parameter whole for each rank (PERF.md §5: traced on the host of
+#: an H100 80GB HBM3, 700.00 W)
+DRYRUN_DATA_RANKS = 16
+DRYRUN_WORLD_WHOLE = {"tflop_per_card": 963.2, "useful_share": 0.048,
+                      "gathered_gb": 7.58, "peak_gb": 82.61}
 DRYRUN_CHILD_TIMEOUT_S, DRYRUN_AIM_S = 300, 90
 #: phase 20: serving on a one-rank NCCL mesh ``(1, 1)``: MESH_ARCH as
 #: phase 10 serves it (bf16, flash, MODEL_BATCH x MODEL_PROMPT,
@@ -2854,7 +2874,96 @@ def _trainer(arch, root: str, steps: int, mesh=None, hooks=None, *,
                    hooks=hooks, device="cuda")
 
 
-def _driver_phase() -> tuple[list[str], dict]:
+def _mesh_train_report(mesh, train: dict) -> tuple[list[str], dict]:
+    """Phase 16's report: phase 15's step (TRAIN_ARCH at full width and
+    depth, B TRAIN_BATCH x TRAIN_SEQ, bf16 compute, remat full, the
+    config's accumulation; a state drawn from SEED) MESH_TRAIN_STEPS
+    times on batch 0 on the one-rank ``mesh``, each step from a device
+    sync to a device sync, beside phase 15's median step without a mesh;
+    the model's collectives (``dist/collectives.py``'s sums, gathers and
+    reduce-scatters, forward and backward) counted and timed on the host
+    where each is issued.  The losses must be finite."""
+    import statistics
+
+    from repro_torch.data import ArchSyntheticDataset, shard_batch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import collectives, get_profile, param_shardings
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.train import init_state, make_train_step, state_spec
+
+    arch, opt = _train_arch(), AdamWConfig()
+    shardings = param_shardings(state_spec(arch, opt), mesh,
+                                get_profile(arch.profile))
+    leaves = iter(tree_leaves(init_state(
+        arch, torch.Generator(device="cuda").manual_seed(SEED), opt,
+        device="cuda")))
+    # a leaf placed by Shard on the one-rank axis is a copy: the drawn
+    # leaves go once placed
+    state = tree_map(lambda s: s.distribute(next(leaves)), shardings)
+    del leaves
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = shard_batch(ArchSyntheticDataset(arch, shape, seed=SEED).batch(0),
+                        mesh, ("data",))
+    step = make_train_step(arch, opt, constant(TRAIN_LR),
+                           accum=arch.train_accum, mesh=mesh,
+                           shardings=shardings)
+    issued = {"n": 0, "host_s": 0.0}
+    names = ("_sum", "_gather", "_scatter_sum")
+    originals = {n: getattr(collectives, n) for n in names}
+
+    def timed(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            issued["host_s"] += time.perf_counter() - t0
+            issued["n"] += 1
+            return out
+        return run
+
+    step_s, counts, host_s, losses = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for n in names:
+        setattr(collectives, n, timed(originals[n]))
+    try:
+        for _ in range(MESH_TRAIN_STEPS):
+            before = dict(issued)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            counts.append(issued["n"] - before["n"])
+            host_s.append(issued["host_s"] - before["host_s"])
+    finally:
+        for n in names:
+            setattr(collectives, n, originals[n])
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch, step
+    torch.cuda.empty_cache()
+    timed_s = statistics.median(step_s[1:])
+    without = train["summary"]["s_per_step"]
+    rec = {"card": _card_line(), "arch": arch.name, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "accum": arch.train_accum,
+           "dtype": str(arch.cfg.dtype), "remat": arch.cfg.remat,
+           "steps": MESH_TRAIN_STEPS, "step_s": step_s, "losses": losses,
+           "s_per_step": timed_s, "phase15_s_per_step": without,
+           "mesh_over_phase15": _ratio(timed_s, without),
+           "collectives_per_step": counts,
+           "collective_host_s_per_step": host_s,
+           "host_ms_per_collective": [1e3 * h / c if c else None
+                                      for h, c in zip(host_s, counts)],
+           "peak_bytes": peak,
+           "phase15_peak_bytes": train["summary"]["peak_bytes"]}
+    failures = []
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"driver mesh train step: losses {losses}")
+    return failures, rec
+
+
+def _driver_phase(train: dict) -> tuple[list[str], dict]:
     """Phase 16: the driver's crash and resume at the smoke config (a
     crash injected at step 12 of 20, a fresh driver resumes from
     checkpoint 10; its losses and every state leaf bit-equal to an
@@ -2863,7 +2972,9 @@ def _driver_phase() -> tuple[list[str], dict]:
     group): the driver on the mesh against ``mesh=None`` bit for bit over
     DRIVER_MESH_STEPS steps, at the smoke config and at GATE_LAYERS
     layers at full width (f32, TF32 off, B GATE_BATCH x GATE_SEQ).  All
-    under deterministic kernels; the group is destroyed at the end."""
+    under deterministic kernels.  Then phase 15's step on the mesh
+    (:func:`_mesh_train_report`, beside phase 15's record ``train``); the
+    group is destroyed at the end."""
     import torch.distributed as dist
 
     from repro_torch.benchmarks import gpu_compute_ecm as GC
@@ -2912,6 +3023,7 @@ def _driver_phase() -> tuple[list[str], dict]:
                                  DRIVER_MESH_STEPS, where,
                                  interval=DRIVER_MESH_STEPS + 1, **kw)
                     runs.append((t.run()["losses"], t.state))
+                    del t
             differ = _bit_equal(runs[1][1], runs[0][1])
             rec[f"mesh_{name}"] = {"losses": runs[1][0],
                                    "losses_equal": runs[0][0] == runs[1][0],
@@ -2922,6 +3034,14 @@ def _driver_phase() -> tuple[list[str], dict]:
                                 f"against mesh=None {runs[0][0]}")
             del runs
             torch.cuda.empty_cache()
+        try:
+            report_failures, rec["mesh_train_step"] = _mesh_train_report(
+                mesh, train)
+        except torch.OutOfMemoryError as e:
+            # the later phases still run; the run fails
+            report_failures = [f"driver mesh train step: {e}"]
+        torch.cuda.empty_cache()
+        failures += report_failures
     finally:
         dist.destroy_process_group()
     return failures, rec
@@ -3374,20 +3494,25 @@ def _compose_phase(prior, calibrated, models: dict, serve: dict
 
 def _dryrun_cell(kind: str, name: str):
     """``(arch, shape, kw)`` of a phase-19 cell (``kw``: ``trace_cell``'s
-    keywords): phase 15's train step at its configuration, or a served
+    keywords): phase 15's train step at its configuration, the world
+    cell's train step on one data group's rows (``train_rows``), or a served
     arch at phase 10-14's shapes: the prefill of MODEL_BATCH x
     MODEL_PROMPT tokens (whisper: WHISPER_FRAMES frames) with the
     launcher's cache (``prompt + gen + 8`` positions), attention on the
     flash op, and one decode step at phase 18's context (the prompt's
     tokens and MODEL_GEN) on that cache (whisper's cross K/V at the
     frames, as its prefill leaves them)."""
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import SHAPES, get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models import whisper
 
     if kind == "train":
         return (_train_arch(),
                 ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"), {})
+    if kind == "train_rows":
+        shape = SHAPES[DRYRUN_WORLD[1]]
+        return (_train_arch(), dataclasses.replace(
+            shape, global_batch=shape.global_batch // DRYRUN_DATA_RANKS), {})
     arch = get_arch(name)
     if hasattr(arch.cfg, "attn_impl"):
         arch = _variant(arch, attn_impl="flash")
@@ -3484,6 +3609,47 @@ def _flop_gate() -> tuple[list[str], dict]:
 
 def _ratio(num, den):
     return num / den if num and den else None
+
+
+def _world_train_gates(world: dict, rows: dict) -> tuple[list[str], dict]:
+    """The 256-rank ``train_4k`` cell's tensor-parallel step against a
+    data group's rows traced on one card: its useful share
+    (``dryrun.useful_share``) at least MESH_USEFUL_MIN and its peak
+    within the card's memory, gated; its per-card TFLOP, the GB each kind
+    of collective moves over each mesh axis (output bytes) and its peak
+    reported beside DRYRUN_WORLD_WHOLE."""
+    from repro_torch.launch import dryrun
+
+    by_axis: dict[str, float] = {}
+    for key, n in world["collectives"]["ops_by_kind_axis_bytes"].items():
+        kind, axis, nbytes = key.rsplit("/", 2)
+        k = f"{kind.split('.')[0]}/{axis}"
+        by_axis[k] = by_axis.get(k, 0.0) + n * int(nbytes) / 1e9
+    share = dryrun.useful_share(world, rows, DRYRUN_DATA_RANKS)
+    rec = {"card": _card_line(), "useful_share": share,
+           "tflop_per_card": world["cost"]["flops_per_chip"] / 1e12,
+           "rows_tflop_one_card": rows["cost"]["flops_per_chip"] / 1e12,
+           "gb_by_kind_axis": by_axis,
+           "gathered_gb": sum(v for k, v in by_axis.items()
+                              if k.startswith("all-gather/")),
+           "peak_gb": world["peak_bytes_per_chip"] / 1e9,
+           "capacity_gb": world["capacity_bytes"] / 1e9,
+           "fits_hbm": world["fits_hbm"],
+           "ops_by_kind_axis_group": world["collectives"][
+               "ops_by_kind_axis_group"],
+           "t_link_ms": world["ecm"]["t_link_s"] * 1e3,
+           "t_trace_s": {"world": world["t_trace_s"],
+                         "rows": rows["t_trace_s"]},
+           "gathered_whole": DRYRUN_WORLD_WHOLE}
+    failures = []
+    if share < MESH_USEFUL_MIN:
+        failures.append(f"dry-run world train_4k: useful share {share} < "
+                        f"{MESH_USEFUL_MIN}")
+    if not world["fits_hbm"]:
+        failures.append(f"dry-run world train_4k: peak "
+                        f"{world['peak_bytes_per_chip']} B over the card's "
+                        f"{world['capacity_bytes']}")
+    return failures, rec
 
 
 def _dryrun_phase(calibrated, models: dict, composed: dict
@@ -3598,6 +3764,9 @@ def _dryrun_phase(calibrated, models: dict, composed: dict
         "mesh", "profile", "t_step_us", "t_link_us", "n_saturation",
         "parallel_efficiency", "hbm_bytes_per_chip", "fits_hbm", "block")}
     rec["world"] = traced[("world", arch_name)]
+    world_failures, rec["world_train"] = _world_train_gates(
+        rec["world"], traced[("train_rows", TRAIN_ARCH)])
+    failures += world_failures
     rec["t_trace_s"] = {f"{k[0]} {k[1]}": r["t_trace_s"]
                         for k, r in traced.items()}
     rec["s"] = time.perf_counter() - t0
@@ -4373,7 +4542,7 @@ def main() -> int:
     # 16. the driver: the full-width run's step times (phase 15), the
     # restart and the one-rank NCCL mesh
     t_path = time.perf_counter()
-    driver_failures, driver = _driver_phase()
+    driver_failures, driver = _driver_phase(train)
     model_s["driver"] = time.perf_counter() - t_path
     print(json.dumps({"phase": "16 driver", "full_width": train["driver"]}
                      | driver | {"s": model_s["driver"]}))

@@ -3,16 +3,39 @@
 The state lives sharded at rest, each leaf a DTensor on its
 :class:`~repro_torch.dist.sharding.NamedSharding`.
 
-*The data-parallel train step.*  Every rank computes the step on its own
-batch rows with every parameter gathered whole, so the ``model`` axis
-shards storage only: the model ranks of one data group compute the same
-step on the same rows (tensor-parallel training is ROADMAP §1 item 5c).
-:class:`DataParallel` holds what that needs:
+*The train step* (``train/steps.py`` ``make_sharded_train_step``) and
+*the serve steps* (``make_prefill_step``, ``make_serve_step`` on a mesh)
+hand the model each parameter and cache leaf as a :class:`LocalBlock`:
+the rank's block (one ``to_local()`` a leaf a step) with the spec that
+placed it.  The model computes on its blocks, Megatron style, with the
+helpers below: ``_c10d_functional`` ops on the groups of the mesh's
+axes, which ``core/hlo.py`` traces with their mesh axis, as the
+reference's ``shard_map`` names its ``psum``s: :func:`all_reduce` (sum,
+max), :func:`all_gather` along a dim, and :meth:`LocalBlock.block`, the
+rank's block of a dim (``NamedSharding.index``).  A weight sharded over
+an axis the computation does not split is gathered over it where it is
+used (:meth:`LocalBlock.gathered`), layer by layer, the way GSPMD
+gathers it.  On a mesh whose axes all have size 1 the collectives are
+still dispatched; a one-rank group returns the same bits.
 
-* :meth:`~DataParallel.reduce_grad`: a rank's gradient as
-  ``Partial("avg")`` over the batch axes, redistributed onto the leaf's
-  placements (a reduce-scatter where the leaf is sharded over a batch
-  axis, an all-reduce where it is not; a local slice over the others);
+*Gradients.*  The sum and the gather are differentiable, each backward
+its forward's exact adjoint: the sum's is the sum of the cotangents,
+the gather's the reduce-scatter (sum) of the cotangent along the
+gathered dim.  Read the train step's loss as ``1 / n`` times the sum,
+over the mesh's ``n`` ranks, of each rank's copy of its loss: each rank
+seeds its backward with ``1 / n`` (:attr:`DataParallel.share`), the
+adjoints carry every cross-rank term, and the gradient of a leaf's block
+is finished by summing over the axes that replicate the leaf
+(:meth:`DataParallel.reduce_grad`).  No layer needs to know whether an
+activation is replicated or a rank's partial term.  A ``max`` has no
+such adjoint here and refuses a tensor that requires grad.
+
+:class:`DataParallel` holds the rest of the sharded step:
+
+* :meth:`~DataParallel.reduce_grad`: a rank's gradient of its block
+  summed over the mesh dims that replicate the leaf, the leaf's local
+  shard (over a dim that shards it the gather's adjoint has summed
+  already);
 * :meth:`~DataParallel.global_norm`: the clipping norm over sharded
   leaves, each element counted once however often its leaf is
   replicated;
@@ -22,23 +45,9 @@ step on the same rows (tensor-parallel training is ROADMAP §1 item 5c).
   mask counts of every rank's micro-batches, and the metrics averaged
   over the batch axes.
 
-On a mesh whose every dim has size 1 each of these is the identity, bit
-for bit.
-
-*The tensor-parallel serve steps* (``train/steps.py``
-``make_prefill_step``, ``make_serve_step`` on a mesh) hand the model each
-parameter and cache leaf as a :class:`LocalBlock`: the rank's block
-(one ``to_local()`` a leaf a step) with the spec that placed it.  The
-model computes on its blocks, Megatron style, with the helpers below:
-``_c10d_functional`` ops on the groups of the mesh's axes, which
-``core/hlo.py`` traces with their mesh axis, as the reference's
-``shard_map`` names its ``psum``s: :func:`all_reduce` (sum, max),
-:func:`all_gather` along a dim, and :meth:`LocalBlock.block`, the rank's
-block of a dim (``NamedSharding.index``).  A weight sharded over an axis
-the computation does not split is gathered over it where it is used
-(:meth:`LocalBlock.gathered`), layer by layer, the way GSPMD gathers it.
-On a mesh whose axes all have size 1 the collectives are still
-dispatched; a one-rank group returns the same bits.
+These exchanges of counts, norms, absmaxes and metrics carry no
+gradient.  On a mesh whose every dim has size 1 each of these is the
+identity, bit for bit.
 """
 from __future__ import annotations
 
@@ -81,6 +90,9 @@ class DataParallel:
         self._gathered = [Shard(0) if d in self.batch_dims else Replicate()
                           for d in range(len(names))]
         self.placements = [s.placements() for s in tree_leaves(param_shardings)]
+        #: each rank's share of the step's mean loss: the seed of its
+        #: backward (1.0 on a one-rank mesh)
+        self.share = 1.0 / mesh.size()
 
     def _dtensor(self, local, placements):
         from torch.distributed.tensor import DTensor
@@ -88,10 +100,19 @@ class DataParallel:
         return DTensor.from_local(local, self.mesh, placements, run_check=False)
 
     def reduce_grad(self, grad: torch.Tensor, index: int) -> torch.Tensor:
-        """The rank's gradient of parameter leaf ``index`` averaged over
-        the data ranks, as that leaf's local shard."""
-        return self._dtensor(grad, self._partial).redistribute(
-            self.mesh, self.placements[index]).to_local()
+        """The gradient of parameter leaf ``index`` as that leaf's local
+        shard, from the rank's gradient of its block (a backward seeded
+        with :attr:`share`): summed over the mesh dims of more than one
+        rank that replicate the leaf, which averages it over the batch
+        axes too (the seed's ``1 / n``).  A dim that shards the leaf
+        needs no sum: each rank's block has its whole gradient, summed by
+        the gather's adjoint where the block was gathered for its use."""
+        from torch.distributed.tensor import Replicate
+
+        for d, p in enumerate(self.placements[index]):
+            if isinstance(p, Replicate) and self.shape[d] > 1:
+                grad = _sum(grad, self.mesh.get_group(d))
+        return grad
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` averaged over the batch axes, on every rank."""
@@ -141,7 +162,7 @@ class DataParallel:
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel serving: the axis collectives and a rank's blocks
+# Tensor parallel: the axis collectives, their adjoints, a rank's blocks
 # ---------------------------------------------------------------------------
 
 
@@ -150,33 +171,99 @@ def axis_group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
+def _wide(x: torch.Tensor, group) -> bool:
+    """Whether a sum of ``x`` over ``group`` is taken in f32: a floating
+    dtype narrower than f32 over more than one rank."""
+    return (x.is_floating_point() and group.size() > 1
+            and torch.finfo(x.dtype).bits < 32)
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``; a narrow float's sum in f32, rounded
+    once (:func:`all_reduce`)."""
+    fc = torch.ops._c10d_functional
+    wide = _wide(x, group)
+    out = fc.wait_tensor(fc.all_reduce(
+        x.float() if wide else x.contiguous(), "sum", group.group_name))
+    return out.to(x.dtype) if wide else out
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` over ``group`` concatenated along ``dim``."""
+    n = group.size()
+    fc = torch.ops._c10d_functional
+    out = fc.wait_tensor(fc.all_gather_into_tensor(x.contiguous(), n,
+                                                   group.group_name))
+    if n > 1 and dim % x.ndim:
+        out = torch.cat(out.chunk(n, dim=0), dim=dim)
+    return out
+
+
+def _scatter_sum(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """:func:`_gather`'s adjoint: ``g`` summed over ``group`` and this
+    rank's block of ``dim`` kept (a reduce-scatter; a narrow float's sum
+    in f32, rounded once)."""
+    n = group.size()
+    if n > 1 and dim % g.ndim:
+        g = torch.cat(g.chunk(n, dim=dim), dim=0)
+    fc = torch.ops._c10d_functional
+    wide = _wide(g, group)
+    out = fc.wait_tensor(fc.reduce_scatter_tensor(
+        (g.float() if wide else g).contiguous(), "sum", n, group.group_name))
+    return out.to(g.dtype) if wide else out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a group; its adjoint is the sum of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The gather along a dim; its adjoint is the reduce-scatter (sum)
+    along that dim."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
 def all_reduce(x: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tensor:
     """``x`` reduced (``"sum"`` or ``"max"``) over ``mesh``'s ``axis``.  A
     sum of a floating dtype narrower than f32 over more than one rank is
     taken in f32 and rounded once, as XLA's all-reduce of bf16 partials
     on the host is: a ring's adds in the narrow dtype would round after
     each, in an order that depends on the rank.  (On one rank the sum is
-    ``x`` in either dtype.)"""
+    ``x`` in either dtype.)  The sum is differentiable (its backward the
+    same sum of the cotangents, by the same rule); a ``max`` of a tensor
+    that requires grad raises ``ValueError``."""
     group = axis_group(mesh, axis)
+    if op == "sum":
+        return _AllReduceSum.apply(x, group)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(f"all_reduce {op!r} over {axis!r} has no gradient: "
+                         f"reduce a tensor that requires none")
     fc = torch.ops._c10d_functional
-    wide = (op == "sum" and x.is_floating_point() and group.size() > 1
-            and torch.finfo(x.dtype).bits < 32)
-    out = fc.wait_tensor(fc.all_reduce(x.float() if wide else x, op,
-                                       group.group_name))
-    return out.to(x.dtype) if wide else out
+    return fc.wait_tensor(fc.all_reduce(x, op, group.group_name))
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """The blocks of ``x`` over ``mesh``'s ``axis`` concatenated along
-    ``dim``, in the axis's order."""
-    group = axis_group(mesh, axis)
-    n = group.size()
-    fc = torch.ops._c10d_functional
-    out = fc.wait_tensor(fc.all_gather_into_tensor(x.contiguous(), n,
-                                                   group.group_name))
-    if dim % x.ndim:
-        out = torch.cat(out.chunk(n, dim=0), dim=dim)
-    return out
+    ``dim``, in the axis's order.  Differentiable: the backward
+    reduce-scatters (sums) the cotangent along ``dim``."""
+    return _AllGather.apply(x, axis_group(mesh, axis), dim)
 
 
 def gather_entry(x: torch.Tensor, mesh, entry, dim: int) -> torch.Tensor:

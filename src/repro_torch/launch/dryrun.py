@@ -16,9 +16,13 @@ The step traced is the one the port runs there:
 
 * *train* cells on a production mesh go through ``train/steps.py``
   ``make_sharded_train_step`` on a state sharded by ``param_shardings``
-  with the rank's rows of the batch; that step gathers every parameter
-  whole (tensor-parallel training is ROADMAP §1 item 5c), and the record
-  shows those gathers;
+  with the rank's rows of the batch, tensor parallel: each rank
+  computes on its parameter blocks, a weight gathered over an axis its
+  use does not split at that use, layer by layer, and each gather's
+  adjoint (a reduce-scatter) and each sum's (a sum) in the backward; the
+  record shows those collectives by kind and mesh axis, and
+  :func:`useful_share` against the cell of a data group's rows on one
+  card reads how little of the step the model ranks repeat;
 * *prefill* and *decode* cells on a production mesh trace
   ``make_prefill_step`` and ``make_serve_step`` tensor parallel, as
   ``launch/serve.py`` serves on a mesh: the parameters cast to the

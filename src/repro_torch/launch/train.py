@@ -13,8 +13,9 @@ cpu`` is passed, and raises without one.  ``--mesh host`` builds a mesh
 over the ranks of the process group (one process: a one-rank group of
 its own, NCCL on the card, gloo on the CPU; under ``torchrun``, its
 ranks); ``single-pod`` and ``multi-pod`` need a world of 256 or 512 ranks
-and raise on any other.  The ``model`` axis shards the state's storage
-only (tensor-parallel training is ROADMAP §1 item 5c).  ``--smoke`` (the
+and raise on any other.  On the mesh the step is tensor parallel over
+``model`` and data parallel over the batch axes (``train/steps.py``
+``make_sharded_train_step``).  ``--smoke`` (the
 default, as in the reference) takes the arch's reduced config,
 ``--no-smoke`` its full one.
 """

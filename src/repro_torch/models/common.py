@@ -8,18 +8,16 @@ takes and returns tensors of the reference's shapes and dtypes, and
 rounds where the reference rounds.  The reference's activation
 annotations (``shard_annotate``, ``set_activation_rules``) have nothing
 to act on in eager PyTorch: the port's forward leaves their calls out.
-On a mesh the serve steps hand each leaf over as the rank's block
-(``dist.collectives.LocalBlock``) and the layers compute on their
-blocks: :func:`weight` makes a leaf ready for use (a block gathered over
+On a mesh the train and serve steps hand each leaf over as the rank's
+block (``dist.collectives.LocalBlock``) and the layers compute on their
+blocks, under autograd too (each collective's backward its adjoint): :func:`weight` makes a leaf ready for use (a block gathered over
 the axes its use does not split), :func:`block` says which rows of a dim
 a rank holds, :func:`rows` takes a range of a dim from the block where
 it holds it, :func:`embed` looks its vocabulary block up and
 all-reduces, :func:`unembed` is column-parallel over the vocabulary with
 the logits all-gathered, :func:`swiglu` and :func:`gelu_mlp` column-
 then row-parallel with one all-reduce, :func:`rmsnorm` over a dim split
-across ranks all-reduces its sum of squares.  The data-parallel train
-step gathers every parameter whole and passes tensors (tensor-parallel
-training is ROADMAP §1 item 5c).  The dry-run's stand-ins are
+across ranks all-reduces its sum of squares.  The dry-run's stand-ins are
 :func:`abstract`'s fake tensors (``launch/dryrun.py``).
 :func:`grad_barrier` is an identity (an XLA scheduling hint in the
 reference), and the forward leaves its calls out too.
@@ -195,6 +193,8 @@ def _requires_grad(tree) -> bool:
         return any(_requires_grad(v) for v in tree.values())
     if isinstance(tree, (tuple, list)):
         return any(_requires_grad(v) for v in tree)
+    # a rank's block (``LocalBlock``) counts by its tensor
+    tree = getattr(tree, "tensor", tree)
     return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
@@ -230,7 +230,8 @@ def remat(fn, *args, mode: str = "full"):
     (the reference's ``checkpoint_dots``), ``"none"`` is a plain call.
     It checkpoints only when grad mode is on and a tensor among ``args``
     (tensors or dicts and tuples of them: a layer's parameters are passed
-    as an argument, not closed over, so that they count) requires grad;
+    as an argument, not closed over, so that they count; a rank's block
+    counts by its tensor) requires grad;
     otherwise a plain call, so a forward with grad off is unchanged."""
     if mode == "none" or not (torch.is_grad_enabled()
                               and _requires_grad(args)):

@@ -144,15 +144,14 @@ def _layers(params, cfg: LMConfig) -> list:
 def _ffn(p_layer, cfg: LMConfig, h):
     """The layer's FFN and its aux loss (0.0 for the dense MLP).  The MoE
     reads the ambient mesh, as the reference's: its data axes, and FSDP
-    over ``data`` where the profile shards ``embed`` over it."""
+    over the axis that places the rank's expert blocks' ``embed`` dim
+    (the profile's ``embed`` rule; none for whole tensors)."""
     if cfg.moe is not None:
         from ..dist.sharding import current_context
 
         ctx = current_context()
-        fsdp = None
-        if (cfg.moe.impl == "shard_map" and ctx.profile is not None
-                and ctx.profile.rules.get("embed") == "data"):
-            fsdp = "data"
+        wg = p_layer["moe"]["w_gate"]
+        fsdp = None if isinstance(wg, torch.Tensor) else wg.sharding.spec[1]
         return moe_ffn(p_layer["moe"], cfg.moe, h, mesh=ctx.mesh,
                        data_axes=ctx.data_axes, fsdp_axis=fsdp)
     return swiglu(p_layer["mlp"], h), 0.0

@@ -15,12 +15,13 @@ Three dispatch implementations, sharing the router and expert parameters:
   tokens, the k weighted rows added into zeros in expert-sorted order,
   the partial outputs all-reduced over ``model`` and the aux loss
   averaged over the data axes and ``model``.  The expert weights come as
-  the rank's blocks (``dist.collectives.LocalBlock``, from the serve
-  steps on a mesh), their FSDP shards gathered over the ``fsdp_axis`` in
-  the compute dtype; with whole tensors (no mesh, or the data-parallel
-  train step, which gathers every parameter whole) it is the one-shard
-  body, ``lo = 0``, with no collective: the train step dispatches each
-  rank's rows and averages the aux loss over the ranks itself.
+  the rank's blocks (``dist.collectives.LocalBlock``, from the train and
+  serve steps on a mesh), their FSDP shards gathered over the
+  ``fsdp_axis`` in the compute dtype; with whole tensors (no mesh) it is
+  the one-shard body, ``lo = 0``, with no collective.  Under autograd the
+  sums over ``model`` and the data axes carry the gradient (their
+  adjoints); the routing's counts, sort and capacity are integers
+  computed on the rank's tokens, with no exchange.
 
 Routing is the reference's: the router in ``router_dtype`` (f32), top-k
 with ties to the lower expert index, the k weights renormalised and cast

@@ -20,8 +20,11 @@ Failure model and the response here:
 
 The state lives on ``mesh`` (a ``DeviceMesh``, each leaf a DTensor on
 ``param_shardings(state_spec(...))``) or, with ``mesh=None``, whole on
-``device`` (the card unless the caller asks for the CPU).  The step
-consumes its state, as the reference's jitted step donates it.
+``device`` (the card unless the caller asks for the CPU).  On a mesh the
+step runs under the driver's ``use_mesh_context`` and computes tensor
+parallel on each rank's parameter blocks (``train/steps.py``
+``make_sharded_train_step``).  The step consumes its state, as the
+reference's jitted step donates it.
 """
 from __future__ import annotations
 

@@ -32,7 +32,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchDef
-from ..dist import DataParallel
+from ..dist import DataParallel, LocalBlock
 from ..models.common import (ParamSpec, materialize, tree_leaves, tree_map,
                              xent_over)
 from ..optim import AdamWConfig, adamw_init, adamw_step, opt_state_spec
@@ -81,19 +81,28 @@ def _split_micro(batch: dict, accum: int) -> dict:
     return {k: r(v) for k, v in batch.items()}
 
 
+def _tensor(p) -> torch.Tensor:
+    """A parameter leaf's tensor: a rank's ``LocalBlock`` by its block."""
+    return p.tensor if isinstance(p, LocalBlock) else p
+
+
 def cast_params_for_compute(arch: ArchDef, params):
     """fp32 master / low-precision compute: the >= 2-D f32 parameters
-    cast to the arch's compute dtype once at step entry (the reference's
-    opt-in knob, default off).  Under autograd the cast is in the graph,
-    so the gradients still arrive in f32."""
+    (tensors, or a rank's blocks) cast to the arch's compute dtype once
+    at step entry (the reference's opt-in knob, default off).  Under
+    autograd the cast is in the graph, so the gradients still arrive in
+    f32."""
     cdt = getattr(arch.cfg, "dtype", None)
     if cdt is None:
         return params
 
     def cast(p):
-        if p.ndim >= 2 and p.dtype == torch.float32:
-            return p.to(cdt)
-        return p
+        t = _tensor(p)
+        if t.ndim < 2 or t.dtype != torch.float32:
+            return p
+        if isinstance(p, LocalBlock):
+            return dataclasses.replace(p, tensor=t.to(cdt))
+        return t.to(cdt)
     return tree_map(cast, params)
 
 
@@ -103,15 +112,16 @@ def _detached(metrics: dict) -> dict:
 
 
 def _value_and_grad(arch: ArchDef, params, batch: dict, cast_once: bool,
-                    xent=None):
-    leaves = tree_leaves(params)
+                    xent=None, share: float = 1.0):
+    leaves = [_tensor(p) for p in tree_leaves(params)]
     for p in leaves:
         p.requires_grad_(True)
     try:
         with xent_over(*xent) if xent else contextlib.nullcontext():
             p = cast_params_for_compute(arch, params) if cast_once else params
             loss, metrics = arch.loss(p, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            seed = None if share == 1.0 else torch.full_like(loss, share)
+            grads = torch.autograd.grad(loss, leaves, seed, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -121,24 +131,27 @@ def _value_and_grad(arch: ArchDef, params, batch: dict, cast_once: bool,
 
 
 def value_and_grad(arch: ArchDef, params, batch: dict, *, accum: int = 1,
-                   cast_once: bool = False, xent: list | None = None):
+                   cast_once: bool = False, xent: list | None = None,
+                   share: float = 1.0):
     """``(loss, metrics, grads)`` of ``arch.loss`` at ``params`` (the
     reference's ``jax.value_and_grad(..., has_aux=True)``): the grads a
     tree like ``params``, zeros for a leaf the loss does not reach.  The
-    parameters require grad for the call only.  ``accum > 1``: the
-    micro-batches' gradients added in f32 in order and divided by
-    ``accum``, their loss and metrics averaged.  ``xent``: one
-    ``(count, scale)`` a micro-batch, under which its masked cross
-    entropy is normalized (``models.common.xent_over``)."""
+    parameters (tensors, or a rank's blocks) require grad for the call
+    only.  ``accum > 1``: the micro-batches' gradients added in f32 in
+    order and divided by ``accum``, their loss and metrics averaged.
+    ``xent``: one ``(count, scale)`` a micro-batch, under which its
+    masked cross entropy is normalized (``models.common.xent_over``).
+    ``share``: the seed of the backward (a rank's share of a mesh step's
+    mean loss, ``DataParallel.share``); the loss returned is unscaled."""
     xent = xent or [None] * accum
     if accum == 1:
-        return _value_and_grad(arch, params, batch, cast_once, xent[0])
+        return _value_and_grad(arch, params, batch, cast_once, xent[0], share)
     micro = _split_micro(batch, accum)
     grads, runs = None, []
     for i in range(accum):
         loss, metrics, g = _value_and_grad(
             arch, params, {k: v[i] for k, v in micro.items()}, cast_once,
-            xent[i])
+            xent[i], share)
         runs.append({**metrics, "loss": loss})
         if grads is None:
             grads = tree_map(lambda x: x.float().contiguous(), g)
@@ -211,40 +224,52 @@ def make_sharded_train_step(arch: ArchDef, opt_cfg: AdamWConfig,
                             accum: int = 1, cast_once: bool = False
                             ) -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` on a
-    ``DeviceMesh``, data parallel over ``batch_axes``.
+    ``DeviceMesh``: tensor parallel over the axes that shard the
+    parameters, data parallel over ``batch_axes``.
 
     ``state`` lives sharded at rest, each leaf a DTensor on its
     ``shardings`` leaf (``param_shardings(state_spec(...))``: parameters,
     both moments, the int8 scales, the counts); ``batch`` holds this
     rank's rows (``data.shard_batch``'s DTensors, or local tensors).  Each
-    step gathers every parameter whole (``full_tensor()``), runs
-    :func:`value_and_grad` on the rank's rows, takes each gradient as
-    ``Partial("avg")`` over the batch axes onto its leaf's placements (a
-    reduce-scatter, ``dist.DataParallel.reduce_grad``) and updates the
-    local shards in place (``optim.adamw_step`` with the clipping norm
-    and the int8 row absmax over the whole leaves).  The ``model`` axis
-    shards storage only: the model ranks of one data group compute the
-    same step on the same rows (tensor-parallel training is ROADMAP §1
-    item 5c; the serve steps below compute tensor parallel).
+    step hands the model every parameter as the rank's block
+    (``LocalBlock``, the local shard; with ``cast_once`` cast inside the
+    graph) and runs :func:`value_and_grad` on them and the rank's rows:
+    the model computes on its heads, columns and vocabulary block, a
+    weight sharded over an axis its use does not split gathered at that
+    use, layer by layer, never whole for the step, the logits gathered
+    over ``model`` for the one-device cross entropy (the serve steps'
+    layers, ``models/common.py``).  Each collective's backward is its
+    exact adjoint and the backward is seeded with the rank's share of
+    the mean over the mesh (``dist/collectives.py``), so each block's
+    gradient, summed over the axes that replicate its leaf
+    (``dist.DataParallel.reduce_grad``, once a leaf, in tree order), is
+    the leaf's local shard of the averaged gradient; the optimizer
+    updates the local shards in place (``optim.adamw_step`` with the
+    clipping norm and the int8 row absmax over the whole leaves).  The
+    step installs ``mesh`` and ``batch_axes`` as the ambient context
+    (``dist.use_mesh_context``, no profile) for the model to read.
 
     The masked cross entropy of each micro-batch is normalized by the
     tokens of the whole data-parallel micro-batch (``xent_over``), so the
     step equals the one-device step on the global batch however the
-    mask's tokens fall to the ranks.  The MoE dispatches each rank's rows
-    alone (the capacity from its own tokens) and its aux loss is averaged
+    mask's tokens fall to the ranks.  The MoE dispatches each data rank's
+    rows alone (the capacity from its own tokens), its aux loss averaged
     over the ranks: the reference's ``shard_map`` semantics.  The
     metrics are averaged over the batch axes before they are returned.
     On a mesh whose dims all have size 1 the step is the ``mesh=None``
     step bit for bit."""
+    from ..dist.sharding import use_mesh_context
+
     param_shardings = shardings["params"]
     dp = DataParallel(mesh, batch_axes, param_shardings)
 
     def train_step(state: dict, batch: dict):
-        params = tree_map(lambda d: d.full_tensor().detach(), state["params"])
+        params = tree_map(lambda d: LocalBlock.of(d.detach()), state["params"])
         local = {k: _local(v) for k, v in batch.items()}
-        loss, metrics, grads = value_and_grad(
-            arch, params, local, accum=accum, cast_once=cast_once,
-            xent=_xent_counts(dp, local, accum))
+        with use_mesh_context(mesh, None, multi_pod="pod" in batch_axes):
+            loss, metrics, grads = value_and_grad(
+                arch, params, local, accum=accum, cast_once=cast_once,
+                xent=_xent_counts(dp, local, accum), share=dp.share)
         del params
         it = iter([dp.reduce_grad(g, i)
                    for i, g in enumerate(tree_leaves(grads))])
@@ -273,18 +298,9 @@ def _tensor_parallel(params) -> bool:
 def _blocks(arch: ArchDef, params, cast_once: bool):
     """Each parameter DTensor as the rank's ``LocalBlock`` (one
     ``to_local()`` a leaf); ``cast_once``: the >= 2-D f32 blocks cast to
-    the compute dtype, as :func:`cast_params_for_compute` casts."""
-    from ..dist.collectives import LocalBlock
-
-    cdt = getattr(arch.cfg, "dtype", None)
-
-    def one(d):
-        b = LocalBlock.of(d)
-        if (cast_once and cdt is not None and b.tensor.ndim >= 2
-                and b.tensor.dtype == torch.float32):
-            b = dataclasses.replace(b, tensor=b.tensor.to(cdt))
-        return b
-    return tree_map(one, params)
+    the compute dtype (:func:`cast_params_for_compute`)."""
+    blocks = tree_map(LocalBlock.of, params)
+    return cast_params_for_compute(arch, blocks) if cast_once else blocks
 
 
 def _placed(b) -> DTensor:
@@ -352,7 +368,7 @@ def make_prefill_step(arch: ArchDef, *, max_len: int | None = None,
         if not _tensor_parallel(params):
             p = cast_params_for_compute(arch, params) if cast_once else params
             return arch.prefill(p, batch, max_len=max_len)
-        from ..dist.collectives import LocalBlock, spec_of
+        from ..dist.collectives import spec_of
         from ..dist.sharding import mesh_device, param_shardings
 
         if cache_profile is None:
@@ -399,7 +415,7 @@ def make_serve_step(arch: ArchDef, *, cast_once: bool = False) -> Callable:
         if not _tensor_parallel(params):
             p = cast_params_for_compute(arch, params) if cast_once else params
             return arch.decode(p, cache, batch)
-        from ..dist.collectives import LocalBlock, spec_of
+        from ..dist.collectives import spec_of
 
         leaves, length = _split_length(cache)
         blocks = {**tree_map(LocalBlock.of, leaves), "length": length}

@@ -64,8 +64,8 @@ def test_smoke_train_cell_on_both_worlds(tmp_path):
     assert one["status"] == two["status"] == "ok"
     assert (one["local_rows"], two["local_rows"]) == (4, 2)
     groups = one["collectives"]["ops_by_kind_axis_group"]
-    # the parameters sharded over model gathered whole, the gradients of
-    # the data-replicated parameters all-reduced over data
+    # the logits gathered over model (the tensor-parallel step), the
+    # gradients of the data-replicated parameters all-reduced over data
     assert groups.get("all-gather/model/16", 0) > 0
     assert groups.get("all-reduce/data/16", 0) > 0
     groups2 = two["collectives"]["ops_by_kind_axis_group"]

@@ -36,8 +36,9 @@ def test_cli_full_width_both_meshes(tmp_path):
         assert rec["cost"]["bytes_per_chip"] > 0
         assert rec["collectives"]["n_ops"] > 0
         kinds = rec["collectives"]["out_bytes_by_kind"]
-        # every parameter gathered whole over the model axis (item 5c),
-        # the gradients reduced over the data axes
+        # the logits and a layer's wk and wv gathered over the model
+        # axis, the row-parallel sums over it, the gradients reduced
+        # over the data axes
         assert kinds["all-gather"] > 0 and kinds["all-reduce"] > 0
         assert rec["peak_bytes_per_chip"] > rec["memory"][
             "argument_size_in_bytes"] > 0
